@@ -1,0 +1,84 @@
+"""The port stands alone: it imports neither jax nor the JAX package, its
+entry points refuse to fall back to the CPU, and chip_smoke.py refuses to
+run without a CUDA card."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _port_modules()
+    assert "repro_torch.serve.engine" in mods and len(mods) > 15
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    top = {name.split(".")[0] for name in _imported(path)}
+    assert not top & {"jax", "jaxlib", "repro", "ml_dtypes"}, top
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal needs its absence")
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, init_params
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("tacc-100m", smoke=True)
+    params = init_params(cfg, torch.Generator(), device="cpu")
+    for call in (lambda: ServeEngine(cfg, params),
+                 lambda: Transformer(cfg, params),
+                 lambda: init_params(cfg, torch.Generator()),
+                 lambda: init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal needs its absence")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "is_available" in out.stderr

@@ -1,0 +1,154 @@
+"""The port's kernel modules on the CPU: each wrapper, given CPU tensors,
+computes its plain version, held here against the JAX package's Pallas
+kernel (interpret mode) or its reference, on the same numpy inputs."""
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention_tpu
+from repro.kernels.rmsnorm import rmsnorm_tpu
+from repro.models.attention import flash_attention_xla, repeat_kv
+from repro_torch.kernels import (build, flash_attention, flash_attention_plain,
+                                 rmsnorm, rmsnorm_plain, rmsnorm_residual,
+                                 rmsnorm_residual_plain)
+
+# tests/test_kernels.py's shapes, (B, H, S, D)
+SHAPES = [(1, 2, 128, 64), (2, 4, 256, 128), (1, 1, 512, 128), (2, 2, 384, 64)]
+DTYPES = {"float32": (jnp.float32, torch.float32, 3e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a CPU tensor of ``dtype``."""
+    jd, td, _ = DTYPES[dtype]
+    t = torch.from_numpy(a).to(td)
+    return jnp.asarray(t.float().numpy()).astype(jd), t
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_vs_pallas_interpret(shape, dtype, causal):
+    B, H, S, D = shape
+    rng = np.random.default_rng([*shape, len(dtype), causal])
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal((B, S, H, D), np.float32), dtype)
+        for _ in range(3))
+    bhsd = (0, 2, 1, 3)
+    o_ref = flash_attention_tpu(qj.transpose(bhsd), kj.transpose(bhsd),
+                                vj.transpose(bhsd), causal=causal,
+                                interpret=True).transpose(bhsd)
+    o = flash_attention_plain(qt, kt, vt, causal=causal)
+    assert o.dtype == qt.dtype and o.shape == qt.shape
+    np.testing.assert_allclose(_f32(o), _f32(o_ref), atol=DTYPES[dtype][2])
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(flash_attention(qt, kt, vt, causal=causal), o)
+
+
+@jax.jit
+def _xla_gqa(q, k, v, lengths):
+    g = q.shape[2] // k.shape[2]
+    return flash_attention_xla(q, repeat_kv(k, g), repeat_kv(v, g),
+                               causal=True, lengths=lengths)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths", [[384, 384], [1, 200], [130, 7]])
+def test_flash_plain_gqa_ragged_vs_xla(dtype, lengths):
+    """GQA 3:1 with K/V at KV heads and a key-length mask, against the XLA
+    path on repeated K/V."""
+    B, S, H, KV, D = 2, 384, 6, 2, 64
+    rng = np.random.default_rng(len(dtype) + sum(lengths))
+    qj, qt = _pair(rng.standard_normal((B, S, H, D), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((B, S, KV, D), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((B, S, KV, D), np.float32), dtype)
+    lens = np.asarray(lengths, np.int32)
+    o_ref = _xla_gqa(qj, kj, vj, jnp.asarray(lens))
+    o = flash_attention(qt, kt, vt, causal=True,
+                        lengths=torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(o), _f32(o_ref), atol=DTYPES[dtype][2])
+
+
+def test_flash_plain_row_without_valid_key_averages_v():
+    """lengths = 0 masks every key with -1e30: the row averages V."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 16, 2, 64),
+                                                    np.float32))
+               for _ in range(3))
+    o = flash_attention_plain(q, k, v, causal=True,
+                              lengths=torch.zeros(1, dtype=torch.int32))
+    mean_v = v.mean(dim=1, keepdim=True).expand_as(v)
+    np.testing.assert_allclose(o.numpy(), mean_v.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("N,D", [(64, 256), (256, 512), (8, 128), (100, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_vs_pallas_interpret(N, D, dtype):
+    rng = np.random.default_rng(N * D)
+    xj, xt = _pair(rng.standard_normal((N, D), np.float32), dtype)
+    w = rng.standard_normal((D,), np.float32)
+    o_kernel = rmsnorm_tpu(xj, jnp.asarray(w), interpret=True)
+    o_ref = ref.rmsnorm_ref(xj, jnp.asarray(w))
+    o = rmsnorm_plain(xt, torch.from_numpy(w))
+    assert o.dtype == xt.dtype
+    np.testing.assert_allclose(_f32(o), _f32(o_kernel), atol=1e-5)
+    np.testing.assert_allclose(_f32(o), _f32(o_ref), atol=1e-5)
+    assert torch.equal(rmsnorm(xt, torch.from_numpy(w)), o)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (2, 7, 768)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_residual_plain_vs_ref(shape, dtype):
+    rng = np.random.default_rng(11)
+    xj, xt = _pair(rng.standard_normal(shape, np.float32), dtype)
+    rj, rt = _pair(rng.standard_normal(shape, np.float32), dtype)
+    w = rng.standard_normal((shape[-1],), np.float32)
+    ry, rs = ref.rmsnorm_residual_ref(xj, rj, jnp.asarray(w))
+    y, s = rmsnorm_residual_plain(xt, rt, torch.from_numpy(w))
+    np.testing.assert_allclose(_f32(y), _f32(ry), atol=2e-2)
+    # the sum is rounded to the input dtype exactly as the reference does
+    np.testing.assert_array_equal(_f32(s), _f32(rs))
+    y2, s2 = rmsnorm_residual(xt, rt, torch.from_numpy(w))
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    # and the fused result equals the unfused add-then-norm
+    assert torch.equal(y, rmsnorm_plain(s, torch.from_numpy(w)))
+
+
+def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
+    """A tensor off the CPU never reaches a plain version: a CUDA tensor
+    launches the kernel, anything else raises."""
+    q = torch.empty(1, 64, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(q, q[:, :, :1], q[:, :, :1])
+    x, w = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rmsnorm(x, w)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rmsnorm_residual(x, x, w)
+
+
+def test_build_without_the_toolkit_raises_naming_nvcc():
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    if shutil.which("nvcc") or os.path.exists(os.path.join(home, "bin",
+                                                           "nvcc")):
+        pytest.skip("nvcc is present; the refusal needs its absence")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    # the build key follows the source and the flags
+    assert build.library_path("rmsnorm").name.startswith("rmsnorm-")
+    assert build.library_path("rmsnorm") != build.library_path(
+        "flash_attention")
