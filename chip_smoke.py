@@ -6,10 +6,14 @@
 Phases, each printing one JSON line and raising on failure:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc;
+2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc, and
+   HGMMA (wgmma) in the SASS of both bf16 flash-attention kernels;
 3. kernels: each kernel against its plain PyTorch version at the serving
-   shapes of tacc-100m, with its time, the plain version's, one PyTorch
-   library call's where there is one, and its bound on this card;
+   shapes of tacc-100m (k/v as strided views of one tensor, as the model
+   gives them), with its time, the plain version's, one PyTorch library
+   call's where there is one, and its bound on this card; flash attention
+   also at its edges (a row with no valid key, a ragged tile at a batch
+   boundary, head dim 128);
 4. consistency: full-width tacc-100m, prefill + 4 decode steps against the
    full forward, and a prefill against the plain path on the CPU;
 5. serve: ServeEngine(max_batch=8, max_seq=512) serves 16 requests; every
@@ -23,6 +27,7 @@ printing anything, when no CUDA card is present.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,14 +135,51 @@ def phase_device() -> dict:
 
 # -- phase 2 ---------------------------------------------------------------
 
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel: the flash kernels as
+    ``flash_fwd_wgmma<bf16, 64>``, others by their mangled name."""
+    m = re.search(r"(flash_fwd_[a-z]+)I(f?)Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{'float' if m.group(2) else 'bf16'}, {m.group(3)}>"
+
+
+def hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each flash-attention kernel
+    of the built library. Fails unless both bf16 instantiations have them,
+    so a kernel that lost its tensor cores cannot pass."""
+    sass = subprocess.run(
+        [build.tool("cuobjdump"), "--dump-sass",
+         str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    counts = {kernel_name(part.split("\n", 1)[0].strip()): part.count("HGMMA")
+              for part in sass.split("Function : ")[1:]}
+    bf16 = {n: c for n, c in counts.items() if "<bf16," in n}
+    if len(bf16) != 2 or not all(bf16.values()):
+        raise AssertionError(f"the bf16 flash kernels lack HGMMA: {counts}")
+    return counts
+
+
+def ptxas_report(report: str) -> dict:
+    """ptxas's registers, spills and performance warnings, by kernel."""
+    out, name = {}, "?"
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "registers" in ln or "spill" in ln or "Performance" in ln:
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     reports = build.build_all()
-    ptxas = {name: [ln.split(":", 1)[-1].strip() for ln in rep.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, rep in reports.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": seconds,
+          "ptxas": {name: ptxas_report(rep) for name, rep in reports.items()},
+          "hgmma": hgmma_counts()})
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -155,8 +197,9 @@ def flash_case(dtype, lengths_list, *, causal=True, S=MAX_SEQ, D=None,
     D = D or cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
+    # k/v as project_qkv gives them: strided views of one (B,S,2,KV,D) tensor
+    kv = torch.randn(B, S, 2, KV, D, generator=g, device="cuda").to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     o = flash_attention(q, k, v, causal=causal, lengths=lengths)
     ref = flash_attention_plain(q, k, v, causal=causal, lengths=lengths)
@@ -260,12 +303,20 @@ def phase_kernels() -> dict:
             flash_case(bf16, [MAX_SEQ]),          # a full 512-token prefill
             flash_case(bf16, [136]),              # serve prompts' expected length
             flash_case(f32, [MAX_SEQ]),
+            flash_case(bf16, [MAX_SEQ], D=128),
             flash_case(bf16, [37, 0], timed=False),
             flash_case(f32, [300, 1], timed=False),
             flash_case(bf16, [MAX_SEQ], causal=False, timed=False),
             flash_case(f32, [100], S=200, timed=False),   # ragged tile edge
+            # a ragged tile edge at a batch boundary: a store past S would
+            # land in the next batch's rows
+            flash_case(bf16, [200, 150], S=200, timed=False),
+            # eight rows with lengths at and around tile edges
+            flash_case(bf16, [1, 64, 65, 512, 0, 300, 511, 128], timed=False),
+            flash_case(bf16, [1], S=1, timed=False),
             flash_case(bf16, [200, 512], D=128, timed=False),
             flash_case(f32, [77], S=300, D=128, timed=False),
+            flash_case(bf16, [77], S=300, D=128, timed=False),
         ],
         "rmsnorm": [rms_case(dt, n, False) for dt in (bf16, f32)
                     for n in (MAX_SEQ, MAX_BATCH)],

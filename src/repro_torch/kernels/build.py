@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface, ``build/repro_torch/<name>-<hash>.so`` at the root of the
-checkout, keyed by a hash of the source and the flags. A library is built
-at its first use, and a build failure raises with nvcc's stderr.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+checkout, keyed by a hash of every source under ``csrc/`` and the flags.
+A library is built at its first use, and a build failure raises with
+nvcc's stderr. :func:`build_all` starts one ``nvcc`` per source, all at
+once.
 """
 from __future__ import annotations
 
@@ -20,30 +21,42 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    path = shutil.which(name) or os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked on PATH and at {path}); "
+        raise RuntimeError(f"{name} not found (looked on PATH and at {path}); "
                            f"the port's CUDA kernels need the CUDA toolkit")
     return path
 
 
+def source_key() -> str:
+    """Hash of every source under ``csrc/`` (``.cu``, ``.cuh``, ``.h``, by
+    relative path and content) and the flags: a change to any file a
+    library may include rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob("*")
+                       if p.suffix in SOURCE_SUFFIXES):
+        h.update(b"\0" + path.relative_to(CSRC).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    return BUILD_DIR / f"{name}-{source_key()}.so"
 
 
 def _start(name: str) -> "subprocess.Popen | None":
     out = library_path(name)
     if out.exists():
         return None
-    nvcc = _nvcc()
+    nvcc = tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -1,15 +1,41 @@
 // Causal / full flash attention forward for Hopper (sm_90a), with GQA and a
-// per-row key-length mask.
+// per-row key-length mask. Two kernels, picked by dtype alone:
+//
+// - bfloat16: flash_fwd_wgmma, on the tensor cores (wgmma) with its K/V
+//   tiles brought in by TMA;
+// - float32: flash_fwd_kernel, on the f32 FMA units. TF32 tensor cores keep
+//   about three decimal digits and cannot meet the f32 bar (3e-5).
 //
 // Replaces the Pallas TPU kernel flash_attention_tpu
 // (src/repro/kernels/flash_attention.py). At the serving shapes
-// (S = 512, D = 64) it does about 190 operations per byte it must move, so
-// on this card it sits below the bf16 ridge (~295 operations per byte) and
-// is bound by bytes in principle. This first version is bound by neither:
-// it runs its products on the f32 FMA units out of shared memory, not on
-// the tensor cores (no wgmma or TMA yet).
+// (q (1, 512, 12, 64), k/v (1, 512, 4, 64), causal) it does about 190
+// operations per byte it must move, below the card's bf16 ridge (~295
+// operations per byte), so it is bound by device-memory bytes: 0.63 us for
+// 2.1 MB at 3.35 TB/s. At one 64-row q tile per block the serving shape
+// gives 96 blocks for 132 SMs, so in practice the latency of the longest
+// block, the last q tile with 8 k tiles, sets the time.
 //
-// What the design does about the TPU's layout:
+// What the bf16 kernel does about what held the first (FMA) version back:
+// - Products on the FMA pipe: S = Q K^T and O += P V are wgmma m64nNk16
+//   products, bf16 in, f32 accumulators in registers.
+// - f32 tiles in shared memory, loaded element by element: tiles stay bf16
+//   (8 KB per 64 x 64 tile) and TMA copies each with one instruction, in
+//   the 128-byte swizzle that the wgmma descriptors read.
+// - Loads that never overlap compute: K/V tiles go through a two-stage ring
+//   with one mbarrier per tile, so tile k+1 arrives while tile k is
+//   multiplied.
+// - P through shared memory: the S accumulator fragment is the layout of
+//   wgmma's register A operand, so p is packed to bf16 pairs in registers
+//   and never stored. One __syncthreads per k tile is left, to free a ring
+//   stage for its next load.
+//
+// The tensor maps carry the real strides of q, k and v (innermost stride
+// 1), so the strided k/v views of the fused kv projection are read in
+// place. They keep a separate S dimension: rows past S read as zeros and
+// never alias the next batch's rows. O is stored per thread, masked by
+// row < S.
+//
+// Semantics shared by both kernels:
 // - The TPU walks the k blocks as a sequential grid axis with the running
 //   max / denominator / accumulator in VMEM scratch. Here one block owns one
 //   (batch, head, 64-row q tile) and loops over the k tiles itself, keeping
@@ -26,8 +52,10 @@
 //   1e-30.
 //
 // Plain C interface, loaded with ctypes. The entry returns the value of
-// cudaGetLastError() after its launch (0 = success).
+// cudaGetLastError() after its launch (0 = success). cuTensorMapEncodeTiled
+// comes through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,14 +71,14 @@ constexpr int kTY = kThreads / kTX;     // threads along query rows
 constexpr float kNegInf = -1e30f;       // the reference's mask value
 constexpr int kMaxDevices = 64;
 
+// ---------------------------------------------------------------------------
+// float32: f32 FMA from shared memory
+// ---------------------------------------------------------------------------
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -219,26 +247,463 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma tensor-core products fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 64;               // q rows, keys per k tile, columns per swizzle atom
+constexpr int kAtomBytes = kTile * 128; // 64 rows of one 128-byte swizzled row each
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, in bytes from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 1024 bytes): Q, two K stages, two V stages, then
+// the mbarriers (Q, K[2], V[2]).
+template <int D>
+struct WgLayout {
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = 3 * kTileBytes;
+  static constexpr int kBar = 5 * kTileBytes;
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of the given parity to complete. A load that never
+// arrives (a bad tensor map) traps after 10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) asm volatile("trap;");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// One box of the 4-d map (D, heads, S, B) into shared memory at dst;
+// completion is counted on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+         "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma descriptor of a tile that TMA wrote with the 128-byte swizzle.
+// lbo: bytes between 64-column atoms (read for an MN-major operand only);
+// sbo: bytes between groups of 8 rows (1024).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 64, f32) (+)= A (64 x 16) B^T, both bf16 and K-major in shared
+// memory; accumulate when acc != 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B, with B (16 x N)
+// MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_D8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One warpgroup per (64-row q tile, head, batch); grid = (ceil(S / 64), H,
+// B). Maps: q (D, H, S, B), k/v (D, KV, S, B), box (64, 1, 64, 1).
+//
+// Accumulator fragments (wgmma's layout): thread t of warp w = t / 32 holds
+// rows r0 = 16 w + (t % 32) / 4 and r0 + 8, and in each 8-column block the
+// columns 2 (t % 4) and 2 (t % 4) + 1; register i is row r0 + 8 ((i / 2) %
+// 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                __nv_bfloat16* __restrict__ o, const int* __restrict__ lengths,
+                int S, int H, int KV, int causal, float scale) {
+  using L = WgLayout<D>;
+  constexpr int kAtoms = D / 64;        // 64-column atoms in a row of D
+  constexpr int kNO = D / 2;            // O accumulator floats a thread holds
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t barQ = base + L::kBar, barK = barQ + 8, barV = barQ + 24;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int len = lengths ? lengths[b] : S;
+  // keys at or past kend are masked for every row of this tile, except when
+  // lengths[b] <= 0: then no key is valid and every row averages all S
+  int kend = causal ? min(S, q0 + kTile) : S;
+  if (len > 0) kend = min(kend, len);
+  else kend = S;
+  const int ntiles = (kend + kTile - 1) / kTile;
+
+  auto load_kv = [&](int t) {           // thread 0 only
+    const int s = t & 1;
+    mbar_expect_tx(barK + 8 * s, L::kTileBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load(sK + s * L::kTileBytes + a * kAtomBytes, &k_map, barK + 8 * s,
+               a * 64, kvh, t * kTile, b);
+    mbar_expect_tx(barV + 8 * s, L::kTileBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load(sV + s * L::kTileBytes + a * kAtomBytes, &v_map, barV + 8 * s,
+               a * 64, kvh, t * kTile, b);
+  };
+
+  if (tid == 0) {
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    for (int i = 0; i < 5; ++i) mbar_init(barQ + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(barQ, L::kTileBytes);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a)
+      tma_load(sQ + a * kAtomBytes, &q_map, barQ, a * 64, h, q0, b);
+    load_kv(0);
+    if (ntiles > 1) load_kv(1);
+  }
+
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t & 1;
+    const uint32_t parity = (t >> 1) & 1;
+    const int k0 = t * kTile;
+    if (t == 0) mbar_wait(barQ, 0);
+    mbar_wait(barK + 8 * s, parity);
+
+    // S = Q K^T over D in steps of 16: 32 bytes along the swizzled row, and
+    // the next 64-column atom after four steps
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wg_fence();
+    fence_regs(sc);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+      wgmma_ss_n64(sc, sw128_desc(sQ + off, 16),
+                   sw128_desc(sK + s * L::kTileBytes + off, 16), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(sc);
+
+    // scale and mask; tiles wholly inside the valid keys skip the mask
+    const bool whole = k0 + kTile <= min(len, S) &&
+                       (!causal || k0 + kTile - 1 <= q0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = sc[i] * scale;
+      if (!whole) {
+        const int kpos = k0 + (i >> 2) * 8 + cq + (i & 1);
+        const int qpos = q0 + r0 + 8 * r;
+        const bool ok = kpos < len && (!causal || kpos <= qpos);
+        // keys past S do not exist: they take no share of the softmax
+        x = kpos >= S ? -INFINITY : (ok ? x : kNegInf);
+      }
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {       // the 4 threads of a quad share a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    // p in bf16 pairs: registers 8j..8j+7 of S are wgmma's A fragment
+    // (a0..a3) for keys 16j..16j+15
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = exp2f((sc[i] - mx[r]) * kLog2e);
+      const float p1 = exp2f((sc[i + 1] - mx[r]) * kLog2e);
+      l[r] += p0 + p1;
+      pa[i / 8][(i / 2) % 4] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V over the 64 keys in steps of 16 rows (2048 bytes)
+    mbar_wait(barV + 8 * s, parity);
+    wg_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wgmma_rs(acc, pa[j], sw128_desc(sV + s * L::kTileBytes + j * 2048,
+                                      kAtomBytes));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+
+    __syncthreads();                    // every warp is done with stage s
+    if (tid == 0 && t + 2 < ntiles) load_kv(t + 2);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + r0 + 8 * r;
+    if (row >= S) continue;             // never the next batch's rows
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* out = o + (((int64_t)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(out + c * 8 + cq) =
+          pack_bf16(acc[4 * c + 2 * r] / den, acc[4 * c + 2 * r + 1] / den);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 4-d map over a bf16 (B, S, heads, D) tensor with the given element
+// strides, boxes of (64 columns, 1 head, 64 rows, 1 batch).
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
+             const long long* strides /* batch, seq, head */) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)strides[2] * 2,
+                               (cuuint64_t)strides[1] * 2,
+                               (cuuint64_t)strides[0] * 2};
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const int* lengths, int B, int S, int H, int KV,
+                 const long long* strides, int causal, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, B, S, H, D, strides);
+  if (!err) err = make_map(&km, k, B, S, KV, D, strides + 3);
+  if (!err) err = make_map(&vm, v, B, S, KV, D, strides + 6);
+  if (err) return err;
+  const int smem = WgLayout<D>::kBytes;
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t cerr = cudaGetDevice(&dev);
+  if (cerr != cudaSuccess) return (int)cerr;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    cerr = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+    if (cerr != cudaSuccess) return (int)cerr;
+    configured[dev] = true;
+  }
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  flash_fwd_wgmma<D><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, (__nv_bfloat16*)o, lengths, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// Strides fit TMA: 16-byte aligned base and 16-byte multiples.
+bool tma_ok(const void* p, const long long* strides) {
+  if ((uintptr_t)p % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (strides[i] <= 0 || (strides[i] * 2) % 16) return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 (the wrapper checks).
+// strides: element strides (batch, seq, head) of q, then k, then v; the
+// head dim has stride 1. float32 takes contiguous tensors only.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const void* lengths, int B, int S, int H, int KV,
-                        int D, int causal, float scale, int dtype,
-                        void* stream) {
+                        int D, const long long* strides, int causal,
+                        float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   const int* len = (const int*)lengths;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
+  if (dtype == 0) {
+    const long long dense[9] = {(long long)S * H * D, (long long)H * D, D,
+                                (long long)S * KV * D, (long long)KV * D, D,
+                                (long long)S * KV * D, (long long)KV * D, D};
+    for (int i = 0; i < 9; ++i)
+      if (strides[i] != dense[i]) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch<float, 64>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
+    if (D == 128)
+      return launch<float, 128>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
+  }
+  if (dtype == 1) {
+    if (!tma_ok(q, strides) || !tma_ok(k, strides + 3) ||
+        !tma_ok(v, strides + 6))
+      return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_wgmma<64>(q, k, v, o, len, B, S, H, KV, strides, causal,
+                              scale, st);
+    if (D == 128)
+      return launch_wgmma<128>(q, k, v, o, len, B, S, H, KV, strides, causal,
+                               scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

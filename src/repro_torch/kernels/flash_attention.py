@@ -3,10 +3,12 @@ kernel and its plain version.
 
 Replaces ``repro/kernels/flash_attention.py`` (``flash_attention_tpu``) and
 takes over the ``lengths`` masking that ``repro/kernels/ops.py`` left to the
-XLA path. Kernel: ``csrc/flash_attention.cu``. At the serving shapes the
-work is bound by device-memory bytes on the H100 (about 190 operations per
-byte, below the bf16 ridge); this first kernel runs its products on the
-f32 FMA units, far from that bound. Its header says how it is laid out.
+XLA path. Kernels: ``csrc/flash_attention.cu``, two of them, picked by
+dtype: bfloat16 runs on the tensor cores (wgmma) with K/V tiles brought
+in by TMA and reads strided q/k/v in place; float32 runs on the f32 FMA
+units from contiguous tensors. At the serving shapes the work is bound by
+device-memory bytes on the H100 (about 190 operations per byte, below the
+bf16 ridge). The source's header says how each is laid out.
 
 Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
 with H a multiple of KV; head h reads KV head h // (H // KV). ``lengths``
@@ -55,8 +57,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, ctypes.c_float, _I, _P]}
+_STRIDES = ctypes.c_longlong * 9
+_SIGNATURES = {"flash_attention_fwd": [
+    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
+    _I, ctypes.c_float, _I, _P]}
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """Element strides of (batch, seq, head) of a (B, S, heads, D) tensor; a
+    dimension of size 1 gets the stride a contiguous tensor would have, since
+    its stride is never read."""
+    (B, S, n, D), (sb, ss, sh, sd) = t.shape, t.stride()
+    sh = sh if n > 1 else D * sd
+    ss = ss if S > 1 else n * sh
+    return (sb if B > 1 else S * ss), ss, sh
+
+
+def _in_place(t: torch.Tensor) -> tuple:
+    """``t`` and its strides where the bf16 kernel's TMA can read it in
+    place (head dim contiguous, 16-byte aligned base and strides), else a
+    contiguous copy and its strides."""
+    st = _strides(t)                    # 8 bf16 elements = 16 bytes
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 8 for s in st):
+        t = t.clone(memory_format=torch.contiguous_format)
+        st = _strides(t)
+    return t, st
 
 
 def _check(q, k, v, lengths) -> None:
@@ -98,17 +123,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, lengths)
     lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
-    # project_qkv's k/v are strided views of the fused kv projection
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # project_qkv's k/v are strided views of the fused kv projection: the
+    # bf16 kernel reads them in place, the f32 one takes contiguous copies
+    if q.dtype == torch.bfloat16:
+        (q, sq), (k, sk), (v, sv) = _in_place(q), _in_place(k), _in_place(v)
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        sq, sk, sv = _strides(q), _strides(k), _strides(v)
     if lengths is not None:
         lengths = lengths.contiguous()
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)   # contiguous
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
-            B, S, H, k.shape[2], D, int(causal), 1.0 / math.sqrt(D),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            B, S, H, k.shape[2], D, _STRIDES(*sq, *sk, *sv), int(causal),
+            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return o

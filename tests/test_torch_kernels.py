@@ -1,6 +1,7 @@
 """The port's kernel modules on the CPU: each wrapper, given CPU tensors,
 computes its plain version, held here against the JAX package's Pallas
 kernel (interpret mode) or its reference, on the same numpy inputs."""
+import importlib
 import os
 import shutil
 
@@ -66,12 +67,19 @@ def _xla_gqa(q, k, v, lengths):
                                causal=True, lengths=lengths)
 
 
+# (S, lengths); the last is chip_smoke.py's case of a ragged tile edge at a
+# batch boundary
+GQA_CASES = [(384, [384, 384]), (384, [1, 200]), (384, [130, 7]),
+             (200, [200, 150])]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("lengths", [[384, 384], [1, 200], [130, 7]])
-def test_flash_plain_gqa_ragged_vs_xla(dtype, lengths):
+@pytest.mark.parametrize("S,lengths", GQA_CASES,
+                         ids=[f"lengths{i}" for i in range(len(GQA_CASES))])
+def test_flash_plain_gqa_ragged_vs_xla(dtype, S, lengths):
     """GQA 3:1 with K/V at KV heads and a key-length mask, against the XLA
     path on repeated K/V."""
-    B, S, H, KV, D = 2, 384, 6, 2, 64
+    B, H, KV, D = 2, 6, 2, 64
     rng = np.random.default_rng(len(dtype) + sum(lengths))
     qj, qt = _pair(rng.standard_normal((B, S, H, D), np.float32), dtype)
     kj, kt = _pair(rng.standard_normal((B, S, KV, D), np.float32), dtype)
@@ -152,3 +160,48 @@ def test_build_without_the_toolkit_raises_naming_nvcc():
     assert build.library_path("rmsnorm").name.startswith("rmsnorm-")
     assert build.library_path("rmsnorm") != build.library_path(
         "flash_attention")
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "detail/common.h"])
+def test_build_key_follows_every_source_under_csrc(tmp_path, monkeypatch,
+                                                   header):
+    """On a copy of csrc/: adding or editing a header a source may include,
+    or editing another source, changes the key; a file that is not a
+    source does not."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    key = build.library_path("flash_attention")
+    assert key.parent == build.BUILD_DIR
+    (csrc / header).parent.mkdir(parents=True, exist_ok=True)
+    (csrc / header).write_text("#pragma once\n")
+    added = build.library_path("flash_attention")
+    (csrc / header).write_text("#pragma once\n// edited\n")
+    edited = build.library_path("flash_attention")
+    assert len({key, added, edited}) == 3
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert build.library_path("flash_attention") == edited
+    rms = csrc / "rmsnorm.cu"
+    rms.write_text(rms.read_text() + "\n")
+    assert build.library_path("flash_attention") != edited
+
+
+def test_flash_bf16_reads_strided_views_in_place():
+    """The bf16 kernel's TMA reads project_qkv's k/v views of the fused
+    projection as they are, by their strides; a tensor it cannot read (an
+    unaligned base, a strided head dim) is copied first."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    kv = torch.zeros(2, 16, 2, 4, 64, dtype=torch.bfloat16)
+    for t in (kv[:, :, 0], kv[:, :, 1]):
+        same, strides = fa._in_place(t)
+        assert same is t and strides == (16 * 2 * 4 * 64, 2 * 4 * 64, 64)
+    # a dimension of size 1 gets the stride a contiguous tensor would have
+    assert fa._strides(torch.zeros(1, 16, 1, 64).as_strided(
+        (1, 16, 1, 64), (3, 64, 5, 1))) == (16 * 64, 64, 64)
+    flat = torch.arange(1 + 16 * 4 * 64, dtype=torch.float32).bfloat16()
+    for bad in (flat[1:].view(1, 16, 4, 64),                 # base 2 bytes off
+                kv.view(2, 16, 4, 128)[..., ::2]):           # head dim stride 2
+        copy, strides = fa._in_place(bad)
+        assert copy is not bad and copy.is_contiguous()
+        assert copy.data_ptr() % 16 == 0 and torch.equal(copy, bad)
+        assert strides == fa._strides(copy)
