@@ -6,14 +6,18 @@
 Phases, each printing one JSON line and raising on failure:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc, and
-   HGMMA (wgmma) in the SASS of both bf16 flash-attention kernels;
+2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc;
+   HGMMA (wgmma) in the SASS of both bf16 flash-attention kernels, and
+   128-bit global loads and stores in every 16-byte rmsnorm kernel;
 3. kernels: each kernel against its plain PyTorch version at the serving
    shapes of tacc-100m (k/v as strided views of one tensor, as the model
    gives them), with its time, the plain version's, one PyTorch library
    call's where there is one, and its bound on this card; flash attention
    also at its edges (a row with no valid key, a ragged tile at a batch
-   boundary, head dim 128);
+   boundary, head dim 128), the norms at theirs (one row, a ragged last
+   block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384),
+   each with the variant the wrapper launched; and the launch floor, an
+   empty kernel's time;
 4. consistency: full-width tacc-100m, prefill + 4 decode steps against the
    full forward, and a prefill against the plain path on the CPU;
 5. serve: ServeEngine(max_batch=8, max_seq=512) serves 16 requests; every
@@ -43,6 +47,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import (build, flash_attention, flash_attention_plain,
                                  rmsnorm, rmsnorm_plain, rmsnorm_residual,
                                  rmsnorm_residual_plain)
+from repro_torch.kernels.rmsnorm import launch_empty
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
                                 init_params, prefill, train_logits)
 from repro_torch.serve import ServeEngine
@@ -137,26 +142,60 @@ def phase_device() -> dict:
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel: the flash kernels as
-    ``flash_fwd_wgmma<bf16, 64>``, others by their mangled name."""
+    ``flash_fwd_wgmma<bf16, 64>``, the norm kernels as
+    ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, others by their
+    mangled name."""
     m = re.search(r"(flash_fwd_[a-z]+)I(f?)Li(\d+)E", mangled)
-    if not m:
-        return mangled
-    return f"{m.group(1)}<{'float' if m.group(2) else 'bf16'}, {m.group(3)}>"
+    if m:
+        return (f"{m.group(1)}<{'float' if m.group(2) else 'bf16'}, "
+                f"{m.group(3)}>")
+    m = re.search(r"rmsnorm_kernelI(f|\d+__nv_bfloat16)Lb([01])ELi(\d+)E"
+                  r"Li(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"rmsnorm_kernel<{'float' if m.group(1) == 'f' else 'bf16'}, "
+                f"residual={m.group(2)}, V={m.group(3)}, NV={m.group(4)}, "
+                f"{'wide' if m.group(5) == '1' else 'warp'}>")
+    return mangled
+
+
+def sass(library: str) -> dict:
+    """The SASS of each kernel of a built library, by readable name."""
+    out = subprocess.run(
+        [build.tool("cuobjdump"), "--dump-sass",
+         str(build.library_path(library))],
+        capture_output=True, text=True, check=True).stdout
+    return {kernel_name(part.split("\n", 1)[0].strip()): part
+            for part in out.split("Function : ")[1:]}
 
 
 def hgmma_counts() -> dict:
     """HGMMA (wgmma) instructions in the SASS of each flash-attention kernel
     of the built library. Fails unless both bf16 instantiations have them,
     so a kernel that lost its tensor cores cannot pass."""
-    sass = subprocess.run(
-        [build.tool("cuobjdump"), "--dump-sass",
-         str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, check=True).stdout
-    counts = {kernel_name(part.split("\n", 1)[0].strip()): part.count("HGMMA")
-              for part in sass.split("Function : ")[1:]}
+    counts = {n: text.count("HGMMA")
+              for n, text in sass("flash_attention").items()}
     bf16 = {n: c for n, c in counts.items() if "<bf16," in n}
     if len(bf16) != 2 or not all(bf16.values()):
         raise AssertionError(f"the bf16 flash kernels lack HGMMA: {counts}")
+    return counts
+
+
+def wide_access_counts() -> dict:
+    """128-bit global loads and stores (LDG/STG with .128) in the SASS of
+    each rmsnorm kernel. Fails unless the bf16 warp-per-row kernels of K2
+    and K3 are there and every kernel with 16-byte accesses (V > 1) has
+    both, so a kernel that lost its vectors cannot pass."""
+    counts = {n: {op: len(re.findall(rf"\b{op}(?:\.\w+)*?\.128\b", text))
+                  for op in ("LDG", "STG")}
+              for n, text in sass("rmsnorm").items()}
+    vector = {n: c for n, c in counts.items()
+              if n.startswith("rmsnorm_kernel<") and "V=1," not in n}
+    warp = [n for n in vector if "<bf16," in n and n.endswith("warp>")]
+    if (not any("residual=0" in n for n in warp)
+            or not any("residual=1" in n for n in warp)
+            or not all(c["LDG"] and c["STG"] for c in vector.values())):
+        raise AssertionError(f"the 16-byte rmsnorm kernels lack 128-bit "
+                             f"loads or stores: {counts}")
     return counts
 
 
@@ -179,7 +218,7 @@ def phase_build() -> None:
     seconds = time.perf_counter() - t0
     emit({"phase": "build", "seconds": seconds,
           "ptxas": {name: ptxas_report(rep) for name, rep in reports.items()},
-          "hgmma": hgmma_counts()})
+          "hgmma": hgmma_counts(), "ldst128": wide_access_counts()})
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -239,20 +278,37 @@ def flash_case(dtype, lengths_list, *, causal=True, S=MAX_SEQ, D=None,
     return case
 
 
-def rms_case(dtype, rows, residual: bool):
-    D = get_config("tacc-100m").d_model
-    g = torch.Generator(device="cuda").manual_seed(SEED + rows)
-    x = torch.randn(rows, D, generator=g, device="cuda").to(dtype)
+def _norm_within_bar(y: torch.Tensor, ref: torch.Tensor):
+    """Whether a normed output is within K2's and K3's bar of its plain
+    version, and the bar: one bf16 ulp in bf16, 1e-5 in f32."""
+    if y.dtype == torch.bfloat16:
+        return (bool(((y.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()),
+                "1 bf16 ulp")
+    return max_err(y, ref) <= 1e-5, 1e-5
+
+
+def rms_case(dtype, rows, residual: bool, *, D=None, offset=0, timed=True):
+    """One case of K2 (``residual`` False) or K3: rows of D (tacc-100m's
+    d_model by default), x at ``offset`` elements into its storage. K3's
+    sum must equal its plain version's bit for bit, and its normed output
+    is held to K2's bar against the plain norm of that sum."""
+    D = D or get_config("tacc-100m").d_model
+    g = torch.Generator(device="cuda").manual_seed(SEED + rows + D)
+    x = torch.randn(offset + rows * D, generator=g,
+                    device="cuda").to(dtype)[offset:].view(rows, D)
     r = torch.randn(rows, D, generator=g, device="cuda").to(dtype)
     w = torch.randn(D, generator=g, device="cuda")
     eps = 1e-5
-    case = {"dtype": str(dtype).split(".")[-1], "x": [rows, D]}
+    case = {"dtype": str(dtype).split(".")[-1], "x": [rows, D],
+            "x_offset_bytes": offset * x.element_size()}
     if residual:
         (y, s), (ry, rs) = (rmsnorm_residual(x, r, w, eps),
                             rmsnorm_residual_plain(x, r, w, eps))
         torch.cuda.synchronize()
-        ok = max_err(y, ry) <= 2e-2 and torch.equal(s, rs)
-        case.update(max_abs_err=max_err(y, ry), tol=2e-2,
+        ok, tol = _norm_within_bar(y, ry)
+        ok = ok and torch.equal(s, rs)
+        case.update(variant=rmsnorm_residual.variant,
+                    max_abs_err=max_err(y, ry), tol=tol,
                     sum_bit_equal=bool(torch.equal(s, rs)))
         kernel, plain, library, lib_name = (
             lambda: rmsnorm_residual(x, r, w, eps),
@@ -261,28 +317,50 @@ def rms_case(dtype, rows, residual: bool):
     else:
         y, ry = rmsnorm(x, w, eps), rmsnorm_plain(x, w, eps)
         torch.cuda.synchronize()
-        if dtype == torch.bfloat16:     # within one bf16 ulp
-            ok = bool(((y.float() - ry.float()).abs() <= _bf16_ulp(ry)).all())
-            tol = "1 bf16 ulp"
-        else:
-            ok, tol = max_err(y, ry) <= 1e-5, 1e-5
-        case.update(max_abs_err=max_err(y, ry), tol=tol)
+        ok, tol = _norm_within_bar(y, ry)
+        case.update(variant=rmsnorm.variant, max_abs_err=max_err(y, ry),
+                    tol=tol)
         wx = w.to(dtype)                # F.rms_norm fuses only for one dtype
         kernel, plain, library, lib_name = (
             lambda: rmsnorm(x, w, eps), lambda: rmsnorm_plain(x, w, eps),
             lambda: F.rms_norm(x, (D,), wx, eps),
             "F.rms_norm (weight in the input dtype)")
         moved, flops = nbytes(x, w, y), 4.0 * x.numel()
+    ok = ok and bool(torch.isfinite(y.float()).all())
     if not ok:
         raise AssertionError(f"{'rmsnorm_residual' if residual else 'rmsnorm'}"
                              f" disagrees with its plain version: {case}")
+    if not timed:
+        return case
     b_ms, b_by = bound(moved, flops, torch.float32)
     case.update(ms=time_ms(kernel), call_ms=call_ms(kernel),
                 plain_ms=time_ms(plain),
                 library_ms=time_ms(library) if library else None,
                 library=lib_name, bound_ms=b_ms, bound_by=b_by, bytes=moved,
-                flops=flops)
+                flops=flops,
+                # one read and one write of x by PyTorch's copy kernel: what
+                # any kernel that reads and writes rows this size costs here
+                copy_ms=time_ms(lambda: torch.empty_like(x).copy_(x)))
     return case
+
+
+def rms_cases(residual: bool, floor: float) -> list:
+    """K2's or K3's cases: the timed serving shapes first, then the edges,
+    each variant, and the JAX suite's shapes, in both dtypes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    timed = [rms_case(dt, n, residual) for dt in (bf16, f32)
+             for n in (MAX_SEQ, MAX_BATCH)]
+    for c in timed:
+        c["floor_ms"] = floor
+    edges = [(1, {}), (13, {}),                      # a ragged last block
+             (MAX_BATCH, {"D": 770}),                 # row bytes off 16
+             (MAX_BATCH, {"offset": 1}),              # base 2 or 4 bytes off
+             # every warp-layout width kept (1536, 2048), then the wide one
+             (MAX_BATCH, {"D": 1536}), (MAX_BATCH, {"D": 2048}),
+             (MAX_BATCH, {"D": 8192}), (MAX_BATCH, {"D": 16384}),
+             (100, {"D": 384}), (8, {"D": 128})]      # tests/test_kernels.py
+    return timed + [rms_case(dt, rows, residual, timed=False, **kw)
+                    for dt in (bf16, f32) for rows, kw in edges]
 
 
 KERNELS = [
@@ -298,6 +376,7 @@ KERNELS = [
 
 def phase_kernels() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
+    floor = time_ms(launch_empty)
     cases = {
         "flash_attention": [
             flash_case(bf16, [MAX_SEQ]),          # a full 512-token prefill
@@ -318,12 +397,10 @@ def phase_kernels() -> dict:
             flash_case(f32, [77], S=300, D=128, timed=False),
             flash_case(bf16, [77], S=300, D=128, timed=False),
         ],
-        "rmsnorm": [rms_case(dt, n, False) for dt in (bf16, f32)
-                    for n in (MAX_SEQ, MAX_BATCH)],
-        "rmsnorm_residual": [rms_case(dt, n, True) for dt in (bf16, f32)
-                             for n in (MAX_SEQ, MAX_BATCH)],
+        "rmsnorm": rms_cases(False, floor),
+        "rmsnorm_residual": rms_cases(True, floor),
     }
-    emit({"phase": "kernels", "cases": cases})
+    emit({"phase": "kernels", "floor_ms": floor, "cases": cases})
     return cases
 
 
@@ -469,11 +546,12 @@ def main() -> None:
     served = phase_serve(cfg, params)
     phase_profile(cfg, params, served)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "floor_ms")
     emit({"kernels": [
         {"name": fn.__name__, "route": "cuda", "source": src, "replaces": tpu,
          "launches": served["launches"][fn.__name__],
-         **{k: cases[fn.__name__][0][k] for k in keys},
+         **{k: cases[fn.__name__][0][k] for k in keys
+            if k in cases[fn.__name__][0]},
          "shape": cases[fn.__name__][0].get("q") or cases[fn.__name__][0]["x"],
          "dtype": cases[fn.__name__][0]["dtype"]}
         for fn, src, tpu in KERNELS]})

@@ -3,6 +3,7 @@ computes its plain version, held here against the JAX package's Pallas
 kernel (interpret mode) or its reference, on the same numpy inputs."""
 import importlib
 import os
+import re
 import shutil
 
 import numpy as np
@@ -15,7 +16,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention_tpu
-from repro.kernels.rmsnorm import rmsnorm_tpu
+from repro.kernels.rmsnorm import rmsnorm_residual_tpu, rmsnorm_tpu
 from repro.models.attention import flash_attention_xla, repeat_kv
 from repro_torch.kernels import (build, flash_attention, flash_attention_plain,
                                  rmsnorm, rmsnorm_plain, rmsnorm_residual,
@@ -103,7 +104,12 @@ def test_flash_plain_row_without_valid_key_averages_v():
     np.testing.assert_allclose(o.numpy(), mean_v.numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("N,D", [(64, 256), (256, 512), (8, 128), (100, 384)])
+# tests/test_kernels.py's shapes, then a row for the wide variant and one
+# whose bytes are not a multiple of 16 (the scalar variant)
+RMS_SHAPES = [(64, 256), (256, 512), (8, 128), (100, 384), (4, 8192), (5, 770)]
+
+
+@pytest.mark.parametrize("N,D", RMS_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_vs_pallas_interpret(N, D, dtype):
     rng = np.random.default_rng(N * D)
@@ -118,7 +124,7 @@ def test_rmsnorm_plain_vs_pallas_interpret(N, D, dtype):
     assert torch.equal(rmsnorm(xt, torch.from_numpy(w)), o)
 
 
-@pytest.mark.parametrize("shape", [(64, 256), (2, 7, 768)])
+@pytest.mark.parametrize("shape", [(64, 256), (2, 7, 768), (3, 8192), (5, 770)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_residual_plain_vs_ref(shape, dtype):
     rng = np.random.default_rng(11)
@@ -134,6 +140,84 @@ def test_rmsnorm_residual_plain_vs_ref(shape, dtype):
     assert torch.equal(y2, y) and torch.equal(s2, s)
     # and the fused result equals the unfused add-then-norm
     assert torch.equal(y, rmsnorm_plain(s, torch.from_numpy(w)))
+
+
+@pytest.mark.parametrize("N,D", [(64, 256), (3, 8192), (5, 770)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_residual_plain_vs_pallas_interpret(N, D, dtype):
+    """The sum is the Pallas kernel's, bit for bit. The normed output is
+    within 1e-5 of it in f32; in bf16 the Pallas body norms the unrounded
+    f32 sum, which the port does not (ROADMAP, K3's parity hazard), so it
+    is held to the reference above instead."""
+    rng = np.random.default_rng(N + D)
+    xj, xt = _pair(rng.standard_normal((N, D), np.float32), dtype)
+    rj, rt = _pair(rng.standard_normal((N, D), np.float32), dtype)
+    w = rng.standard_normal((D,), np.float32)
+    ky, ks = rmsnorm_residual_tpu(xj, rj, jnp.asarray(w), interpret=True)
+    y, s = rmsnorm_residual_plain(xt, rt, torch.from_numpy(w))
+    np.testing.assert_array_equal(_f32(s), _f32(ks))
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(y), _f32(ky), atol=1e-5)
+
+
+def _rms_module():
+    return importlib.import_module("repro_torch.kernels.rmsnorm")
+
+
+# (dtype, D, x's offset in elements, w's offset, the variant)
+VARIANT_CASES = [
+    ("bfloat16", 768, 0, 0, "warp"), ("float32", 768, 0, 0, "warp"),
+    ("bfloat16", 1536, 0, 0, "warp"), ("float32", 1536, 0, 0, "warp"),
+    ("bfloat16", 2048, 0, 0, "warp"), ("float32", 2048, 0, 0, "warp"),
+    ("bfloat16", 128, 0, 0, "warp"),
+    ("bfloat16", 770, 0, 0, "scalar"), ("float32", 770, 0, 0, "scalar"),
+    ("float32", 6, 0, 0, "scalar"),
+    ("bfloat16", 768, 1, 0, "scalar"), ("float32", 768, 1, 0, "scalar"),
+    ("bfloat16", 768, 0, 1, "scalar"),
+    ("bfloat16", 8192, 0, 0, "wide"), ("bfloat16", 16384, 0, 0, "wide"),
+    ("float32", 16384, 0, 0, "wide"), ("bfloat16", 2056, 0, 0, "wide"),
+    ("bfloat16", 8190, 0, 0, "scalar"), ("float32", 8192, 1, 0, "scalar"),
+    ("bfloat16", 16384, 0, 1, "scalar"),
+]
+
+
+@pytest.mark.parametrize("dtype,D,x_off,w_off,variant", VARIANT_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}{c[3]}-{c[4]}"
+                              for c in VARIANT_CASES])
+def test_rmsnorm_pick_variant(dtype, D, x_off, w_off, variant):
+    """Where the row's bytes and every base are 16-byte aligned, the warp
+    layout up to WARP_MAX_WIDTH and the wide one past it; else the scalar
+    variant at any width (x at an offset of one element is 2 or 4 bytes
+    off)."""
+    rms = _rms_module()
+    td = DTYPES[dtype][1]
+    x = torch.zeros(x_off + 3 * D, dtype=td)[x_off:].view(3, D)
+    w = torch.zeros(w_off + D)[w_off:]
+    assert rms.VARIANTS[rms.pick_variant(x, w)] == variant
+    # the residual joins the choice: an aligned x with an unaligned r
+    r = torch.zeros(1 + 3 * D, dtype=td)[1:].view(3, D)
+    assert rms.VARIANTS[rms.pick_variant(x, r, w)] == "scalar"
+
+
+@pytest.mark.parametrize("D", [0, 16384 + 8, 32768])
+def test_rmsnorm_pick_variant_refuses_widths_no_variant_takes(D):
+    rms = _rms_module()
+    with pytest.raises(ValueError, match="outside the kernels' widths"):
+        rms.pick_variant(torch.zeros(2, D, dtype=torch.bfloat16))
+
+
+def test_rmsnorm_width_constants_match_the_source():
+    """The wrapper's width caps are the kernel source's, read from its
+    text: the wrapper checks them without a call into the library."""
+    rms = _rms_module()
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    consts = {m[0]: int(m[1]) for m in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kMaxWidth"] == rms.MAX_WIDTH == 16384
+    assert consts["kWarpMaxWidth"] == rms.WARP_MAX_WIDTH
+    # each thread of the widest row holds a whole number of 16-byte bf16
+    # accesses, so the wide layout reaches MAX_WIDTH
+    assert rms.MAX_WIDTH % (consts["kWideThreads"] * 8) == 0
 
 
 def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
