@@ -71,14 +71,26 @@ constexpr int kTY = kThreads / kTX;     // threads along query rows
 constexpr float kNegInf = -1e30f;       // the reference's mask value
 constexpr int kMaxDevices = 64;
 
+// The row log-sum-exp the backward recomputes P from: m + log(l). A row
+// with no valid key has every score at -1e30 (m = -1e30, l = S), and
+// -1e30 + log(S) rounds to -1e30; it stores log(l) alone, and the backward
+// takes that row's masked scores as 0, so P = 1/S as in the forward.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (m <= kNegInf ? 0.f : m) + logf(l);
+}
+
 // ---------------------------------------------------------------------------
 // float32: f32 FMA from shared memory
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 template <int D>
 constexpr int smem_floats() {
@@ -94,8 +106,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ lengths, int S, int H, int KV,
-                 int causal, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ lengths,
+                 int S, int H, int KV, int causal, float scale) {
   constexpr int RQ = kBlockQ / kTY;     // query rows per thread
   constexpr int CK = kBlockK / kTX;     // key columns per thread
   constexpr int CD = D / kTX;           // output columns per thread
@@ -218,11 +230,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* out = o + (((int64_t)b * S + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < CD; ++c) out[tx + c * kTX] = from_f32<T>(acc[a][c] / den);
+    if (lse && tx == 0) lse[((int64_t)b * H + h) * S + row] = row_lse(m[a], l[a]);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int* lengths, int B, int S, int H, int KV, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
@@ -242,9 +255,364 @@ int launch(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lengths, S, H, KV, causal,
-      scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, lengths, S, H, KV,
+      causal, scale);
   return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward (K1b): f32 FMA from shared memory, for float32 and bfloat16
+// ---------------------------------------------------------------------------
+//
+// Replaces XLA's gradient of the JAX reference's flash_attention_xla
+// (src/repro/models/attention.py); the Pallas kernel has no backward. Two
+// kernels in the FlashAttention-2 form, launched in this order, with no
+// atomics, so the result does not depend on scheduling:
+//
+// - flash_bwd_dq_kernel: one block per (64-row q tile, head, batch). It
+//   forms Delta = rowsum(dO o) for its rows and writes it, then walks the k
+//   tiles the forward walked, recomputing P = exp(score - lse) from the
+//   forward's row log-sum-exp: dP = dO V^T, dS = P (dP - Delta),
+//   dQ += dS K scale.
+// - flash_bwd_dkdv_kernel: one block per (64-row k tile, KV head, batch).
+//   It walks the H / KV query heads of its KV head and the q tiles at or
+//   below the diagonal, reading Delta: dV += P~^T dO, dK += dS^T Q scale.
+//   The GQA sum over query heads stays in the block's registers.
+//
+// P~ is P rounded to the input type: the forward rounds p before the PV
+// product and that cast passes the cotangent through, so dV takes P~ and
+// the softmax gradient P in f32. A masked score takes no gradient; a row
+// with no valid key (lengths[b] <= 0) has P = 1/S on every key (its lse is
+// log S, see row_lse), which only dV sees.
+//
+// Bound, at the training shape q (16, 128, 12, 64), k/v (16, 128, 4, 64)
+// bf16, causal: q, o, dO and dq are 3.15 MB each, k, v, dk and dv 1.05 MB,
+// lse and Delta 0.1 MB: 17 MB, 5.1 us at 3.35 TB/s; five products of
+// 2 S^2 D per (b, h), halved by the mask, 1.0 GFLOP, 1.0 us at the bf16
+// tensor-core peak. So by bytes. This first version keeps every product
+// on the f32 FMA units in both dtypes (no TF32 anywhere, as the f32 bar of
+// 3e-5 needs), with 64 x 64 tiles padded in shared memory as in the f32
+// forward: simple and right first; it sits far above that bound.
+// Tensor-core products (wgmma) are the later redesign.
+
+constexpr int kRQ = kBlockQ / kTY;      // tile rows per thread
+constexpr int kCK = kBlockK / kTX;      // tile columns per thread
+constexpr int kKP = kBlockK + 1;        // padded row of a 64 x 64 f32 tile
+
+template <int D>
+constexpr int bwd_smem_floats(int square_tiles) {
+  return 4 * kBlockQ * (D + 1) + square_tiles * kBlockQ * kKP + 2 * kBlockQ;
+}
+
+// A 64-row tile of a contiguous (B, S, heads, D) tensor, rows row0.., head
+// h, into dst (64 x (D + 1) f32); rows past S read as zeros.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int b, int row0, int h, int S,
+                                          int heads) {
+  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
+    const int r = i / D, c = i % D, s = row0 + r;
+    dst[r * (D + 1) + c] =
+        s < S ? to_f32(src[(((int64_t)b * S + s) * heads + h) * D + c]) : 0.f;
+  }
+}
+
+// out[a][j] = sum_d A[ty + a kTY][d] Bm[tx + j kTX][d] over two 64 x D
+// tiles in shared memory (rows padded to D + 1).
+template <int D>
+__device__ __forceinline__ void tile_abt(float (&out)[kRQ][kCK],
+                                         const float* A, const float* Bm,
+                                         int tx, int ty) {
+  constexpr int DP = D + 1;
+#pragma unroll
+  for (int a = 0; a < kRQ; ++a)
+#pragma unroll
+    for (int j = 0; j < kCK; ++j) out[a][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float av[kRQ], bv[kCK];
+#pragma unroll
+    for (int a = 0; a < kRQ; ++a) av[a] = A[(ty + a * kTY) * DP + d];
+#pragma unroll
+    for (int j = 0; j < kCK; ++j) bv[j] = Bm[(tx + j * kTX) * DP + d];
+#pragma unroll
+    for (int a = 0; a < kRQ; ++a)
+#pragma unroll
+      for (int j = 0; j < kCK; ++j) out[a][j] = fmaf(av[a], bv[j], out[a][j]);
+  }
+}
+
+// acc[a][c] += sum_j P[ty + a kTY][j] M[j][tx + c kTX]: P a 64 x 64 tile
+// (rows padded to kKP), M a 64 x D tile (rows padded to D + 1).
+template <int D>
+__device__ __forceinline__ void tile_pm(float (&acc)[kRQ][D / kTX],
+                                        const float* P, const float* M,
+                                        int tx, int ty) {
+  constexpr int DP = D + 1;
+#pragma unroll 4
+  for (int j = 0; j < kBlockK; ++j) {
+    float mv[D / kTX];
+#pragma unroll
+    for (int c = 0; c < D / kTX; ++c) mv[c] = M[j * DP + tx + c * kTX];
+#pragma unroll
+    for (int a = 0; a < kRQ; ++a) {
+      const float p = P[(ty + a * kTY) * kKP + j];
+#pragma unroll
+      for (int c = 0; c < D / kTX; ++c) acc[a][c] = fmaf(p, mv[c], acc[a][c]);
+    }
+  }
+}
+
+// q, o, dO, dq: (B, S, H, D); k, v: (B, S, KV, D); lse, delta: (B, H, S)
+// f32. grid = (ceil(S / 64), H, B), block = 128 threads.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dO, const float* __restrict__ lse,
+                    float* __restrict__ delta, T* __restrict__ dq,
+                    const int* __restrict__ lengths, int S, int H, int KV,
+                    int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int CD = D / kTX;
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // 64 x DP
+  float* dOs = Qs + kBlockQ * DP;       // 64 x DP
+  float* Ks = dOs + kBlockQ * DP;       // 64 x DP; o while Delta is formed
+  float* Vs = Ks + kBlockK * DP;        // 64 x DP
+  float* dSs = Vs + kBlockK * DP;       // 64 x kKP
+  float* Ls = dSs + kBlockQ * kKP;      // 64: lse
+  float* Dl = Ls + kBlockQ;             // 64: Delta
+
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int len = lengths ? lengths[b] : S;
+  const int64_t row_base = ((int64_t)b * H + h) * S;
+
+  load_tile<T, D>(Qs, q, b, q0, h, S, H);
+  load_tile<T, D>(dOs, dO, b, q0, h, S, H);
+  load_tile<T, D>(Ks, o, b, q0, h, S, H);
+  __syncthreads();
+  {                                     // Delta: two threads a row
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    float acc = 0.f;
+    for (int c = half; c < D; c += 2) acc = fmaf(dOs[r * DP + c], Ks[r * DP + c], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    const int row = q0 + r;
+    if (half == 0) {
+      Dl[r] = acc;
+      Ls[r] = row < S ? lse[row_base + row] : 0.f;
+      if (row < S) delta[row_base + row] = acc;
+    }
+  }
+
+  float acc[kRQ][CD];
+#pragma unroll
+  for (int a = 0; a < kRQ; ++a)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[a][c] = 0.f;
+
+  // the k tiles the forward walked; with no valid key (len <= 0) every
+  // score is masked and dq is 0
+  int kend = causal ? min(S, q0 + kBlockQ) : S;
+  kend = len > 0 ? min(kend, len) : 0;
+
+  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+    __syncthreads();                    // the last tile's readers are done
+    load_tile<T, D>(Ks, k, b, k0, kvh, S, KV);
+    load_tile<T, D>(Vs, v, b, k0, kvh, S, KV);
+    __syncthreads();
+    float sc[kRQ][kCK], dp[kRQ][kCK];
+    tile_abt<D>(sc, Qs, Ks, tx, ty);
+    tile_abt<D>(dp, dOs, Vs, tx, ty);
+#pragma unroll
+    for (int a = 0; a < kRQ; ++a) {
+      const int r = ty + a * kTY;
+      const int qpos = q0 + r;
+#pragma unroll
+      for (int j = 0; j < kCK; ++j) {
+        const int kpos = k0 + tx + j * kTX;
+        const bool ok = kpos < len && (!causal || kpos <= qpos);
+        float ds = 0.f;
+        if (ok && kpos < S) ds = expf(sc[a][j] * scale - Ls[r]) * (dp[a][j] - Dl[r]);
+        dSs[r * kKP + tx + j * kTX] = ds;
+      }
+    }
+    __syncthreads();                    // dS is written
+    tile_pm<D>(acc, dSs, Ks, tx, ty);
+  }
+
+#pragma unroll
+  for (int a = 0; a < kRQ; ++a) {
+    const int row = q0 + ty + a * kTY;
+    if (row >= S) continue;
+    T* out = dq + (((int64_t)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) out[tx + c * kTX] = from_f32<T>(acc[a][c] * scale);
+  }
+}
+
+// dk, dv: (B, S, KV, D); the rest as flash_bwd_dq_kernel, which wrote
+// delta. grid = (ceil(S / 64), KV, B), block = 128 threads. Thread (tx, ty)
+// owns key rows ty + a kTY and columns tx + c kTX of dK and dV.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dO,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, const int* __restrict__ lengths,
+                      int S, int H, int KV, int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int CD = D / kTX;
+  extern __shared__ float smem[];
+  float* Ks = smem;                     // 64 x DP
+  float* Vs = Ks + kBlockK * DP;        // 64 x DP
+  float* Qs = Vs + kBlockK * DP;        // 64 x DP
+  float* dOs = Qs + kBlockQ * DP;       // 64 x DP
+  float* Pt = dOs + kBlockQ * DP;       // 64 keys x kKP: P~^T
+  float* dSt = Pt + kBlockK * kKP;      // 64 keys x kKP: dS^T
+  float* Ls = dSt + kBlockK * kKP;      // 64: lse of the q tile
+  float* Dl = Ls + kBlockQ;             // 64: Delta of the q tile
+
+  const int k0 = blockIdx.x * kBlockK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  const int len = lengths ? lengths[b] : S;
+  const bool empty = len <= 0;          // no valid key: P = 1/S everywhere
+
+  load_tile<T, D>(Ks, k, b, k0, kvh, S, KV);
+  load_tile<T, D>(Vs, v, b, k0, kvh, S, KV);
+
+  float dka[kRQ][CD], dva[kRQ][CD];
+#pragma unroll
+  for (int a = 0; a < kRQ; ++a)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dka[a][c] = dva[a][c] = 0.f;
+
+  // keys at or past lengths[b] take no gradient; under the causal mask
+  // only q tiles at or below this k tile's diagonal see it
+  const bool none = !empty && k0 >= len;
+  const int qt0 = causal && !empty ? k0 / kBlockQ : 0;
+  const int nqt = none ? 0 : (S + kBlockQ - 1) / kBlockQ;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const int64_t row_base = ((int64_t)b * H + h) * S;
+    for (int qt = qt0; qt < nqt; ++qt) {
+      const int q0 = qt * kBlockQ;
+      __syncthreads();                  // the last tile's readers are done
+      load_tile<T, D>(Qs, q, b, q0, h, S, H);
+      load_tile<T, D>(dOs, dO, b, q0, h, S, H);
+      if (threadIdx.x < kBlockQ) {
+        const int row = q0 + threadIdx.x;
+        Ls[threadIdx.x] = row < S ? lse[row_base + row] : 0.f;
+        Dl[threadIdx.x] = row < S ? delta[row_base + row] : 0.f;
+      }
+      __syncthreads();
+      float st[kRQ][kCK], dpt[kRQ][kCK];
+      tile_abt<D>(st, Ks, Qs, tx, ty);  // scores, transposed
+      tile_abt<D>(dpt, Vs, dOs, tx, ty);
+#pragma unroll
+      for (int a = 0; a < kRQ; ++a) {
+        const int kr = ty + a * kTY;
+        const int kpos = k0 + kr;
+#pragma unroll
+        for (int j = 0; j < kCK; ++j) {
+          const int qc = tx + j * kTX;
+          const int qpos = q0 + qc;
+          const bool ok = kpos < len && (!causal || kpos <= qpos);
+          float p = 0.f, ds = 0.f;
+          if (kpos < S && qpos < S) {
+            if (ok) {
+              p = expf(st[a][j] * scale - Ls[qc]);
+              ds = p * (dpt[a][j] - Dl[qc]);
+            } else if (empty) {
+              p = expf(-Ls[qc]);        // the masked score, taken as 0
+            }
+          }
+          Pt[kr * kKP + qc] = to_f32(from_f32<T>(p));
+          dSt[kr * kKP + qc] = ds;
+        }
+      }
+      __syncthreads();                  // P~^T and dS^T are written
+      tile_pm<D>(dva, Pt, dOs, tx, ty);
+      tile_pm<D>(dka, dSt, Qs, tx, ty);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < kRQ; ++a) {
+    const int row = k0 + ty + a * kTY;
+    if (row >= S) continue;
+    const int64_t off = (((int64_t)b * S + row) * KV + kvh) * D;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      dk[off + tx + c * kTX] = from_f32<T>(dka[a][c] * scale);
+      dv[off + tx + c * kTX] = from_f32<T>(dva[a][c]);
+    }
+  }
+}
+
+// Sets a kernel's dynamic shared memory limit once per device, so that
+// launches inside a CUDA graph capture make no attribute call.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
+
+template <typename T, int D>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                  const void* dO, const float* lse, float* delta, void* dq,
+                  const int* lengths, int B, int S, int H, int KV, int causal,
+                  float scale, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * bwd_smem_floats<D>(1);
+  static bool configured[kMaxDevices] = {};
+  const int err = allow_smem(flash_bwd_dq_kernel<T, D>, smem, configured);
+  if (err) return err;
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dO, lse,
+      delta, (T*)dq, lengths, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd_dkdv(const void* q, const void* k, const void* v,
+                    const void* dO, const float* lse, const float* delta,
+                    void* dk, void* dv, const int* lengths, int B, int S,
+                    int H, int KV, int causal, float scale,
+                    cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * bwd_smem_floats<D>(2);
+  static bool configured[kMaxDevices] = {};
+  const int err = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem, configured);
+  if (err) return err;
+  const dim3 grid((S + kBlockK - 1) / kBlockK, KV, B);
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta,
+      (T*)dk, (T*)dv, lengths, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// The backward entries' shape checks: what the wrapper checks, again.
+bool bwd_ok(int B, int S, int H, int KV, int D, int dtype) {
+  return B > 0 && S > 0 && KV > 0 && H % KV == 0 && (D == 64 || D == 128) &&
+         (dtype == 0 || dtype == 1) && B <= 65535 && H <= 65535;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,8 +796,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o, const int* __restrict__ lengths,
-                int S, int H, int KV, int causal, float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                const int* __restrict__ lengths, int S, int H, int KV,
+                int causal, float scale) {
   using L = WgLayout<D>;
   constexpr int kAtoms = D / 64;        // 64-column atoms in a row of D
   constexpr int kNO = D / 2;            // O accumulator floats a thread holds
@@ -577,6 +946,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     const int row = q0 + r0 + 8 * r;
     if (row >= S) continue;             // never the next batch's rows
     const float den = fmaxf(l[r], 1e-30f);
+    if (lse && lane % 4 == 0) lse[((int64_t)b * H + h) * S + row] = row_lse(m[r], l[r]);
     __nv_bfloat16* out = o + (((int64_t)b * S + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
@@ -633,7 +1003,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const int* lengths, int B, int S, int H, int KV,
+                 float* lse, const int* lengths, int B, int S, int H, int KV,
                  const long long* strides, int causal, float scale,
                  cudaStream_t stream) {
   CUtensorMap qm, km, vm;
@@ -656,7 +1026,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   flash_fwd_wgmma<D><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)o, lengths, S, H, KV, causal, scale);
+      qm, km, vm, (__nv_bfloat16*)o, lse, lengths, S, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -674,13 +1044,15 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 (the wrapper checks).
 // strides: element strides (batch, seq, head) of q, then k, then v; the
-// head dim has stride 1. float32 takes contiguous tensors only.
+// head dim has stride 1. float32 takes contiguous tensors only. lse_out:
+// (B, H, S) float32 for the row log-sum-exp, or null.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        const void* lengths, int B, int S, int H, int KV,
-                        int D, const long long* strides, int causal,
-                        float scale, int dtype, void* stream) {
+                        void* lse_out, const void* lengths, int B, int S,
+                        int H, int KV, int D, const long long* strides,
+                        int causal, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   const int* len = (const int*)lengths;
+  float* lse = (float*)lse_out;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const long long dense[9] = {(long long)S * H * D, (long long)H * D, D,
@@ -689,22 +1061,75 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     for (int i = 0; i < 9; ++i)
       if (strides[i] != dense[i]) return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch<float, 64>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
+      return launch<float, 64>(q, k, v, o, lse, len, B, S, H, KV, causal, scale,
+                               st);
     if (D == 128)
-      return launch<float, 128>(q, k, v, o, len, B, S, H, KV, causal, scale, st);
+      return launch<float, 128>(q, k, v, o, lse, len, B, S, H, KV, causal,
+                                scale, st);
   }
   if (dtype == 1) {
     if (!tma_ok(q, strides) || !tma_ok(k, strides + 3) ||
         !tma_ok(v, strides + 6))
       return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch_wgmma<64>(q, k, v, o, len, B, S, H, KV, strides, causal,
-                              scale, st);
+      return launch_wgmma<64>(q, k, v, o, lse, len, B, S, H, KV, strides,
+                              causal, scale, st);
     if (D == 128)
-      return launch_wgmma<128>(q, k, v, o, len, B, S, H, KV, strides, causal,
-                               scale, st);
+      return launch_wgmma<128>(q, k, v, o, lse, len, B, S, H, KV, strides,
+                               causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K1b-dq. Contiguous tensors: q, o, dO, dq (B, S, H, D), k, v (B, S, KV, D)
+// of dtype; lse (from the forward) and delta (written here) (B, H, S) f32.
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* o, const void* dO, const void* lse,
+                           void* delta, void* dq, const void* lengths, int B,
+                           int S, int H, int KV, int D, int causal,
+                           float scale, int dtype, void* stream) {
+  if (!bwd_ok(B, S, H, KV, D, dtype)) return (int)cudaErrorInvalidValue;
+  const int* len = (const int*)lengths;
+  const float* l = (const float*)lse;
+  float* dl = (float*)delta;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && D == 64)
+    return launch_bwd_dq<float, 64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                    KV, causal, scale, st);
+  if (dtype == 0)
+    return launch_bwd_dq<float, 128>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                     KV, causal, scale, st);
+  if (D == 64)
+    return launch_bwd_dq<__nv_bfloat16, 64>(q, k, v, o, dO, l, dl, dq, len, B,
+                                            S, H, KV, causal, scale, st);
+  return launch_bwd_dq<__nv_bfloat16, 128>(q, k, v, o, dO, l, dl, dq, len, B,
+                                           S, H, KV, causal, scale, st);
+}
+
+// K1b-dkdv, after K1b-dq on the same stream (it reads delta). dk, dv
+// (B, S, KV, D) of dtype; the rest as flash_attention_bwd_dq.
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
+                             void* dk, const void* dO, const void* lse,
+                             const void* delta, void* dv,
+                             const void* lengths, int B, int S, int H, int KV,
+                             int D, int causal, float scale, int dtype,
+                             void* stream) {
+  if (!bwd_ok(B, S, H, KV, D, dtype)) return (int)cudaErrorInvalidValue;
+  const int* len = (const int*)lengths;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0 && D == 64)
+    return launch_bwd_dkdv<float, 64>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+                                      H, KV, causal, scale, st);
+  if (dtype == 0)
+    return launch_bwd_dkdv<float, 128>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+                                       H, KV, causal, scale, st);
+  if (D == 64)
+    return launch_bwd_dkdv<__nv_bfloat16, 64>(q, k, v, dO, l, dl, dk, dv, len,
+                                              B, S, H, KV, causal, scale, st);
+  return launch_bwd_dkdv<__nv_bfloat16, 128>(q, k, v, dO, l, dl, dk, dv, len,
+                                             B, S, H, KV, causal, scale, st);
 }
 
 }  // extern "C"

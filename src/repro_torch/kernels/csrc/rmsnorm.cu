@@ -46,6 +46,23 @@
 // it, as the unfused model does (x = x + y; apply_norm(x)). The Pallas body
 // norms the f32 sum; in bf16 that differs.
 //
+// Backward (K2b, K3b): rmsnorm_bwd_kernel, the same template's layouts and
+// variants, replaces XLA's gradient of rmsnorm_ref (src/repro/kernels/ref.py)
+// and of the model's unfused x + y; norm. Per row, in f32: r = rsqrt(mean(x^2)
+// + eps), g = dy w, dx = r (g - x r^2 mean(g x)); K3b reads the saved sum s,
+// the cotangents dh (of the normed output) and ds (of the sum), and writes
+// dt = ds + dx rounded once to the input type, the gradient of both x and r.
+// The two row sums (x^2 and g x) are independent, so they share one
+// reduction. It reads two or three rows and writes one: at (2048, 768) bf16,
+// 9.4 MB for K2b (2.8 us at 3.35 TB/s) and 12.6 MB for K3b (3.8 us), bound
+// by bytes, like the forward. dw = sum over rows of dy x r needs a sum
+// across rows, which blocks cannot share: each block walks its rows with a
+// grid stride (at most kBwdBlocks blocks), keeps its columns' partial sums
+// in registers, combines its warps' partials in shared memory in a fixed
+// order, and writes one row of an f32 scratch (blocks, D); then
+// rmsnorm_dw_reduce sums that scratch over blocks in an order fixed by the
+// code. No atomics: the result does not depend on scheduling.
+//
 // Plain C interface, loaded with ctypes. Each entry returns the value of
 // cudaGetLastError() after its launch (0 = success), or
 // cudaErrorInvalidValue for a variant that cannot take its arguments.
@@ -62,6 +79,9 @@ constexpr int kRowsPerBlock = 4;     // warp layout: 4 warps, one row each
 constexpr int kWarpMaxWidth = 2048;  // widest row of the warp layout
 constexpr int kWideThreads = 1024;   // most threads on one row (wide layout)
 constexpr int kMaxWidth = 16384;     // widest row of any variant
+constexpr int kBwdBlocks = 264;      // most blocks of a backward launch (2 per SM)
+constexpr int kReduceCols = 32;      // rmsnorm_dw_reduce: columns of a block
+constexpr int kReduceLanes = 8;      // and threads on each column
 
 // The raw bits of one access: V elements of T, 16 bytes or one element.
 template <typename T, int V>
@@ -162,6 +182,20 @@ __device__ __forceinline__ float block_sum(float v) {
   return warp_sum(lane < (int)blockDim.x / 32 ? partial[lane] : 0.f);
 }
 
+// block_sum for two values at once. Ends with a barrier, so a loop may
+// call it again.
+__device__ __forceinline__ float2 block_sum2(float2 v) {
+  __shared__ float2 partial2[kWideThreads / 32];
+  if (threadIdx.x % 32 == 0) partial2[threadIdx.x / 32] = v;
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const bool in = lane < (int)blockDim.x / 32;
+  float2 out = make_float2(warp_sum(in ? partial2[lane].x : 0.f),
+                           warp_sum(in ? partial2[lane].y : 0.f));
+  __syncthreads();
+  return out;
+}
+
 // RESIDUAL = false: y = rmsnorm(x) * w.
 // RESIDUAL = true:  s = T(x + r); y = rmsnorm(s) * w; writes y and s.
 // V elements per access (16 bytes, or 1), at most NV accesses per thread.
@@ -225,74 +259,228 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
+// The backward of rmsnorm_kernel, in the same layouts (WIDE, V, NV).
+// RESIDUAL = false (K2b): dx = d/dx of rmsnorm(x) * w at cotangent dy.
+// RESIDUAL = true (K3b): x holds the saved sum s, dy the cotangent of the
+// normed output and ds that of s; writes dx = T(ds + d/ds rmsnorm(s) * w).
+// Either way, writes row blockIdx.x of partial: this block's sum over its
+// rows of dy x r, per column. Rows are walked with a grid stride.
+template <typename T, bool RESIDUAL, int V, int NV, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? kWideThreads : 32 * kRowsPerBlock)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                   const T* __restrict__ ds, const float* __restrict__ w,
+                   T* __restrict__ dx, float* __restrict__ partial, int N,
+                   int D, float eps) {
+  const int t = WIDE ? (int)threadIdx.x : (int)(threadIdx.x % 32);
+  const int nt = WIDE ? (int)blockDim.x : 32;     // threads on the row
+  const int first = WIDE ? (int)blockIdx.x
+                         : (int)(blockIdx.x * kRowsPerBlock + threadIdx.x / 32);
+  const int stride = WIDE ? (int)gridDim.x : (int)gridDim.x * kRowsPerBlock;
+
+  float dw[NV][V];                                // this thread's columns
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int k = 0; k < V; ++k) dw[i][k] = 0.f;
+
+  // WIDE: every thread of the block walks the same rows (block_sum2 needs
+  // them all); warp layout: each warp its own rows, no barrier inside
+  for (int row = first; row < N; row += stride) {
+    const int64_t base = (int64_t)row * D;
+    // w is read again for each row (from L1 or L2), not held across rows:
+    // the registers go to the row and the dw sums
+    Raw<T, V> xs[NV], gs[NV], ss[NV];
+    float ws[NV][V];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (t + i * nt) * V;
+      if (c < D) {
+        xs[i] = load<T, V>(x + base + c);
+        gs[i] = load<T, V>(dy + base + c);
+        if constexpr (RESIDUAL) ss[i] = load<T, V>(ds + base + c);
+        load_scale<V>(w + c, ws[i]);
+      }
+    }
+    float xv[NV][V], gv[NV][V];
+    float2 sums = make_float2(0.f, 0.f);          // sum x^2, sum g x
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (t + i * nt) * V;
+      if (c < D) {
+        unpack<T, V>(xs[i], xv[i]);
+        unpack<T, V>(gs[i], gv[i]);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          sums.x += xv[i][k] * xv[i][k];
+          sums.y += gv[i][k] * ws[i][k] * xv[i][k];
+        }
+      }
+    }
+    sums.x = warp_sum(sums.x);
+    sums.y = warp_sum(sums.y);
+    if constexpr (WIDE) sums = block_sum2(sums);
+    const float r = rsqrtf(sums.x / (float)D + eps);
+    const float c3 = r * r * r * sums.y / (float)D;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (t + i * nt) * V;
+      if (c < D) {
+        float o[V];
+        float sv[V];
+        if constexpr (RESIDUAL) unpack<T, V>(ss[i], sv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          o[k] = r * gv[i][k] * ws[i][k] - xv[i][k] * c3;
+          if constexpr (RESIDUAL) o[k] += sv[k];
+          dw[i][k] += gv[i][k] * xv[i][k] * r;
+        }
+        store<T, V>(dx + base + c, o);
+      }
+    }
+  }
+
+  float* out = partial + (int64_t)blockIdx.x * D;
+  if constexpr (WIDE) {                           // each thread owns its columns
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (t + i * nt) * V;
+      if (c < D) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) out[c + k] = dw[i][k];
+      }
+    }
+  } else {                                        // add the block's warps in order
+    __shared__ float red[kRowsPerBlock][kWarpMaxWidth];
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = (t + i * nt) * V;
+      if (c < D) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) red[warp][c + k] = dw[i][k];
+      }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRowsPerBlock; ++j) acc += red[j][c];
+      out[c] = acc;
+    }
+  }
+}
+
+// dw[c] = the sum over b of partial[b][c]. A block owns kReduceCols
+// neighbouring columns (a warp reads 128 contiguous bytes) and puts
+// kReduceLanes threads on each: thread j sums rows j, j + kReduceLanes, ...
+// in order, and the lanes' sums are added in order j = 0, 1, ... The order
+// is fixed by the code, so the result does not depend on scheduling; the
+// lanes keep several independent loads in flight.
+__global__ void __launch_bounds__(kReduceCols * kReduceLanes)
+rmsnorm_dw_reduce_kernel(const float* __restrict__ partial,
+                         float* __restrict__ dw, int nb, int D) {
+  __shared__ float lanes[kReduceLanes][kReduceCols];
+  const int col = threadIdx.x % kReduceCols, j = threadIdx.x / kReduceCols;
+  const int c = blockIdx.x * kReduceCols + col;
+  float acc = 0.f;
+  if (c < D) {
+#pragma unroll 4
+    for (int b = j; b < nb; b += kReduceLanes) acc += partial[(int64_t)b * D + c];
+  }
+  lanes[j][col] = acc;
+  __syncthreads();
+  if (j == 0 && c < D) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kReduceLanes; ++i) sum += lanes[i][col];
+    dw[c] = sum;
+  }
+}
+
 __global__ void empty_kernel() {}
 
-template <typename T, bool RESIDUAL, int V, int NV, bool WIDE>
-void launch_kernel(int grid, int threads, const void* x, const void* r,
-                   const void* w, void* y, void* s, int N, int D, float eps,
-                   cudaStream_t st) {
-  rmsnorm_kernel<T, RESIDUAL, V, NV, WIDE><<<grid, threads, 0, st>>>(
-      (const T*)x, (const T*)r, (const float*)w, (T*)y, (T*)s, N, D, eps);
+// The arguments of one launch, forward or backward. Forward: x, r (K3), w
+// in; y, s (K3) out. Backward: x (or s), dy, ds (K3b), w in; dx, partial
+// out, on `blocks` blocks.
+struct Args {
+  const void* x;
+  const void* r;      // forward: the residual; backward: dy
+  const void* ds;     // backward, K3b only
+  const void* w;
+  void* y;            // forward: y; backward: dx
+  void* s;            // forward: the sum; backward: the dw partials
+  int N, D;
+  float eps;
+  int blocks;         // backward only
+  cudaStream_t st;
+};
+
+template <bool BWD, typename T, bool RESIDUAL, int V, int NV, bool WIDE>
+void launch_kernel(int grid, int threads, const Args& a) {
+  if constexpr (BWD)
+    rmsnorm_bwd_kernel<T, RESIDUAL, V, NV, WIDE><<<a.blocks, threads, 0, a.st>>>(
+        (const T*)a.x, (const T*)a.r, (const T*)a.ds, (const float*)a.w,
+        (T*)a.y, (float*)a.s, a.N, a.D, a.eps);
+  else
+    rmsnorm_kernel<T, RESIDUAL, V, NV, WIDE><<<grid, threads, 0, a.st>>>(
+        (const T*)a.x, (const T*)a.r, (const float*)a.w, (T*)a.y, (T*)a.s,
+        a.N, a.D, a.eps);
 }
 
 // The warp layout with the fewest accesses per lane, from the list NV,
 // MORE..., that cover the row: registers sized to the row, and no guarded
 // access that is never taken (a bf16 row of 768 runs NV = 3, not 8).
-template <typename T, bool RESIDUAL, int V, int NV, int... MORE>
-void launch_warp(const void* x, const void* r, const void* w, void* y,
-                 void* s, int N, int D, float eps, cudaStream_t st) {
+template <bool BWD, typename T, bool RESIDUAL, int V, int NV, int... MORE>
+void launch_warp(const Args& a) {
   if constexpr (sizeof...(MORE) > 0) {
-    if (D > 32 * V * NV)
-      return launch_warp<T, RESIDUAL, V, MORE...>(x, r, w, y, s, N, D, eps, st);
+    if (a.D > 32 * V * NV)
+      return launch_warp<BWD, T, RESIDUAL, V, MORE...>(a);
   }
   static_assert(32 * V * NV == kWarpMaxWidth || sizeof...(MORE) > 0,
                 "the last entry covers the widest row");
-  launch_kernel<T, RESIDUAL, V, NV, false>(
-      (N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, x, r, w,
-      y, s, N, D, eps, st);
+  launch_kernel<BWD, T, RESIDUAL, V, NV, false>(
+      (a.N + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, a);
 }
 
 // The wide layout: NV accesses per thread cover kMaxWidth on kWideThreads;
 // a narrower row gets the multiple of 32 threads it needs.
-template <typename T, bool RESIDUAL, int V>
-void launch_wide(const void* x, const void* r, const void* w, void* y,
-                 void* s, int N, int D, float eps, cudaStream_t st) {
+template <bool BWD, typename T, bool RESIDUAL, int V>
+void launch_wide(const Args& a) {
   constexpr int NV = kMaxWidth / kWideThreads / V;
-  const int threads = ((D / V + NV - 1) / NV + 31) / 32 * 32;
-  launch_kernel<T, RESIDUAL, V, NV, true>(N, threads, x, r, w, y, s, N, D,
-                                          eps, st);
+  const int threads = ((a.D / V + NV - 1) / NV + 31) / 32 * 32;
+  launch_kernel<BWD, T, RESIDUAL, V, NV, true>(a.N, threads, a);
 }
 
-template <typename T, bool RESIDUAL>
-void launch_dtype(int variant, const void* x, const void* r, const void* w,
-                  void* y, void* s, int N, int D, float eps, cudaStream_t st) {
+template <bool BWD, typename T, bool RESIDUAL>
+void launch_dtype(int variant, const Args& a) {
   constexpr int kVec = 16 / sizeof(T);
   switch (variant) {
     case 0:                      // rows up to 768, 1536, 2048
-      launch_warp<T, RESIDUAL, kVec, 768 / 32 / kVec, 1536 / 32 / kVec,
-                  2048 / 32 / kVec>(x, r, w, y, s, N, D, eps, st);
+      launch_warp<BWD, T, RESIDUAL, kVec, 768 / 32 / kVec, 1536 / 32 / kVec,
+                  2048 / 32 / kVec>(a);
       break;
-    case 1: launch_wide<T, RESIDUAL, kVec>(x, r, w, y, s, N, D, eps, st); break;
-    default: launch_wide<T, RESIDUAL, 1>(x, r, w, y, s, N, D, eps, st); break;
+    case 1: launch_wide<BWD, T, RESIDUAL, kVec>(a); break;
+    default: launch_wide<BWD, T, RESIDUAL, 1>(a); break;
   }
 }
 
 bool aligned16(const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; }
 
-template <bool RESIDUAL>
-int launch(const void* x, const void* r, const void* w, void* y, void* s,
-           int N, int D, float eps, int dtype, int variant, void* stream) {
+template <bool BWD, bool RESIDUAL>
+int launch(const Args& a, int dtype, int variant) {
   const bool vector = variant < 2;
   const int elem = dtype == 0 ? 4 : 2;
+  const int D = a.D;
   if (variant < 0 || variant > 2 || (dtype != 0 && dtype != 1) || D < 1 ||
       D > (variant == 0 ? kWarpMaxWidth : kMaxWidth) ||
-      (vector && ((D * elem) % 16 != 0 || !aligned16(x) || !aligned16(r) ||
-                  !aligned16(w) || !aligned16(y) || !aligned16(s))))
+      (BWD && (a.blocks < 1 || a.blocks > kBwdBlocks)) ||
+      (vector && ((D * elem) % 16 != 0 || !aligned16(a.x) ||
+                  !aligned16(a.r) || !aligned16(a.ds) || !aligned16(a.w) ||
+                  !aligned16(a.y) || !aligned16(a.s))))
     return (int)cudaErrorInvalidValue;
-  if (N <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) launch_dtype<float, RESIDUAL>(variant, x, r, w, y, s, N, D, eps, st);
-  else launch_dtype<__nv_bfloat16, RESIDUAL>(variant, x, r, w, y, s, N, D, eps, st);
+  if (a.N <= 0) return 0;
+  if (dtype == 0) launch_dtype<BWD, float, RESIDUAL>(variant, a);
+  else launch_dtype<BWD, __nv_bfloat16, RESIDUAL>(variant, a);
   return (int)cudaGetLastError();
 }
 
@@ -303,15 +491,47 @@ extern "C" {
 // x, y: (N, D) of dtype (0 = float32, 1 = bfloat16); w: (D,) float32.
 int rmsnorm_fwd(const void* x, const void* w, void* y, int N, int D,
                 float eps, int dtype, int variant, void* stream) {
-  return launch<false>(x, nullptr, w, y, nullptr, N, D, eps, dtype, variant,
-                       stream);
+  return launch<false, false>({x, nullptr, nullptr, w, y, nullptr, N, D, eps,
+                               0, (cudaStream_t)stream}, dtype, variant);
 }
 
 // x, r, y, s: (N, D) of dtype; w: (D,) float32.
 int rmsnorm_residual_fwd(const void* x, const void* r, const void* w,
                          void* y, void* s, int N, int D, float eps, int dtype,
                          int variant, void* stream) {
-  return launch<true>(x, r, w, y, s, N, D, eps, dtype, variant, stream);
+  return launch<false, true>({x, r, nullptr, w, y, s, N, D, eps, 0,
+                              (cudaStream_t)stream}, dtype, variant);
+}
+
+// K2b. x, dy, dx: (N, D) of dtype; w: (D,) float32; partial: (blocks, D)
+// float32, one row per block. ds is not read.
+int rmsnorm_bwd(const void* x, const void* dy, const void* ds, const void* w,
+                void* dx, void* partial, int N, int D, float eps, int dtype,
+                int variant, int blocks, void* stream) {
+  (void)ds;
+  return launch<true, false>({x, dy, nullptr, w, dx, partial, N, D, eps,
+                              blocks, (cudaStream_t)stream}, dtype, variant);
+}
+
+// K3b. s (the forward's sum), dy, ds, dt: (N, D) of dtype; w, partial as
+// for rmsnorm_bwd.
+int rmsnorm_residual_bwd(const void* s, const void* dy, const void* ds,
+                         const void* w, void* dt, void* partial, int N, int D,
+                         float eps, int dtype, int variant, int blocks,
+                         void* stream) {
+  return launch<true, true>({s, dy, ds, w, dt, partial, N, D, eps, blocks,
+                             (cudaStream_t)stream}, dtype, variant);
+}
+
+// dw (D,) float32 = the sum over rows of partial (nb, D) float32, in order.
+int rmsnorm_dw_reduce(const void* partial, void* dw, int nb, int D,
+                      void* stream) {
+  if (nb < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  rmsnorm_dw_reduce_kernel<<<(D + kReduceCols - 1) / kReduceCols,
+                             kReduceCols * kReduceLanes, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)partial, (float*)dw, nb, D);
+  return (int)cudaGetLastError();
 }
 
 // One block of kRowsPerBlock warps that does nothing: the floor under the

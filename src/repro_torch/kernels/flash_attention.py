@@ -14,13 +14,23 @@ Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
 with H a multiple of KV; head h reads KV head h // (H // KV). ``lengths``
 (B,) int32 masks keys at or past lengths[b]. Masked scores are -1e30, so a
 row with no valid key averages V. ``p`` is rounded to v.dtype before the PV
-product. ``flash_attention.launches`` counts the kernel launches.
+product. ``flash_attention.launches`` counts the forward kernel's launches.
+
+Gradients: :func:`flash_attention` goes through :class:`FlashAttentionFn`.
+When a gradient is needed its forward asks the kernel for the row
+log-sum-exp too, and its backward runs two more kernels of the same source
+in the FlashAttention-2 form (``flash_bwd_dq``, then ``flash_bwd_dkdv``; no
+atomics), or :func:`flash_attention_bwd_plain` for CPU tensors. The JAX
+package has no backward kernel: its gradient is XLA's autodiff of
+``repro/models/attention.py`` ``flash_attention_xla``, which these hold to.
+``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` count their
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,36 +41,108 @@ HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _mask(S: int, causal: bool, lengths: Optional[torch.Tensor],
+          device: torch.device) -> torch.Tensor:
+    """(B or 1, 1, S, S) bool: the keys each query may attend."""
+    pos = torch.arange(S, device=device)
+    mask = torch.ones(1, 1, S, S, dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (pos[:, None] >= pos[None, :])
+    if lengths is not None:
+        mask = mask & (pos[None, None, None, :]
+                       < lengths.to(device)[:, None, None, None])
+    return mask
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            lengths: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked f32 scores (B, H, S, S) with K at KV heads, and the mask."""
+    B, S, H, D = q.shape
+    kf = k.float().repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(D))
+    mask = _mask(S, causal, lengths, q.device)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _plain_forward(q, k, v, causal, lengths):
+    """(o, lse): the plain forward and its row log-sum-exp (B, H, S) f32.
+    A row with no valid key (every score -1e30) stores log(S) alone: its
+    max is dropped, so the backward's exp(score - lse) gives 1/S with the
+    masked scores taken as 0 (see :func:`flash_attention_bwd_plain`)."""
+    s, _ = _scores(q, k, causal, lengths)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    vf = v.float().repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf)
+    o = o / torch.clamp(l, min=1e-30)
+    lse = torch.where(m <= NEG_INF, 0.0, m) + torch.log(l)
+    return o.transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           lengths: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The same function as the kernel, over the full f32 score matrix."""
+    return _plain_forward(q, k, v, causal, lengths)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True,
+                              lengths: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of the forward, from its output ``o`` and row
+    log-sum-exp ``lse`` (B, H, S), in f32 over the full score matrix: the
+    formula the backward kernels compute.
+
+    P = exp(score - lse). The forward rounds p to v.dtype before the PV
+    product, and that cast's cotangent passes through unchanged: dV uses P
+    rounded to v.dtype, the softmax gradient P in f32. dS = P (dP - Delta)
+    with dP = dO V^T and Delta = rowsum(dO o); a masked score takes no
+    gradient. A row with no valid key (lengths 0) has P = 1/S on every key,
+    so only dV sees it. dk, dv are summed over the H / KV query heads of
+    each KV head."""
     B, S, H, D = q.shape
-    G = H // k.shape[2]
-    kf = k.float().repeat_interleave(G, dim=2)
-    vf = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(D))
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones(1, 1, S, S, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (pos[:, None] >= pos[None, :])
-    if lengths is not None:
-        mask = mask & (pos[None, None, None, :]
-                       < lengths.to(q.device)[:, None, None, None])
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf.float())
-    o = o / torch.clamp(l, min=1e-30)
-    return o.transpose(1, 2).to(q.dtype)
+    KV = k.shape[2]
+    G = H // KV
+    s, mask = _scores(q, k, causal, lengths)
+    if lengths is not None:         # rows with no valid key: scores 0
+        empty = (lengths.to(q.device) <= 0)[:, None, None, None]
+        s = torch.where(mask, s, torch.where(empty, 0.0, NEG_INF))
+    p = torch.exp(s - lse.float()[..., None])
+    dof = do.float().transpose(1, 2)                        # (B, H, S, D)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    dv = p.to(v.dtype).float().transpose(-1, -2) @ dof      # (B, H, S, D)
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta), 0.0) * (1.0 / math.sqrt(D))
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ q.float().transpose(1, 2)
+
+    def per_kv(t: torch.Tensor) -> torch.Tensor:      # sum the G heads
+        return t.reshape(B, KV, G, S, D).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), per_kv(dk).to(k.dtype),
+            per_kv(dv).to(v.dtype))
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.c_longlong * 9
-_SIGNATURES = {"flash_attention_fwd": [
-    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
-    _I, ctypes.c_float, _I, _P]}
+_SIGNATURES = {
+    "flash_attention_fwd": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        ctypes.POINTER(ctypes.c_longlong), _I, ctypes.c_float, _I, _P],
+    # q, k, v, o or dk, do, lse, delta, dq or dv, lengths, B, S, H, KV, D,
+    # causal, scale, dtype, stream
+    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
+}
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -113,13 +195,9 @@ def _check(q, k, v, lengths) -> None:
                          f"{lengths.dtype} {tuple(lengths.shape)}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B,S,H,D); k, v: (B,S,KV,D); lengths: (B,) int32 or None.
-    Returns (B,S,H,D) in q.dtype."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, lengths=lengths)
+def _forward(q, k, v, causal, lengths, want_lse):
+    """The kernel's output, and its row log-sum-exp (B, H, S) f32 when
+    ``want_lse`` (else None)."""
     _check(q, k, v, lengths)
     lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
@@ -133,16 +211,145 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if lengths is not None:
         lengths = lengths.contiguous()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)   # contiguous
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if want_lse else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
             B, S, H, k.shape[2], D, _STRIDES(*sq, *sk, *sv), int(causal),
             1.0 / math.sqrt(D), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return o, lse
+
+
+def _check_bwd(q, k, v, lengths, same_as_q, rows) -> None:
+    """The backward kernels' inputs: contiguous, ``same_as_q`` (o, dO)
+    shaped and typed as q, ``rows`` (lse, delta) (B, H, S) f32."""
+    _check(q, k, v, lengths)
+    B, S, H, _ = q.shape
+    for t in (q, k, v, *same_as_q, *rows):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"the backward kernels take contiguous tensors "
+                             f"on {q.device}")
+    for t in same_as_q:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"o and dO must be {q.dtype} "
+                             f"{tuple(q.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for t in rows:
+        if tuple(t.shape) != (B, H, S) or t.dtype != torch.float32:
+            raise ValueError(f"lse and delta must be float32 {(B, H, S)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _bwd_args(q, k, lengths) -> tuple:
+    B, S, H, D = q.shape
+    return (None if lengths is None else lengths.data_ptr(), B, S, H,
+            k.shape[2], D)
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
+                 lengths: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1b-dq on contiguous CUDA tensors: (dq, delta), with delta =
+    rowsum(dO o) (B, H, S) f32 for :func:`flash_bwd_dkdv`."""
+    lengths = None if lengths is None else lengths.contiguous()
+    _check_bwd(q, k, v, lengths, (o, do), (lse,))
+    lib = build.load("flash_attention", _SIGNATURES)
+    B, S, H, D = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_args(q, k, lengths), int(causal), 1.0 / math.sqrt(D),
+            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
+                   lengths: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K1b-dkdv on contiguous CUDA tensors: (dk, dv) at KV heads,
+    each summed over its query heads inside one block."""
+    lengths = None if lengths is None else lengths.contiguous()
+    _check_bwd(q, k, v, lengths, (do,), (lse, delta))
+    lib = build.load("flash_attention", _SIGNATURES)
+    D = q.shape[-1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dk.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, lengths), int(causal), 1.0 / math.sqrt(D),
+            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True,
+                        lengths: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): :func:`flash_attention_bwd_plain` for CPU tensors,
+    else K1b-dq then K1b-dkdv on contiguous copies of the inputs."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         lengths=lengths)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal=causal,
+                             lengths=lengths)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
+                            lengths=lengths)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a kernel backward. The forward asks for the row
+    log-sum-exp only when an input needs a gradient, so under
+    ``torch.inference_mode`` it launches exactly the forward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, lengths):
+        want = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            o, lse = _plain_forward(q, k, v, causal, lengths)
+        else:
+            o, lse = _forward(q, k, v, causal, lengths, want)
+        if want:
+            ctx.save_for_backward(q, k, v, o, lse, lengths)
+            ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, lengths=lengths)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B,S,H,D); k, v: (B,S,KV,D); lengths: (B,) int32 or None.
+    Returns (B,S,H,D) in q.dtype, differentiable in q, k and v."""
+    return FlashAttentionFn.apply(q, k, v, causal, lengths)
 
 
 flash_attention.launches = 0

@@ -12,11 +12,21 @@ A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches its kernel or raises. ``rmsnorm.launches`` and
 ``rmsnorm_residual.launches`` count the kernel launches, and ``.variant``
 names the variant each launched last.
+
+Gradients: :func:`rmsnorm` and :func:`rmsnorm_residual` go through
+:class:`RMSNormFn` and :class:`RMSNormResidualFn`, whose backward is a
+kernel of the same source in the same three variants (K2b, K3b: dx, and
+each block's partial sum of dw), then ``rmsnorm_dw_reduce``, which sums the
+partials in a fixed order. The JAX package has no backward kernel; these
+hold to ``jax.grad`` of ``repro/kernels/ref.py`` ``rmsnorm_ref`` and of the
+model's unfused ``x + y; norm``. ``rmsnorm_bwd.launches``,
+``rmsnorm_residual_bwd.launches`` and ``rmsnorm_dw_reduce.launches`` count
+their launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +36,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 16384          # kMaxWidth in csrc/rmsnorm.cu: llama3-405b's d_model
 WARP_MAX_WIDTH = 2048      # kWarpMaxWidth: one warp per row up to this width
 VARIANTS = ("warp", "wide", "scalar")   # by the C entries' code
+ROWS_PER_BLOCK = 4         # kRowsPerBlock: rows of one warp-layout block
+BWD_BLOCKS = 264           # kBwdBlocks: most blocks of a backward launch
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -42,6 +54,30 @@ def rmsnorm_residual_plain(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     """s = x + r rounded to x.dtype; returns (rmsnorm(s) * w, s)."""
     s = (x.float() + r.float()).to(x.dtype)
     return rmsnorm_plain(s, w, eps), s
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of :func:`rmsnorm_plain` in f32, from x and the output's
+    cotangent dy: with r = rsqrt(mean(x^2) + eps) and g = dy w,
+    dx = r (g - x r^2 mean(g x)) cast to x.dtype, dw = sum over rows of
+    dy x r (f32)."""
+    xf, g = x.float(), dy.float() * w.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    dx = r * (g - xf * r * r * (g * xf).mean(-1, keepdim=True))
+    dw = (dy.float() * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw
+
+
+def rmsnorm_residual_bwd_plain(s: torch.Tensor, w: torch.Tensor,
+                               dy: torch.Tensor, ds: torch.Tensor,
+                               eps: float = 1e-5
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dt, dw) of :func:`rmsnorm_residual_plain` from the saved sum s and
+    the cotangents of its two outputs: dt = ds + dx_norm(s), added in f32
+    and rounded once to s.dtype, is the gradient of both x and r."""
+    dx, dw = rmsnorm_bwd_plain(s.float(), w, dy, eps)
+    return (ds.float() + dx).to(s.dtype), dw
 
 
 def pick_variant(x: torch.Tensor, *others: torch.Tensor) -> int:
@@ -66,6 +102,11 @@ _SIGNATURES = {
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rmsnorm_residual_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rmsnorm_empty": [_P],
+    # x or s, dy, ds, w, dx, partial, N, D, eps, dtype, variant, blocks, stream
+    "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    "rmsnorm_residual_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
+                             _P],
+    "rmsnorm_dw_reduce": [_P, _P, _I, _I, _P],
 }
 
 
@@ -89,7 +130,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, *others: torch.Tensor) -> None:
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
-    """x: (..., D); w: (D,) float32. Returns rmsnorm(x) * w in x.dtype."""
+    """x: (..., D); w: (D,) float32. Returns rmsnorm(x) * w in x.dtype,
+    differentiable in x and w."""
+    return RMSNormFn.apply(x, w, eps)
+
+
+def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
+                 ) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     _check(x, w)
@@ -116,7 +163,13 @@ rmsnorm.variant = None
 
 def rmsnorm_residual(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x, r: (..., D). Returns (rmsnorm(s) * w, s) with s = x + r in x.dtype."""
+    """x, r: (..., D). Returns (rmsnorm(s) * w, s) with s = x + r in x.dtype,
+    differentiable in x, r and w."""
+    return RMSNormResidualFn.apply(x, r, w, eps)
+
+
+def _rmsnorm_residual_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                          eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return rmsnorm_residual_plain(x, r, w, eps)
     _check(x, w, r)
@@ -141,6 +194,128 @@ def rmsnorm_residual(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 rmsnorm_residual.launches = 0
 rmsnorm_residual.variant = None
+
+
+def bwd_blocks(rows: int, variant: int) -> int:
+    """Blocks of a backward launch, and so rows of its dw partials: a
+    block per ROWS_PER_BLOCK rows (warp layout) or per row (the others),
+    at most BWD_BLOCKS, each walking its rows with a grid stride."""
+    per = ROWS_PER_BLOCK if variant == 0 else 1
+    return max(1, min(-(-rows // per), BWD_BLOCKS))
+
+
+def rmsnorm_dw_reduce(partial: torch.Tensor) -> torch.Tensor:
+    """dw (D,) f32: the sum over rows of ``partial`` (blocks, D) f32 on the
+    card, each column in block order (deterministic)."""
+    lib = build.load("rmsnorm", _SIGNATURES)
+    nb, D = partial.shape
+    dw = torch.empty(D, dtype=torch.float32, device=partial.device)
+    with torch.cuda.device(partial.device):
+        err = lib.rmsnorm_dw_reduce(partial.data_ptr(), dw.data_ptr(), nb, D,
+                                    torch.cuda.current_stream().cuda_stream)
+    build.check(err, "rmsnorm_dw_reduce")
+    rmsnorm_dw_reduce.launches += 1
+    return dw
+
+
+rmsnorm_dw_reduce.launches = 0
+
+
+def bwd_partials(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                 ds: Optional[torch.Tensor] = None, eps: float = 1e-5
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2b (``ds`` None) or K3b on CUDA tensors: (dx, the f32 dw
+    partials (blocks, D)), for :func:`rmsnorm_dw_reduce`."""
+    others = (dy,) if ds is None else (dy, ds)
+    _check(x, w, *others)
+    x, w = x.contiguous(), w.contiguous()
+    others = tuple(t.contiguous() for t in others)
+    variant = pick_variant(x, w, *others)
+    D = x.shape[-1]
+    N = x.numel() // D
+    dx = torch.empty_like(x)
+    nb = bwd_blocks(N, variant)
+    if N == 0:
+        return dx, torch.zeros(1, D, dtype=torch.float32, device=x.device)
+    partial = torch.empty(nb, D, dtype=torch.float32, device=x.device)
+    entry = "rmsnorm_bwd" if ds is None else "rmsnorm_residual_bwd"
+    lib = build.load("rmsnorm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = getattr(lib, entry)(
+            x.data_ptr(), others[0].data_ptr(),
+            None if ds is None else others[1].data_ptr(), w.data_ptr(),
+            dx.data_ptr(), partial.data_ptr(), N, D, eps, _DTYPES[x.dtype],
+            variant, nb, torch.cuda.current_stream().cuda_stream)
+    build.check(err, entry)
+    fn = rmsnorm_bwd if ds is None else rmsnorm_residual_bwd
+    fn.launches += 1
+    fn.variant = VARIANTS[variant]
+    return dx, partial
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x.dtype, dw f32) of rmsnorm at x for the cotangent dy."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_plain(x, w, dy, eps)
+    dx, partial = bwd_partials(x, w, dy, None, eps)
+    return dx, rmsnorm_dw_reduce(partial)
+
+
+rmsnorm_bwd.launches = 0
+rmsnorm_bwd.variant = None
+
+
+def rmsnorm_residual_bwd(s: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                         ds: torch.Tensor, eps: float = 1e-5
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dt, dw) of rmsnorm_residual from its saved sum s and the cotangents
+    of (y, s); dt is the gradient of both x and r."""
+    if s.device.type == "cpu":
+        return rmsnorm_residual_bwd_plain(s, w, dy, ds, eps)
+    dt, partial = bwd_partials(s, w, dy, ds, eps)
+    return dt, rmsnorm_dw_reduce(partial)
+
+
+rmsnorm_residual_bwd.launches = 0
+rmsnorm_residual_bwd.variant = None
+
+
+class RMSNormFn(torch.autograd.Function):
+    """rmsnorm with the K2b backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        y = _rmsnorm_fwd(x, w, eps)
+        if any(ctx.needs_input_grad[:2]):
+            ctx.save_for_backward(x, w)
+            ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, ctx.eps)
+        return dx, dw, None
+
+
+class RMSNormResidualFn(torch.autograd.Function):
+    """rmsnorm_residual with the K3b backward: one dt for x and r."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, eps):
+        y, s = _rmsnorm_residual_fwd(x, r, w, eps)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(s, w)
+            ctx.eps = eps
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, w = ctx.saved_tensors
+        # autograd gives zeros for an output that took no gradient
+        dt, dw = rmsnorm_residual_bwd(s, w, dy, ds, ctx.eps)
+        return dt, dt, dw, None
 
 
 def launch_empty() -> None:

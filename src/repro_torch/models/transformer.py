@@ -7,6 +7,14 @@ The mixer norms and ``out_norm`` go through the rmsnorm kernel, and the
 residual add before each FFN norm goes through the fused
 rmsnorm_residual kernel (the sum is rounded to the activation dtype first,
 so the fused path equals the unfused reference).
+
+For training, ``Transformer(..., trainable=True)`` holds f32 master
+parameters that need gradients (matrices are cast to ``cfg.dtype`` at each
+use, as for serving), and ``train_logits(..., remat="full")``, the JAX
+default, runs each :class:`Block` under ``torch.utils.checkpoint``: its
+activations are recomputed in the backward, so every forward kernel runs
+twice per step. The kernels' backward passes come from their autograd
+functions (``kernels/flash_attention.py``, ``kernels/rmsnorm.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -25,12 +34,18 @@ from repro_torch.models.params import check_spec, model_defs
 Cache = Dict[str, torch.Tensor]
 
 
+REMAT = ("full", "none")
+
+
 def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
-                device: torch.device) -> nn.ParameterDict:
-    """The leaves ``<prefix>.<name>`` as a ParameterDict keyed by name."""
+                device: torch.device, trainable: bool = False
+                ) -> nn.ParameterDict:
+    """The leaves ``<prefix>.<name>`` as a ParameterDict keyed by name. The
+    parameters share storage with ``params`` where those already lie on
+    ``device``, so an in-place update of ``params`` is seen here."""
     n = len(prefix) + 1
     return nn.ParameterDict({
-        k[n:]: nn.Parameter(v.to(device), requires_grad=False)
+        k[n:]: nn.Parameter(v.detach().to(device), requires_grad=trainable)
         for k, v in params.items()
         if k.startswith(prefix + ".") and "." not in k[n:]})
 
@@ -40,12 +55,12 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  params: Mapping[str, torch.Tensor], prefix: str,
-                 device: torch.device):
+                 device: torch.device, trainable: bool = False):
         super().__init__()
         check_spec(spec)
         self.cfg, self.spec = cfg, spec
         for sub in ("mixer_norm", "mixer", "ffn_norm", "ffn"):
-            pd = _param_dict(params, f"{prefix}.{sub}", device)
+            pd = _param_dict(params, f"{prefix}.{sub}", device, trainable)
             if len(pd):
                 setattr(self, sub, pd)
 
@@ -86,10 +101,12 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The model, holding ``params`` (a state dict named as
-    :func:`~repro_torch.models.params.model_defs`) on ``device``."""
+    :func:`~repro_torch.models.params.model_defs`) on ``device``; with
+    ``trainable`` the parameters need gradients (serving builds them
+    without)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-                 *, device: DeviceLike = "cuda"):
+                 *, device: DeviceLike = "cuda", trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
         expected = set(model_defs(cfg))
@@ -99,24 +116,34 @@ class Transformer(nn.Module):
                 f"{sorted(expected - set(params))}, unexpected "
                 f"{sorted(set(params) - expected)}")
         self.cfg = cfg
-        self.embed = _param_dict(params, "embed", dev)
-        self.out_norm = _param_dict(params, "out_norm", dev)
+        self.embed = _param_dict(params, "embed", dev, trainable)
+        self.out_norm = _param_dict(params, "out_norm", dev, trainable)
         self.layers = nn.ModuleList(
-            Block(cfg, spec, params, f"layers.{i}", dev)
+            Block(cfg, spec, params, f"layers.{i}", dev, trainable)
             for i, spec in enumerate(cfg.layer_specs))
 
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 lengths: Optional[torch.Tensor] = None,
-                want_cache: bool = False
+                want_cache: bool = False, remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """Full-sequence forward. Returns (hidden (B,S,D), caches or None)."""
+        """Full-sequence forward. Returns (hidden (B,S,D), caches or None).
+        ``remat="full"`` checkpoints each block when a graph is being
+        built (``torch.utils.checkpoint``, non-reentrant)."""
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         cfg = self.cfg
         extra = batch.get("vision_embeds", batch.get("frame_embeds"))
         x = L.embed_tokens(cfg, self.embed, batch.get("tokens"), extra)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat == "full" and torch.is_grad_enabled() and not want_cache
         caches: List[Optional[Cache]] = []
         for block in self.layers:
-            x, c = block(x, positions, lengths, want_cache)
+            if remat:
+                x = checkpoint(lambda x, block=block: block(
+                    x, positions, lengths, False)[0], x, use_reentrant=False)
+                c = None
+            else:
+                x, c = block(x, positions, lengths, want_cache)
             caches.append(c)
         x = L.apply_norm(cfg, self.out_norm, x)
         return x, ({"layers": caches} if want_cache else None)
@@ -146,10 +173,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
 
-def train_logits(model: Transformer, batch: Mapping[str, torch.Tensor]
-                 ) -> torch.Tensor:
-    """f32 logits (B, S, V) of a full-sequence forward."""
-    x, _ = model(batch)
+def train_logits(model: Transformer, batch: Mapping[str, torch.Tensor], *,
+                 remat: str = "full") -> torch.Tensor:
+    """f32 logits (B, S, V) of a full-sequence forward; differentiable when
+    the model is trainable. ``remat`` as JAX's ``RunFlags.remat``."""
+    x, _ = model(batch, remat=remat)
     return L.unembed(model.cfg, model.embed, x)
 
 

@@ -1,0 +1,91 @@
+"""AdamW written out (not ``torch.optim.AdamW``): decoupled weight decay,
+bias correction, global-norm clipping, warmup + cosine schedule,
+configurable moment dtypes. Port of ``repro/train/optimizer.py``.
+
+Parameters, grads and moments are dicts of tensors keyed alike. Where JAX
+returns new trees, :func:`adamw_update` writes the new parameters and
+moments into the given tensors, under ``torch.no_grad()``, and returns the
+same dicts: one copy of the optimizer state, not two.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterable, Tuple
+
+import torch
+
+Tree = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    m_dtype: torch.dtype = torch.float32
+    v_dtype: torch.dtype = torch.float32
+
+
+def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup to ``lr``, then cosine to ``lr * min_lr_ratio`` at
+    ``total_steps``; f32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_opt(params: Tree, cfg: OptConfig) -> Dict:
+    dev = next(iter(params.values())).device
+    return {"m": {k: torch.zeros(p.shape, dtype=cfg.m_dtype, device=p.device)
+                  for k, p in params.items()},
+            "v": {k: torch.zeros(p.shape, dtype=cfg.v_dtype, device=p.device)
+                  for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
+
+
+@torch.no_grad()
+def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig
+                 ) -> Tuple[Tree, Dict, Dict[str, torch.Tensor]]:
+    """One AdamW step, IN PLACE: ``params`` and ``opt["m"]``/``opt["v"]``
+    are overwritten (each rounded to its own dtype) and ``opt["step"]``
+    replaced. Returns (params, opt, {"grad_norm", "lr", "param_norm"}).
+    Weight decay applies to leaves with ndim >= 2 only."""
+    step = opt["step"] + 1
+    gnorm = global_norm(grads.values())
+    scale = torch.where(gnorm > cfg.clip_norm,
+                        cfg.clip_norm / (gnorm + 1e-9), 1.0)
+    lr = lr_at(cfg, step)
+    stepf = step.to(torch.float32)
+    b1c = 1 - cfg.b1 ** stepf
+    b2c = 1 - cfg.b2 ** stepf
+    for name, p in params.items():
+        m, v = opt["m"][name], opt["v"][name]
+        g = grads[name].float() * scale
+        m1 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+        v1 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+        u = (m1 / b1c) / (torch.sqrt(v1 / b2c) + cfg.eps)
+        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        pf = p.float()
+        p.copy_(pf - lr * (u + decay * pf))
+        m.copy_(m1)
+        v.copy_(v1)
+    opt["step"] = step
+    stats = {"grad_norm": gnorm, "lr": lr,
+             "param_norm": global_norm(params.values())}
+    return params, opt, stats

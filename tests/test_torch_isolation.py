@@ -24,7 +24,10 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
-    assert "repro_torch.serve.engine" in mods and len(mods) > 15
+    assert {"repro_torch.serve.engine", "repro_torch.train.step",
+            "repro_torch.train.loss", "repro_torch.train.optimizer",
+            "repro_torch.data.synthetic", "repro_torch.launch.train"} <= set(mods)
+    assert len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
@@ -61,13 +64,18 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer, init_params
     from repro_torch.models.transformer import init_cache
+    from repro_torch.launch.train import main as train_main
     from repro_torch.serve import ServeEngine
+    from repro_torch.train import OptConfig, init_train_state
     cfg = get_config("tacc-100m", smoke=True)
     params = init_params(cfg, torch.Generator(), device="cpu")
     for call in (lambda: ServeEngine(cfg, params),
                  lambda: Transformer(cfg, params),
+                 lambda: Transformer(cfg, params, trainable=True),
                  lambda: init_params(cfg, torch.Generator()),
-                 lambda: init_cache(cfg, 1, 8)):
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: init_train_state(cfg, OptConfig(), torch.Generator()),
+                 lambda: train_main(["--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

@@ -1,6 +1,8 @@
 """The port's kernel modules on the CPU: each wrapper, given CPU tensors,
 computes its plain version, held here against the JAX package's Pallas
-kernel (interpret mode) or its reference, on the same numpy inputs."""
+kernel (interpret mode) or its reference, on the same numpy inputs; the
+plain backward versions against jax.vjp of the JAX functions whose XLA
+gradient the backward kernels replace."""
 import importlib
 import os
 import re
@@ -19,7 +21,8 @@ from repro.kernels.flash_attention import flash_attention_tpu
 from repro.kernels.rmsnorm import rmsnorm_residual_tpu, rmsnorm_tpu
 from repro.models.attention import flash_attention_xla, repeat_kv
 from repro_torch.kernels import (build, flash_attention, flash_attention_plain,
-                                 rmsnorm, rmsnorm_plain, rmsnorm_residual,
+                                 rmsnorm, rmsnorm_bwd_plain, rmsnorm_plain,
+                                 rmsnorm_residual, rmsnorm_residual_bwd_plain,
                                  rmsnorm_residual_plain)
 
 # tests/test_kernels.py's shapes, (B, H, S, D)
@@ -289,3 +292,188 @@ def test_flash_bf16_reads_strided_views_in_place():
         assert copy is not bad and copy.is_contiguous()
         assert copy.data_ptr() % 16 == 0 and torch.equal(copy, bad)
         assert strides == fa._strides(copy)
+
+
+# -- backward ---------------------------------------------------------------
+
+@jax.jit
+def _xla_gqa_vjp(q, k, v, lengths, do):
+    """dq, dk, dv of the XLA path on repeated K/V: jax.grad sums the
+    repeated heads' gradients back onto each KV head."""
+    def f(q, k, v):
+        g = q.shape[2] // k.shape[2]
+        return flash_attention_xla(q, repeat_kv(k, g), repeat_kv(v, g),
+                                   causal=True, lengths=lengths)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+@jax.jit
+def _xla_full_vjp(q, k, v, lengths, do):
+    def f(q, k, v):
+        g = q.shape[2] // k.shape[2]
+        return flash_attention_xla(q, repeat_kv(k, g), repeat_kv(v, g),
+                                   causal=False, lengths=lengths)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+# (S, H, KV, D, causal, lengths): S 64, 128 and 200 with lengths (a 0
+# among them: a row with no valid key), G = 1 and 3, causal and full,
+# D = 64 and 128
+BWD_CASES = [(64, 6, 2, 64, True, [64, 0]), (128, 3, 3, 128, True, None),
+             (200, 6, 2, 64, True, [200, 137]),
+             (200, 4, 4, 128, False, [0, 151])]
+
+
+@pytest.mark.parametrize("S,H,KV,D,causal,lengths", BWD_CASES,
+                         ids=[f"S{c[0]}-G{c[1] // c[2]}-D{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}"
+                              for c in BWD_CASES])
+def test_flash_bwd_plain_vs_jax_grad_and_torch_autograd(S, H, KV, D, causal,
+                                                        lengths):
+    """The plain backward (the kernels' formula, from the forward's o and
+    lse) against jax.vjp of the XLA path and torch autograd of
+    flash_attention_plain, in f32: within 3e-5 of each gradient's largest
+    entry (the f32 attention bar, scaled: the sums run in another order);
+    and the autograd function's CPU backward is the plain backward."""
+    rng = np.random.default_rng(S + H + D)
+    B = 2
+    q, do = (rng.standard_normal((B, S, H, D), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, KV, D), np.float32) for _ in range(2))
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    ln = None if lens is None else torch.from_numpy(lens)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    o, lse = fa._plain_forward(tq, tk, tv, causal, ln)
+    grads = fa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                         causal=causal, lengths=ln)
+    jl = jnp.asarray(lens if lens is not None else np.full(B, S, np.int32))
+    vjp = _xla_gqa_vjp if causal else _xla_full_vjp
+    jgrads = vjp(*(jnp.asarray(a) for a in (q, k, v)), jl, jnp.asarray(do))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    fa.flash_attention_plain(*leaves, causal=causal,
+                             lengths=ln).backward(tdo)
+    for name, g, jg, leaf in zip("qkv", grads, jgrads, leaves):
+        assert g.shape == leaf.shape and g.dtype == torch.float32
+        tol = 3e-5 * float(np.abs(np.asarray(jg)).max())
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=tol,
+                                   err_msg=f"d{name} vs jax")
+        np.testing.assert_allclose(g.numpy(), leaf.grad.numpy(), atol=tol,
+                                   err_msg=f"d{name} vs torch autograd")
+    # through the autograd function, as the model calls it
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    flash_attention(*leaves, causal=causal, lengths=ln).backward(tdo)
+    for g, leaf in zip(grads, leaves):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_flash_bwd_plain_rounds_p_for_dv_only():
+    """In bf16, dV takes P rounded to v.dtype (the forward's cast passes
+    the cotangent through) and the softmax gradient P in f32: the plain
+    backward equals torch autograd of flash_attention_plain, which rounds
+    p in the same place, to bf16 rounding of the outputs."""
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 40, 2, 64),
+                                                        np.float32)
+                                    ).bfloat16() for _ in range(4))
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    o, lse = fa._plain_forward(q, k, v, True, None)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_plain(*leaves).backward(do)
+    for g, leaf in zip((dq, dk, dv), leaves):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(g), _f32(leaf.grad), atol=3e-2)
+
+
+@jax.jit
+def _rms_vjp(x, w, dy):
+    return jax.vjp(lambda x, w: ref.rmsnorm_ref(x, w), x, w)[1](dy)
+
+
+@jax.jit
+def _unfused_vjp(x, r, w, dy, ds):
+    """The model's unfused x + y; norm (transformer.py:187-189)."""
+    def f(x, r, w):
+        s = x + r
+        return ref.rmsnorm_ref(s, w), s
+    return jax.vjp(f, x, r, w)[1]((dy, ds))
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (2, 7, 768), (3, 8192),
+                                   (5, 770)])
+def test_rmsnorm_bwd_plain_vs_jax_grad(shape):
+    """dx and dw of the plain backward against jax.vjp of rmsnorm_ref, and
+    the autograd function's CPU backward equal to it; f32, within 1e-5 of
+    each gradient's largest entry (the rmsnorm bar, scaled)."""
+    rng = np.random.default_rng(shape[-1])
+    x, dy = (rng.standard_normal(shape, np.float32) for _ in range(2))
+    w = rng.standard_normal(shape[-1:], np.float32)
+    tx, tw, tdy = (torch.from_numpy(a) for a in (x, w, dy))
+    dx, dw = rmsnorm_bwd_plain(tx, tw, tdy)
+    jdx, jdw = _rms_vjp(jnp.asarray(x), jnp.asarray(w), jnp.asarray(dy))
+    for g, jg in ((dx, jdx), (dw, jdw)):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg,
+                                   atol=1e-5 * float(np.abs(jg).max()))
+    lx, lw = tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)
+    rmsnorm(lx, lw).backward(tdy)
+    assert torch.equal(lx.grad, dx) and torch.equal(lw.grad, dw)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (2, 7, 768), (5, 770)])
+def test_rmsnorm_residual_bwd_plain_vs_jax_grad_of_unfused(shape):
+    """dt (the gradient of both x and r) and dw against jax.vjp of the
+    unfused x + y; norm, with cotangents on both outputs; f32 within 1e-5
+    of each gradient's largest entry. In bf16 JAX adds the two cotangents
+    in bf16 and the port in f32 before one rounding, so they may differ by
+    one bf16 ulp: compared in f32 here."""
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x, r, dy, ds = (rng.standard_normal(shape, np.float32) for _ in range(4))
+    w = rng.standard_normal(shape[-1:], np.float32)
+    tx, tr, tw, tdy, tds = (torch.from_numpy(a) for a in (x, r, w, dy, ds))
+    s = tx + tr
+    dt, dw = rmsnorm_residual_bwd_plain(s, tw, tdy, tds)
+    jdx, jdr, jdw = _unfused_vjp(*(jnp.asarray(a) for a in (x, r, w, dy, ds)))
+    for g, jg in ((dt, jdx), (dt, jdr), (dw, jdw)):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg,
+                                   atol=1e-5 * float(np.abs(jg).max()))
+    leaves = [t.clone().requires_grad_(True) for t in (tx, tr, tw)]
+    y, s2 = rmsnorm_residual(*leaves)
+    torch.autograd.backward((y, s2), (tdy, tds))
+    assert torch.equal(leaves[0].grad, dt) and torch.equal(leaves[1].grad, dt)
+    assert torch.equal(leaves[2].grad, dw)
+
+
+def test_backward_wrappers_refuse_other_devices():
+    """The backward kernels' wrappers, like the forward ones, launch on
+    CUDA tensors or raise; they never compute a plain version off the
+    CPU."""
+    q = torch.empty(1, 64, 2, 64, device="meta")
+    lse = torch.empty(1, 2, 64, device="meta")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_bwd_dq(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    x, w = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
+    rms = _rms_module()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rms.rmsnorm_bwd(x, w, x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rms.rmsnorm_residual_bwd(x, w, x, x)
+
+
+@pytest.mark.parametrize("rows,variant,blocks", [
+    (1, 0, 1), (13, 0, 4), (2048, 0, 264), (1055, 0, 264), (5, 1, 5),
+    (300, 2, 264)])
+def test_rmsnorm_bwd_blocks_and_source_constants(rows, variant, blocks):
+    """A backward launch takes a block per 4 rows (warp layout) or per row,
+    at most BWD_BLOCKS; those constants are the source's."""
+    rms = _rms_module()
+    assert rms.bwd_blocks(rows, variant) == blocks
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    consts = {m[0]: int(m[1]) for m in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kBwdBlocks"] == rms.BWD_BLOCKS
+    assert consts["kRowsPerBlock"] == rms.ROWS_PER_BLOCK
