@@ -6,9 +6,11 @@
 Phases, each printing one JSON line and raising on failure:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc;
-   HGMMA (wgmma) in the SASS of both bf16 flash-attention kernels, and
-   128-bit global loads and stores in every 16-byte rmsnorm kernel;
+2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc,
+   built anew so that ptxas reports on each; HGMMA (wgmma) in the SASS of
+   every bf16 flash-attention kernel (forward, K1b-dq and K1b-dkdv, at
+   D = 64 and 128), and 128-bit global loads and stores in every 16-byte
+   rmsnorm kernel;
 3. kernels: each kernel against its plain PyTorch version at the serving
    shapes of tacc-100m (k/v as strided views of one tensor, as the model
    gives them), with its time, the plain version's, one PyTorch library
@@ -26,8 +28,11 @@ Phases, each printing one JSON line and raising on failure:
    time the card is busy and idle;
 7. kernels_bwd: each backward kernel (K1b-dq, K1b-dkdv, K2b, K3b, the dw
    reduction) against its plain backward, at the training shapes of
-   tacc-100m and at their edges, with its time, the plain version's, the
-   backward of one PyTorch call where there is one, and its bound;
+   tacc-100m and at their edges (flash also with q and dO as transposed
+   views and k/v as views of one fused tensor, read in place), with its
+   time, the plain version's, the backward of one PyTorch call where there
+   is one, and its bound; ptxas's spills of the D = 64 bf16 K1b kernels
+   must be 0;
 8. train_consistency: full-width tacc-100m, one forward and backward of
    train_logits + cross_entropy on the card through the kernels and on the
    CPU through the plain path, from the same weights and tokens;
@@ -69,6 +74,7 @@ from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  rmsnorm_residual_bwd_plain,
                                  rmsnorm_residual_plain)
 from repro_torch.kernels.flash_attention import _plain_forward
+from repro_torch.kernels.flash_attention import _bwd_inputs as bwd_inputs
 from repro_torch.kernels.flash_attention import _forward as flash_forward
 from repro_torch.kernels.rmsnorm import bwd_partials, launch_empty
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
@@ -170,7 +176,7 @@ def kernel_name(mangled: str) -> str:
     ``flash_fwd_wgmma<bf16, 64>``, the norm kernels as
     ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, others by their
     mangled name."""
-    m = re.search(r"(flash_fwd_[a-z]+|flash_bwd_[a-z]+_kernel)"
+    m = re.search(r"(flash_fwd_[a-z]+|flash_bwd_[a-z]+_(?:kernel|wgmma))"
                   r"I(f?|\d+__nv_bfloat16)Li(\d+)E", mangled)
     if m:
         return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
@@ -195,16 +201,20 @@ def sass(library: str) -> dict:
             for part in out.split("Function : ")[1:]}
 
 
+WGMMA_KERNELS = [f"{k}<bf16, {d}>" for k in (
+    "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
+    for d in (64, 128)]
+
+
 def hgmma_counts() -> dict:
     """HGMMA (wgmma) instructions in the SASS of each flash-attention kernel
-    of the built library. Fails unless both bf16 instantiations have them,
-    so a kernel that lost its tensor cores cannot pass."""
+    of the built library. Fails unless every bf16 instantiation, forward
+    and backward, has them, so a kernel that lost its tensor cores cannot
+    pass."""
     counts = {n: text.count("HGMMA")
               for n, text in sass("flash_attention").items()}
-    bf16 = {n: c for n, c in counts.items()
-            if n.startswith("flash_fwd_wgmma<")}
-    if len(bf16) != 2 or not all(bf16.values()):
-        raise AssertionError(f"the bf16 flash kernels lack HGMMA: {counts}")
+    if not all(counts.get(n) for n in WGMMA_KERNELS):
+        raise AssertionError(f"a bf16 flash kernel lacks HGMMA: {counts}")
     return counts
 
 
@@ -608,15 +618,23 @@ def library_bwd_ms(fn, inputs, grads_out) -> float:
 
 
 def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
-                   timed=False):
+                   timed=False, strided=False):
     """K1b-dq and K1b-dkdv against the plain backward on the same q, k, v,
     dO and the kernel forward's o and lse; the lse against the plain
-    forward's."""
+    forward's. ``strided`` (bf16): q and dO are transposed views of
+    (B, H, S, D) tensors, k and v views of one fused (B, S, 2, KV, D)
+    tensor, and the backward must read all four in place."""
     g = torch.Generator(device="cuda").manual_seed(SEED + S + H + D)
-    q, do = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
-            for _ in range(2))
+    if strided:
+        q, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                 .to(dtype).transpose(1, 2) for _ in range(2))
+        kv = torch.randn(B, S, 2, KV, D, generator=g, device="cuda").to(dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        q, do = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
     ln = (None if lengths is None else
           torch.tensor(lengths, dtype=torch.int32, device="cuda"))
     o, lse = flash_forward(q, k, v, causal, ln, True)
@@ -629,6 +647,13 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
     case = {"dtype": str(dtype).split(".")[-1], "q": [B, S, H, D],
             "kv": [B, S, KV, D], "causal": causal, "lengths": lengths,
             "lse_err": max_err(lse, lse_ref)}
+    if strided:
+        case["strides"] = {n: list(t.stride())
+                           for n, t in (("q", q), ("k", k), ("dO", do))}
+        taken = bwd_inputs(q, k, v, o, do, lse)
+        if not all(t is u for t, u in zip(taken, (q, k, v, o, do))):
+            raise AssertionError(f"the bf16 backward copied a strided input "
+                                 f"that TMA can read: {case}")
     failed = ([] if case["lse_err"] <= 1e-4 * max(float(lse_ref.abs().max()),
                                                    1.0) else ["lse"])
     for name, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
@@ -745,9 +770,25 @@ def rms_bwd_case(dtype, rows, residual: bool, *, D=None, offset=0,
     return case
 
 
+def spill_bytes(lines) -> "int | None":
+    """Spill stores plus loads in ptxas's report of one kernel (None when
+    there is no report)."""
+    found = [int(n) for ln in lines or ()
+             for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+    return sum(found) if found else None
+
+
 def phase_kernels_bwd(ptxas: dict) -> dict:
     """Phase 7: every backward kernel against its plain backward, and
-    ptxas's registers and spills for each backward kernel."""
+    ptxas's registers and spills for each backward kernel; the D = 64
+    bf16 K1b kernels (the training shape) must not spill."""
+    spills = {n: spill_bytes(ptxas.get(n)) for n in
+              ("flash_bwd_dq_wgmma<bf16, 64>",
+               "flash_bwd_dkdv_wgmma<bf16, 64>")}
+    emit({"phase": "kernels_bwd_spills", "spill_bytes": spills})
+    if any(v != 0 for v in spills.values()):
+        raise AssertionError(f"the D = 64 bf16 K1b kernels spill (or ptxas "
+                             f"did not report them): {spills}")
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("tacc-100m")
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -766,6 +807,8 @@ def phase_kernels_bwd(ptxas: dict) -> dict:
                            lengths=[0, 151]),
             flash_bwd_case(dt, 1, 128, 4, 4, 128, causal=False),
         ]
+    flash.append(flash_bwd_case(bf16, 2, 200, H, KV, HD, lengths=[200, 137],
+                                strided=True))
     N = TB * TS
     norms = {}
     for residual, key in ((False, "K2b"), (True, "K3b")):

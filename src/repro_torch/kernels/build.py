@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` compiles into its own shared library with a plain C
 interface, ``build/repro_torch/<name>-<hash>.so`` at the root of the
 checkout, keyed by a hash of every source under ``csrc/`` and the flags.
 A library is built at its first use, and a build failure raises with
-nvcc's stderr. :func:`build_all` starts one ``nvcc`` per source, all at
-once.
+nvcc's stderr. :func:`build_all` rebuilds every source, one ``nvcc`` per
+source, all at once.
 """
 from __future__ import annotations
 
@@ -80,9 +80,12 @@ def _finish(name: str, proc: "subprocess.Popen | None") -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every ``csrc/*.cu`` in parallel. Returns ptxas's report per
-    source that was (re)built."""
+    """Build every ``csrc/*.cu`` anew, in parallel, even where a library of
+    the same key exists, so that ptxas reports on every kernel. Returns
+    ptxas's report per source."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    for n in names:
+        library_path(n).unlink(missing_ok=True)
     procs = {n: _start(n) for n in names}
     try:
         return {n: _finish(n, p) for n, p in procs.items()}

@@ -1,5 +1,6 @@
 // Causal / full flash attention forward for Hopper (sm_90a), with GQA and a
-// per-row key-length mask. Two kernels, picked by dtype alone:
+// per-row key-length mask (its backward, K1b, is further down). Two
+// kernels, picked by dtype alone:
 //
 // - bfloat16: flash_fwd_wgmma, on the tensor cores (wgmma) with its K/V
 //   tiles brought in by TMA;
@@ -84,13 +85,9 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -262,23 +259,22 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 
 // ---------------------------------------------------------------------------
-// Backward (K1b): f32 FMA from shared memory, for float32 and bfloat16
+// Backward (K1b): the FlashAttention-2 form; float32 on the f32 FMA units
 // ---------------------------------------------------------------------------
 //
 // Replaces XLA's gradient of the JAX reference's flash_attention_xla
-// (src/repro/models/attention.py); the Pallas kernel has no backward. Two
-// kernels in the FlashAttention-2 form, launched in this order, with no
-// atomics, so the result does not depend on scheduling:
+// (src/repro/models/attention.py:91); the Pallas kernel has no backward.
+// Two kernels per dtype, launched in this order, with no atomics, so the
+// result does not depend on scheduling:
 //
-// - flash_bwd_dq_kernel: one block per (64-row q tile, head, batch). It
-//   forms Delta = rowsum(dO o) for its rows and writes it, then walks the k
-//   tiles the forward walked, recomputing P = exp(score - lse) from the
-//   forward's row log-sum-exp: dP = dO V^T, dS = P (dP - Delta),
-//   dQ += dS K scale.
-// - flash_bwd_dkdv_kernel: one block per (64-row k tile, KV head, batch).
-//   It walks the H / KV query heads of its KV head and the q tiles at or
-//   below the diagonal, reading Delta: dV += P~^T dO, dK += dS^T Q scale.
-//   The GQA sum over query heads stays in the block's registers.
+// - dq: one block per (64-row q tile, head, batch). It forms Delta =
+//   rowsum(dO o) for its rows and writes it, then walks the k tiles the
+//   forward walked, recomputing P = exp(score - lse) from the forward's row
+//   log-sum-exp: dP = dO V^T, dS = P (dP - Delta), dQ += dS K scale.
+// - dkdv: one block per (64-row k tile, KV head, batch). It walks the
+//   H / KV query heads of its KV head and the q tiles at or below the
+//   diagonal, reading Delta: dV += P~^T dO, dK += dS^T Q scale. The GQA
+//   sum over query heads stays in the block's registers.
 //
 // P~ is P rounded to the input type: the forward rounds p before the PV
 // product and that cast passes the cotangent through, so dV takes P~ and
@@ -290,11 +286,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // bf16, causal: q, o, dO and dq are 3.15 MB each, k, v, dk and dv 1.05 MB,
 // lse and Delta 0.1 MB: 17 MB, 5.1 us at 3.35 TB/s; five products of
 // 2 S^2 D per (b, h), halved by the mask, 1.0 GFLOP, 1.0 us at the bf16
-// tensor-core peak. So by bytes. This first version keeps every product
-// on the f32 FMA units in both dtypes (no TF32 anywhere, as the f32 bar of
-// 3e-5 needs), with 64 x 64 tiles padded in shared memory as in the f32
-// forward: simple and right first; it sits far above that bound.
-// Tensor-core products (wgmma) are the later redesign.
+// tensor-core peak. So by bytes.
+//
+// float32 (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel) keeps every product
+// on the f32 FMA units, with 64 x 64 tiles padded in shared memory as in
+// the f32 forward: TF32 keeps about three decimal digits and cannot meet
+// the f32 bar (2e-5), and f32 is on neither the training nor the serving
+// path. bfloat16 runs on the tensor cores (flash_bwd_*_wgmma, below).
 
 constexpr int kRQ = kBlockQ / kTY;      // tile rows per thread
 constexpr int kCK = kBlockK / kTX;      // tile columns per thread
@@ -713,6 +711,9 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+__device__ __forceinline__ void wg_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it.
@@ -784,6 +785,51 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// A 64-row bf16 tile of a 4-d map (rows row.., head, batch) into shared
+// memory at dst, one 64-column swizzle atom per TMA box.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row,
+                                         int batch) {
+#pragma unroll
+  for (int a = 0; a < D / 64; ++a)
+    tma_load(dst + a * kAtomBytes, map, bar, a * 64, head, row, batch);
+}
+
+// d (64 x 64, f32) = A B^T over D, A and B 64 x D bf16 tiles that TMA wrote
+// (K-major, 128-byte swizzle): 16 columns a step, the next atom after four.
+template <int D>
+__device__ __forceinline__ void wg_abt(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + off, 16), sw128_desc(b + off, 16), kk > 0);
+  }
+}
+
+// d (64 x D, f32) += A M: A (64 x 64) as bf16 pairs in registers, four
+// 16-column fragments; M a 64 x D tile that TMA wrote, read MN-major, 16
+// rows (2048 bytes) a step.
+template <int N>
+__device__ __forceinline__ void wg_am(float (&d)[N], const uint32_t (&a)[4][4],
+                                      uint32_t m) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs(d, a[j], sw128_desc(m + j * 2048, kAtomBytes));
+}
+
+// x0, x1 as two bf16 terms each: hi = bf16(x), lo = bf16(x - hi), packed in
+// pairs. hi + lo keeps 16 significant bits, so dS K (and dS^T Q) on the
+// tensor cores meets the f32 softmax gradient's bar where one bf16 dS
+// would not.
+__device__ __forceinline__ void pack_split(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
 // One warpgroup per (64-row q tile, head, batch); grid = (ceil(S / 64), H,
 // B). Maps: q (D, H, S, B), k/v (D, KV, S, B), box (64, 1, 64, 1).
 //
@@ -800,7 +846,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const int* __restrict__ lengths, int S, int H, int KV,
                 int causal, float scale) {
   using L = WgLayout<D>;
-  constexpr int kAtoms = D / 64;        // 64-column atoms in a row of D
   constexpr int kNO = D / 2;            // O accumulator floats a thread holds
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -822,15 +867,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto load_kv = [&](int t) {           // thread 0 only
     const int s = t & 1;
     mbar_expect_tx(barK + 8 * s, L::kTileBytes);
-#pragma unroll
-    for (int a = 0; a < kAtoms; ++a)
-      tma_load(sK + s * L::kTileBytes + a * kAtomBytes, &k_map, barK + 8 * s,
-               a * 64, kvh, t * kTile, b);
+    tma_tile<D>(sK + s * L::kTileBytes, &k_map, barK + 8 * s, kvh, t * kTile, b);
     mbar_expect_tx(barV + 8 * s, L::kTileBytes);
-#pragma unroll
-    for (int a = 0; a < kAtoms; ++a)
-      tma_load(sV + s * L::kTileBytes + a * kAtomBytes, &v_map, barV + 8 * s,
-               a * 64, kvh, t * kTile, b);
+    tma_tile<D>(sV + s * L::kTileBytes, &v_map, barV + 8 * s, kvh, t * kTile, b);
   };
 
   if (tid == 0) {
@@ -843,9 +882,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(barQ, L::kTileBytes);
-#pragma unroll
-    for (int a = 0; a < kAtoms; ++a)
-      tma_load(sQ + a * kAtomBytes, &q_map, barQ, a * 64, h, q0, b);
+    tma_tile<D>(sQ, &q_map, barQ, h, q0, b);
     load_kv(0);
     if (ntiles > 1) load_kv(1);
   }
@@ -865,19 +902,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (t == 0) mbar_wait(barQ, 0);
     mbar_wait(barK + 8 * s, parity);
 
-    // S = Q K^T over D in steps of 16: 32 bytes along the swizzled row, and
-    // the next 64-column atom after four steps
-    float sc[32];
+    float sc[32];                       // S = Q K^T
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wg_fence();
     fence_regs(sc);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-      wgmma_ss_n64(sc, sw128_desc(sQ + off, 16),
-                   sw128_desc(sK + s * L::kTileBytes + off, 16), kk > 0);
-    }
+    wg_abt<D>(sc, sQ, sK + s * L::kTileBytes);
     wg_commit();
     wg_wait_all();
     fence_regs(sc);
@@ -923,14 +953,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < kNO; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-    // O += P V over the 64 keys in steps of 16 rows (2048 bytes)
-    mbar_wait(barV + 8 * s, parity);
+    mbar_wait(barV + 8 * s, parity);    // O += P V
     wg_fence();
     fence_regs(acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wgmma_rs(acc, pa[j], sw128_desc(sV + s * L::kTileBytes + j * 2048,
-                                      kAtomBytes));
+    wg_am(acc, pa, sV + s * L::kTileBytes);
     wg_commit();
     wg_wait_all();
     fence_regs(acc);
@@ -952,6 +978,461 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + c * 8 + cq) =
           pack_bf16(acc[4 * c + 2 * r] / den, acc[4 * c + 2 * r + 1] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward (K1b), bfloat16: wgmma tensor-core products fed by TMA
+// ---------------------------------------------------------------------------
+//
+// flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma compute what the f32 kernels
+// above compute, on the same grids and in the same order, at the bound
+// stated there (17 MB, 5.1 us; 1.0 GFLOP, 1.0 us: by bytes). What the
+// design does:
+//
+// - Products: each is a wgmma with f32 accumulators in a form the forward
+//   already uses. S = Q K^T and dP = dO V^T (in K1b-dkdv their transposes
+//   K Q^T and V dO^T) read two K-major tiles (SS); dQ += dS K, dK += dS^T Q
+//   and dV += P~^T dO take their left operand as bf16 pairs in registers,
+//   packed from an accumulator as the forward packs p, and read the right
+//   one MN-major from the same swizzled tile (RS). So one tile in shared
+//   memory serves two products, as the forward's V tile does.
+// - dS as two bf16 terms. A tensor-core product takes dS in bf16; rounded
+//   once, dQ and dK miss the softmax gradient's bar (1 bf16 ulp + 2e-5 of
+//   max |ref| against the f32 plain backward) 30-80 times over (emulated
+//   in f32 on small shapes, tests/test_torch_kernels.py). hi = bf16(dS)
+//   and lo = bf16(dS - hi) keep 16 significant bits, and hi K + lo K
+//   (summed in f32) passes with room, for two more wgmma chains a tile.
+//   dV takes P~ in bf16, as the forward rounds it.
+// - Loads: every tile comes by TMA through a 4-d map with the real
+//   strides, so the strided k/v views of the fused kv projection, and any
+//   view with a contiguous head dim and 16-byte aligned base and strides,
+//   are read in place; rows past S read as zeros. K1b-dq streams K/V
+//   through a two-stage mbarrier ring; K1b-dkdv loads K/V once and streams
+//   Q and dO of its (head, q tile) pairs through six stages (four at
+//   D = 128), with lse and Delta staged beside them, so at the training
+//   shape every load is in flight before the first product.
+// - Registers: K1b-dkdv gives dV to warpgroup 0 and dK to warpgroup 1
+//   (both form S^T), so no thread holds two D-wide accumulators, and
+//   neither kernel spills at D = 64 or 128.
+// - Masks by select, and P as exp2 of scores prescaled by log2(e).
+//
+// What is still serial (H100 SXM, training shape): K1b-dq spends most of
+// its time before its loop's first product, on loads, Delta and launch;
+// K1b-dkdv's 128 blocks fill one wave, and the longest (k tile 0) walk
+// six (head, q tile) pairs one after another, each a chain of wgmma waits
+// and exp/split work with one warp of each warpgroup per scheduler. The
+// numbers are in PERF.md (tools/k1b_breakdown.py times the parts).
+
+struct RowStrides { long long b, s, h; };   // element strides; head dim 1
+
+// Shared memory of K1b-dq, in bytes from a 1024-byte aligned base: Q, dO,
+// two K stages, two V stages, Delta (64 f32), then the mbarriers (Q + dO,
+// K[2], V[2]).
+template <int D>
+struct DqLayout {
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kTileBytes;
+  static constexpr int kK = 2 * kTileBytes;
+  static constexpr int kV = 4 * kTileBytes;
+  static constexpr int kDelta = 6 * kTileBytes;
+  static constexpr int kBar = kDelta + kTile * 4;
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;
+};
+
+// K1b-dq: one warpgroup per (64-row q tile, head, batch); grid = (ceil(S /
+// 64), H, B), longest rows first. Maps: q, dO (D, H, S, B), k, v (D, KV, S,
+// B). o and dO are also read in place for Delta. Fragments as in
+// flash_fwd_wgmma.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const __nv_bfloat16* __restrict__ o, RowStrides os,
+                   const __nv_bfloat16* __restrict__ dO, RowStrides dos,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq,
+                   const int* __restrict__ lengths, int S, int H, int KV,
+                   int causal, float scale) {
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* Dl = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) +
+                                       L::kDelta);
+  const uint32_t sQ = base + L::kQ, sdO = base + L::kDO;
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  const uint32_t barQ = base + L::kBar, barK = barQ + 8, barV = barQ + 24;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int len = lengths ? lengths[b] : S;
+  const int64_t row_base = ((int64_t)b * H + h) * S;
+  // the k tiles the forward walked; with no valid key (len <= 0) every
+  // score is masked and dq is 0
+  int kend = causal ? min(S, q0 + kTile) : S;
+  kend = len > 0 ? min(kend, len) : 0;
+  const int ntiles = (kend + kTile - 1) / kTile;
+
+  auto load_kv = [&](int t) {           // thread 0 only
+    const int s = t & 1;
+    mbar_expect_tx(barK + 8 * s, L::kTileBytes);
+    tma_tile<D>(sK + s * L::kTileBytes, &k_map, barK + 8 * s, kvh, t * kTile, b);
+    mbar_expect_tx(barV + 8 * s, L::kTileBytes);
+    tma_tile<D>(sV + s * L::kTileBytes, &v_map, barV + 8 * s, kvh, t * kTile, b);
+  };
+
+  if (tid == 0) {
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    prefetch_map(&do_map);
+    for (int i = 0; i < 5; ++i) mbar_init(barQ + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (ntiles > 0) {                   // the loads start before Delta's
+      mbar_expect_tx(barQ, 2 * L::kTileBytes);
+      tma_tile<D>(sQ, &q_map, barQ, h, q0, b);
+      tma_tile<D>(sdO, &do_map, barQ, h, q0, b);
+      load_kv(0);
+      if (ntiles > 1) load_kv(1);
+    }
+  }
+
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;
+  const int cq = (lane % 4) * 2;
+  const float scale2 = scale * kLog2e;
+  float lr[2], dr[2];                   // lse log2(e) and Delta of this thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    lr[r] = row < S ? lse[row_base + row] * kLog2e : 0.f;
+  }
+
+  {                                     // Delta = rowsum(dO o): two threads a row
+    const int r = tid / 2, half = tid % 2, row = q0 + r;
+    float acc = 0.f;
+    if (row < S) {
+      const uint4* po = reinterpret_cast<const uint4*>(
+          o + b * os.b + row * os.s + h * os.h + half * (D / 2));
+      const uint4* pd = reinterpret_cast<const uint4*>(
+          dO + b * dos.b + row * dos.s + h * dos.h + half * (D / 2));
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const uint4 ov = po[c], dv = pd[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+          acc = fmaf(df.x, of.x, acc);
+          acc = fmaf(df.y, of.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      Dl[r] = acc;
+      if (row < S) delta[row_base + row] = acc;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dr[r] = Dl[r0 + 8 * r];
+  constexpr int kN = D / 2;             // dQ accumulator floats a thread holds
+  float acc[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t & 1;
+    const uint32_t parity = (t >> 1) & 1;
+    const int k0 = t * kTile;
+    const uint32_t tK = sK + s * L::kTileBytes, tV = sV + s * L::kTileBytes;
+    if (t == 0) mbar_wait(barQ, 0);
+
+    // S = Q K^T, then dP = dO V^T in a second group, so the exponentials
+    // of P overlap the dP product
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    mbar_wait(barK + 8 * s, parity);
+    wg_fence();
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_abt<D>(sc, sQ, tK);
+    wg_commit();
+    mbar_wait(barV + 8 * s, parity);
+    wg_abt<D>(dp, sdO, tV);
+    wg_commit();
+    wg_wait_1();
+    fence_regs(sc);
+
+    // P = exp(S scale - lse) = exp2(S scale log2(e) - lse log2(e)); a
+    // masked score, or a key past S, takes no gradient (exp2(-inf) = 0).
+    // Tiles wholly inside the valid keys skip the mask.
+    const bool whole = k0 + kTile <= min(len, S) &&
+                       (!causal || k0 + kTile - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float x = fmaf(sc[i], scale2, -lr[r]);
+      if (!whole) {
+        const int kpos = k0 + (i >> 2) * 8 + cq + (i & 1);
+        const int qpos = q0 + r0 + 8 * r;
+        const bool ok = kpos < len && kpos < S && (!causal || kpos <= qpos);
+        x = ok ? x : -INFINITY;
+      }
+      sc[i] = exp2f(x);
+    }
+    wg_wait_all();
+    fence_regs(dp);
+
+    // dS = P (dP - Delta) as hi + lo bf16 pairs: registers 8j..8j+7 are
+    // wgmma's A fragment for keys 16j..16j+15
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      pack_split(sc[i] * (dp[i] - dr[r]), sc[i + 1] * (dp[i + 1] - dr[r]),
+                 hi[i / 8][(i / 2) % 4], lo[i / 8][(i / 2) % 4]);
+    }
+    // dQ += dS_hi K + dS_lo K, K read MN-major from the same tile
+    wg_fence();
+    fence_regs(acc);
+    wg_am(acc, hi, tK);
+    wg_am(acc, lo, tK);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+
+    if (t + 2 < ntiles) {
+      __syncthreads();                  // every warp is done with stage s
+      if (tid == 0) load_kv(t + 2);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= S) continue;             // never the next batch's rows
+    __nv_bfloat16* out = dq + (((int64_t)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(out + c * 8 + cq) =
+          pack_bf16(acc[4 * c + 2 * r] * scale, acc[4 * c + 2 * r + 1] * scale);
+  }
+}
+
+// Shared memory of K1b-dkdv, in bytes from a 1024-byte aligned base: K, V,
+// kStages stages of Q and of dO, kStages stages of (64 lse, 64 Delta) f32,
+// then the mbarriers (K + V, stage[kStages]). Six stages at D = 64 hold
+// every (head, q tile) pair of the training shape's longest block, so its
+// loads are all issued before the first product.
+template <int D>
+struct DkdvLayout {
+  static constexpr int kStages = D == 64 ? 6 : 4;
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileBytes;
+  static constexpr int kQ = 2 * kTileBytes;
+  static constexpr int kDO = kQ + kStages * kTileBytes;
+  static constexpr int kRows = kDO + kStages * kTileBytes;
+  static constexpr int kBar = kRows + kStages * 2 * kTile * 4;
+  static constexpr int kBytes = kBar + (1 + kStages) * 8 + 1024;
+};
+
+constexpr int kDkdvThreads = 2 * kThreads;  // warpgroup 0: dV; 1: dK
+
+// K1b-dkdv: one block per (64-key tile, KV head, batch); grid = (ceil(S /
+// 64), KV, B). It walks the (query head, q tile) pairs of its KV head, the
+// q tiles at or below the diagonal, through a ring of kStages. Both
+// warpgroups form S^T = K Q^T; warpgroup 0 then dV += P~^T dO, warpgroup 1
+// dP^T = V dO^T and dK += dS^T Q. Rows of a fragment are keys, columns
+// queries, so lse and Delta are read by column.
+template <int D>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv,
+                     const int* __restrict__ lengths, int S, int H, int KV,
+                     int causal, float scale) {
+  using L = DkdvLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) +
+                                         L::kRows);
+  const uint32_t sK = base + L::kK, sV = base + L::kV;
+  const uint32_t sQ = base + L::kQ, sdO = base + L::kDO;
+  const uint32_t barKV = base + L::kBar, barS = barKV + 8;
+
+  const int k0 = blockIdx.x * kTile;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV;
+  const int tid = threadIdx.x, wg = tid / kThreads, lt = tid % kThreads;
+  const int len = lengths ? lengths[b] : S;
+  const bool empty = len <= 0;          // no valid key: P = 1/S everywhere
+  // keys at or past lengths[b] take no gradient; under the causal mask
+  // only q tiles at or below this k tile's diagonal see it
+  const bool none = !empty && k0 >= len;
+  const int qt0 = causal && !empty ? k0 / kTile : 0;
+  const int nq = none ? 0 : (S + kTile - 1) / kTile - qt0;
+  const int n = G * nq;                 // (head, q tile) pairs, head-major
+
+  // Thread lt of warpgroup 0 stages one value of pair i: lse log2(e)
+  // (lt < 64) or Delta (lt >= 64) of row lt % 64 of its q tile.
+  auto row_value = [&](int i) -> float {
+    const int h = kvh * G + i / nq, row = (qt0 + i % nq) * kTile + lt % 64;
+    if (row >= S) return 0.f;
+    const int64_t at = ((int64_t)b * H + h) * S + row;
+    return lt < 64 ? lse[at] * kLog2e : delta[at];
+  };
+  auto load_qdo = [&](int i) {          // thread 0 only
+    const int s = i % kStages, h = kvh * G + i / nq, q0 = (qt0 + i % nq) * kTile;
+    mbar_expect_tx(barS + 8 * s, 2 * L::kTileBytes);
+    tma_tile<D>(sQ + s * L::kTileBytes, &q_map, barS + 8 * s, h, q0, b);
+    tma_tile<D>(sdO + s * L::kTileBytes, &do_map, barS + 8 * s, h, q0, b);
+  };
+
+  if (tid == 0) {
+    prefetch_map(&q_map);
+    prefetch_map(&k_map);
+    prefetch_map(&v_map);
+    prefetch_map(&do_map);
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(barKV + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (n > 0) {                        // the loads start before lse's
+      mbar_expect_tx(barKV, 2 * L::kTileBytes);
+      tma_tile<D>(sK, &k_map, barKV, kvh, k0, b);
+      tma_tile<D>(sV, &v_map, barKV, kvh, k0, b);
+      for (int i = 0; i < kStages && i < n; ++i) load_qdo(i);
+    }
+  }
+  if (wg == 0)
+    for (int i = 0; i < kStages && i < n; ++i)
+      rows[i * 2 * kTile + lt] = row_value(i);
+  __syncthreads();
+  // pair i + kStages's values, loaded an iteration before they are staged
+  float next = wg == 0 && n > kStages ? row_value(kStages) : 0.f;
+
+  const int lane = lt % 32;
+  const int r0 = (lt / 32) * 16 + lane / 4;   // key row within the tile
+  const int cq = (lane % 4) * 2;
+  constexpr int kN = D / 2;             // dV (warpgroup 0) or dK floats a thread holds
+  const float scale2 = scale * kLog2e;
+  float acc[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int q0 = (qt0 + i % nq) * kTile;
+    const float* Ls = rows + s * 2 * kTile;
+    const float* Dls = Ls + kTile;
+    const uint32_t tQ = sQ + s * L::kTileBytes, tdO = sdO + s * L::kTileBytes;
+    if (i == 0) mbar_wait(barKV, 0);
+    mbar_wait(barS + 8 * s, parity);
+    const bool whole = k0 + kTile <= min(len, S) && q0 + kTile <= S &&
+                       (!causal || k0 + kTile - 1 <= q0);
+    // P^T at fragment register j from its score sv, exp2(sv scale log2(e)
+    // - lse log2(e)), masked by select: a masked score takes no gradient
+    // (exp2(-inf) = 0), but with no valid key (lengths[b] <= 0) P = exp(0 -
+    // lse) = 1/S, which only dV sees
+    auto p_at = [&](float sv, int j, bool for_dv) -> float {
+      const int c = (j >> 2) * 8 + cq + (j & 1);
+      float x = fmaf(sv, scale2, -Ls[c]);
+      if (!whole) {
+        const int kpos = k0 + r0 + 8 * ((j >> 1) & 1), qpos = q0 + c;
+        const bool in = kpos < S && qpos < S;
+        const bool ok = in && kpos < len && (!causal || kpos <= qpos);
+        x = ok ? x : (for_dv && empty && in ? -Ls[c] : -INFINITY);
+      }
+      return exp2f(x);
+    };
+    float st[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) st[j] = 0.f;
+    if (wg == 0) {
+      wg_fence();
+      fence_regs(st);
+      wg_abt<D>(st, sK, tQ);            // S^T = K Q^T
+      wg_commit();
+      wg_wait_all();
+      fence_regs(st);
+      uint32_t pa[4][4];                // P~^T in bf16 pairs
+#pragma unroll
+      for (int j = 0; j < 32; j += 2)
+        pa[j / 8][(j / 2) % 4] = pack_bf16(p_at(st[j], j, true),
+                                         p_at(st[j + 1], j + 1, true));
+      wg_fence();
+      fence_regs(acc);
+      wg_am(acc, pa, tdO);              // dV += P~^T dO
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+    } else {
+      float dpt[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) dpt[j] = 0.f;
+      wg_fence();
+      fence_regs(st);
+      fence_regs(dpt);
+      wg_abt<D>(st, sK, tQ);            // S^T = K Q^T
+      wg_commit();
+      wg_abt<D>(dpt, sV, tdO);          // dP^T = V dO^T
+      wg_commit();
+      wg_wait_1();
+      fence_regs(st);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) st[j] = p_at(st[j], j, false);
+      wg_wait_all();
+      fence_regs(dpt);
+      uint32_t hi[4][4], lo[4][4];      // dS^T = P^T (dP^T - Delta), split
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int c = (j >> 2) * 8 + cq;
+        pack_split(st[j] * (dpt[j] - Dls[c]), st[j + 1] * (dpt[j + 1] - Dls[c + 1]),
+                   hi[j / 8][(j / 2) % 4], lo[j / 8][(j / 2) % 4]);
+      }
+      wg_fence();
+      fence_regs(acc);
+      wg_am(acc, hi, tQ);               // dK += dS^T_hi Q + dS^T_lo Q
+      wg_am(acc, lo, tQ);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+    }
+
+    if (i + kStages < n) {
+      __syncthreads();                  // both warpgroups are done with stage s
+      if (wg == 0) rows[s * 2 * kTile + lt] = next;
+      if (tid == 0) load_qdo(i + kStages);
+      if (wg == 0 && i + kStages + 1 < n) next = row_value(i + kStages + 1);
+    }
+  }
+
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + r0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* dst = out + (((int64_t)b * S + row) * KV + kvh) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<uint32_t*>(dst + c * 8 + cq) =
+          pack_bf16(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
   }
 }
 
@@ -1030,11 +1511,73 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                        const void* o, const void* dO, const float* lse,
+                        float* delta, void* dq, const int* lengths, int B,
+                        int S, int H, int KV, const long long* strides,
+                        int causal, float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  int err = make_map(&qm, q, B, S, H, D, strides);
+  if (!err) err = make_map(&km, k, B, S, KV, D, strides + 3);
+  if (!err) err = make_map(&vm, v, B, S, KV, D, strides + 6);
+  if (!err) err = make_map(&dom, dO, B, S, H, D, strides + 12);
+  if (err) return err;
+  const int smem = DqLayout<D>::kBytes;
+  static bool configured[kMaxDevices] = {};
+  err = allow_smem(flash_bwd_dq_wgmma<D>, smem, configured);
+  if (err) return err;
+  const RowStrides os{strides[9], strides[10], strides[11]};
+  const RowStrides dos{strides[12], strides[13], strides[14]};
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  flash_bwd_dq_wgmma<D><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, dom, (const __nv_bfloat16*)o, os,
+      (const __nv_bfloat16*)dO, dos, lse, delta, (__nv_bfloat16*)dq, lengths,
+      S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
+                          const void* dO, const float* lse,
+                          const float* delta, void* dk, void* dv,
+                          const int* lengths, int B, int S, int H, int KV,
+                          const long long* strides, int causal, float scale,
+                          cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  int err = make_map(&qm, q, B, S, H, D, strides);
+  if (!err) err = make_map(&km, k, B, S, KV, D, strides + 3);
+  if (!err) err = make_map(&vm, v, B, S, KV, D, strides + 6);
+  if (!err) err = make_map(&dom, dO, B, S, H, D, strides + 9);
+  if (err) return err;
+  const int smem = DkdvLayout<D>::kBytes;
+  static bool configured[kMaxDevices] = {};
+  err = allow_smem(flash_bwd_dkdv_wgmma<D>, smem, configured);
+  if (err) return err;
+  const dim3 grid((S + kTile - 1) / kTile, KV, B);
+  flash_bwd_dkdv_wgmma<D><<<grid, kDkdvThreads, smem, stream>>>(
+      qm, km, vm, dom, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      lengths, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 // Strides fit TMA: 16-byte aligned base and 16-byte multiples.
 bool tma_ok(const void* p, const long long* strides) {
   if ((uintptr_t)p % 16) return false;
   for (int i = 0; i < 3; ++i)
     if (strides[i] <= 0 || (strides[i] * 2) % 16) return false;
+  return true;
+}
+
+// The strides of n (B, S, heads, D) tensors are those of contiguous ones;
+// heads[i] is tensor i's head count.
+bool dense(const long long* strides, const int* heads, int n, int S, int D) {
+  for (int i = 0; i < n; ++i) {
+    const long long want[3] = {(long long)S * heads[i] * D,
+                               (long long)heads[i] * D, D};
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] != want[j]) return false;
+  }
   return true;
 }
 
@@ -1055,11 +1598,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   float* lse = (float*)lse_out;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    const long long dense[9] = {(long long)S * H * D, (long long)H * D, D,
-                                (long long)S * KV * D, (long long)KV * D, D,
-                                (long long)S * KV * D, (long long)KV * D, D};
-    for (int i = 0; i < 9; ++i)
-      if (strides[i] != dense[i]) return (int)cudaErrorInvalidValue;
+    const int heads[3] = {H, KV, KV};
+    if (!dense(strides, heads, 3, S, D)) return (int)cudaErrorInvalidValue;
     if (D == 64)
       return launch<float, 64>(q, k, v, o, lse, len, B, S, H, KV, causal, scale,
                                st);
@@ -1081,55 +1621,72 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// K1b-dq. Contiguous tensors: q, o, dO, dq (B, S, H, D), k, v (B, S, KV, D)
-// of dtype; lse (from the forward) and delta (written here) (B, H, S) f32.
+// K1b-dq. q, o, dO (B, S, H, D) and k, v (B, S, KV, D) of dtype; lse (from
+// the forward) and delta (written here) (B, H, S) f32; dq (B, S, H, D)
+// contiguous. strides: element strides (batch, seq, head) of q, k, v, o,
+// then dO; the head dim has stride 1. bfloat16 reads them as they are
+// (16-byte aligned base and strides); float32 takes contiguous tensors only.
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const void* o, const void* dO, const void* lse,
                            void* delta, void* dq, const void* lengths, int B,
-                           int S, int H, int KV, int D, int causal,
-                           float scale, int dtype, void* stream) {
+                           int S, int H, int KV, int D,
+                           const long long* strides, int causal, float scale,
+                           int dtype, void* stream) {
   if (!bwd_ok(B, S, H, KV, D, dtype)) return (int)cudaErrorInvalidValue;
   const int* len = (const int*)lengths;
   const float* l = (const float*)lse;
   float* dl = (float*)delta;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_bwd_dq<float, 64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
-                                    KV, causal, scale, st);
-  if (dtype == 0)
+  if (dtype == 0) {
+    const int heads[5] = {H, KV, KV, H, H};
+    if (!dense(strides, heads, 5, S, D)) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_bwd_dq<float, 64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                      KV, causal, scale, st);
     return launch_bwd_dq<float, 128>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
                                      KV, causal, scale, st);
+  }
+  const void* ptrs[5] = {q, k, v, o, dO};
+  for (int i = 0; i < 5; ++i)
+    if (!tma_ok(ptrs[i], strides + 3 * i)) return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return launch_bwd_dq<__nv_bfloat16, 64>(q, k, v, o, dO, l, dl, dq, len, B,
-                                            S, H, KV, causal, scale, st);
-  return launch_bwd_dq<__nv_bfloat16, 128>(q, k, v, o, dO, l, dl, dq, len, B,
-                                           S, H, KV, causal, scale, st);
+    return launch_bwd_dq_wgmma<64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                   KV, strides, causal, scale, st);
+  return launch_bwd_dq_wgmma<128>(q, k, v, o, dO, l, dl, dq, len, B, S, H, KV,
+                                  strides, causal, scale, st);
 }
 
 // K1b-dkdv, after K1b-dq on the same stream (it reads delta). dk, dv
-// (B, S, KV, D) of dtype; the rest as flash_attention_bwd_dq.
+// (B, S, KV, D) contiguous; strides of q, k, v, then dO; the rest as
+// flash_attention_bwd_dq.
 int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
                              void* dk, const void* dO, const void* lse,
                              const void* delta, void* dv,
                              const void* lengths, int B, int S, int H, int KV,
-                             int D, int causal, float scale, int dtype,
-                             void* stream) {
+                             int D, const long long* strides, int causal,
+                             float scale, int dtype, void* stream) {
   if (!bwd_ok(B, S, H, KV, D, dtype)) return (int)cudaErrorInvalidValue;
   const int* len = (const int*)lengths;
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64)
-    return launch_bwd_dkdv<float, 64>(q, k, v, dO, l, dl, dk, dv, len, B, S,
-                                      H, KV, causal, scale, st);
-  if (dtype == 0)
+  if (dtype == 0) {
+    const int heads[4] = {H, KV, KV, H};
+    if (!dense(strides, heads, 4, S, D)) return (int)cudaErrorInvalidValue;
+    if (D == 64)
+      return launch_bwd_dkdv<float, 64>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+                                        H, KV, causal, scale, st);
     return launch_bwd_dkdv<float, 128>(q, k, v, dO, l, dl, dk, dv, len, B, S,
                                        H, KV, causal, scale, st);
+  }
+  const void* ptrs[4] = {q, k, v, dO};
+  for (int i = 0; i < 4; ++i)
+    if (!tma_ok(ptrs[i], strides + 3 * i)) return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return launch_bwd_dkdv<__nv_bfloat16, 64>(q, k, v, dO, l, dl, dk, dv, len,
-                                              B, S, H, KV, causal, scale, st);
-  return launch_bwd_dkdv<__nv_bfloat16, 128>(q, k, v, dO, l, dl, dk, dv, len,
-                                             B, S, H, KV, causal, scale, st);
+    return launch_bwd_dkdv_wgmma<64>(q, k, v, dO, l, dl, dk, dv, len, B, S, H,
+                                     KV, strides, causal, scale, st);
+  return launch_bwd_dkdv_wgmma<128>(q, k, v, dO, l, dl, dk, dv, len, B, S, H,
+                                    KV, strides, causal, scale, st);
 }
 
 }  // extern "C"

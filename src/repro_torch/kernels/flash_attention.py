@@ -20,7 +20,10 @@ Gradients: :func:`flash_attention` goes through :class:`FlashAttentionFn`.
 When a gradient is needed its forward asks the kernel for the row
 log-sum-exp too, and its backward runs two more kernels of the same source
 in the FlashAttention-2 form (``flash_bwd_dq``, then ``flash_bwd_dkdv``; no
-atomics), or :func:`flash_attention_bwd_plain` for CPU tensors. The JAX
+atomics), or :func:`flash_attention_bwd_plain` for CPU tensors. As in the
+forward, bfloat16 runs on the tensor cores and reads strided q, k, v, o
+and dO in place; float32 runs on the FMA units from contiguous tensors
+(:func:`_bwd_inputs` prepares them). The JAX
 package has no backward kernel: its gradient is XLA's autodiff of
 ``repro/models/attention.py`` ``flash_attention_xla``, which these hold to.
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` count their
@@ -133,15 +136,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STRIDES = ctypes.c_longlong * 9
 _SIGNATURES = {
     "flash_attention_fwd": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         ctypes.POINTER(ctypes.c_longlong), _I, ctypes.c_float, _I, _P],
     # q, k, v, o or dk, do, lse, delta, dq or dv, lengths, B, S, H, KV, D,
-    # causal, scale, dtype, stream
-    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
-    "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    # strides, causal, scale, dtype, stream
+    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), _I, ctypes.c_float, _I, _P],
+    "flash_attention_bwd_dkdv": [_P] * 9 + [_I] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), _I, ctypes.c_float, _I, _P],
 }
 
 
@@ -155,15 +159,26 @@ def _strides(t: torch.Tensor) -> tuple:
     return (sb if B > 1 else S * ss), ss, sh
 
 
+def _tma_readable(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' TMA can read ``t`` in place: head dim
+    contiguous, 16-byte aligned base and strides (8 bf16 elements)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % 8 for s in _strides(t)))
+
+
 def _in_place(t: torch.Tensor) -> tuple:
-    """``t`` and its strides where the bf16 kernel's TMA can read it in
-    place (head dim contiguous, 16-byte aligned base and strides), else a
-    contiguous copy and its strides."""
-    st = _strides(t)                    # 8 bf16 elements = 16 bytes
-    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 8 for s in st):
+    """``t`` and its strides where the bf16 kernels' TMA can read it in
+    place, else a contiguous copy and its strides."""
+    if not _tma_readable(t):
         t = t.clone(memory_format=torch.contiguous_format)
-        st = _strides(t)
-    return t, st
+    return t, _strides(t)
+
+
+def _stride_array(*ts: torch.Tensor):
+    """The (batch, seq, head) strides of each tensor, in order, as the C
+    entries take them."""
+    st = [s for t in ts for s in _strides(t)]
+    return (ctypes.c_longlong * len(st))(*st)
 
 
 def _check(q, k, v, lengths) -> None:
@@ -204,10 +219,9 @@ def _forward(q, k, v, causal, lengths, want_lse):
     # project_qkv's k/v are strided views of the fused kv projection: the
     # bf16 kernel reads them in place, the f32 one takes contiguous copies
     if q.dtype == torch.bfloat16:
-        (q, sq), (k, sk), (v, sv) = _in_place(q), _in_place(k), _in_place(v)
+        q, k, v = (_in_place(t)[0] for t in (q, k, v))
     else:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        sq, sk, sv = _strides(q), _strides(k), _strides(v)
     if lengths is not None:
         lengths = lengths.contiguous()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)   # contiguous
@@ -218,7 +232,7 @@ def _forward(q, k, v, causal, lengths, want_lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if lengths is None else lengths.data_ptr(),
-            B, S, H, k.shape[2], D, _STRIDES(*sq, *sk, *sv), int(causal),
+            B, S, H, k.shape[2], D, _stride_array(q, k, v), int(causal),
             1.0 / math.sqrt(D), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
@@ -227,14 +241,25 @@ def _forward(q, k, v, causal, lengths, want_lse):
 
 
 def _check_bwd(q, k, v, lengths, same_as_q, rows) -> None:
-    """The backward kernels' inputs: contiguous, ``same_as_q`` (o, dO)
-    shaped and typed as q, ``rows`` (lse, delta) (B, H, S) f32."""
+    """The backward kernels' inputs: ``same_as_q`` (o, dO) shaped and typed
+    as q, ``rows`` (lse, delta) (B, H, S) f32 and contiguous; q, k, v and
+    ``same_as_q`` contiguous in f32, readable by TMA in bf16."""
     _check(q, k, v, lengths)
     B, S, H, _ = q.shape
     for t in (q, k, v, *same_as_q, *rows):
-        if not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"the backward kernels take contiguous tensors "
-                             f"on {q.device}")
+        if t.device != q.device:
+            raise ValueError(f"tensors on {q.device} and {t.device}")
+    for t in rows:
+        if not t.is_contiguous():
+            raise ValueError("lse and delta must be contiguous")
+    for t in (q, k, v, *same_as_q):
+        if q.dtype == torch.bfloat16 and not _tma_readable(t):
+            raise ValueError("the bf16 backward kernels take tensors with a "
+                             "contiguous head dim and 16-byte aligned base "
+                             "and strides")
+        if q.dtype == torch.float32 and not t.is_contiguous():
+            raise ValueError("the f32 backward kernels take contiguous "
+                             "tensors")
     for t in same_as_q:
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"o and dO must be {q.dtype} "
@@ -246,29 +271,31 @@ def _check_bwd(q, k, v, lengths, same_as_q, rows) -> None:
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _bwd_args(q, k, lengths) -> tuple:
+def _bwd_args(q, k, lengths, *strided) -> tuple:
     B, S, H, D = q.shape
     return (None if lengths is None else lengths.data_ptr(), B, S, H,
-            k.shape[2], D)
+            k.shape[2], D, _stride_array(*strided))
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
                  lengths: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K1b-dq on contiguous CUDA tensors: (dq, delta), with delta =
-    rowsum(dO o) (B, H, S) f32 for :func:`flash_bwd_dkdv`."""
+    """Kernel K1b-dq on CUDA tensors (bf16 ones as TMA reads them, f32 ones
+    contiguous): (dq, delta), dq contiguous, delta = rowsum(dO o) (B, H, S)
+    f32 for :func:`flash_bwd_dkdv`."""
     lengths = None if lengths is None else lengths.contiguous()
     _check_bwd(q, k, v, lengths, (o, do), (lse,))
     lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_bwd_args(q, k, lengths), int(causal), 1.0 / math.sqrt(D),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            *_bwd_args(q, k, lengths, q, k, v, o, do), int(causal),
+            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq, delta
@@ -280,19 +307,22 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                    lengths: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K1b-dkdv on contiguous CUDA tensors: (dk, dv) at KV heads,
-    each summed over its query heads inside one block."""
+    """Kernel K1b-dkdv on CUDA tensors taken as :func:`flash_bwd_dq` takes
+    them: (dk, dv) at KV heads, contiguous, each summed over its query
+    heads inside one block."""
     lengths = None if lengths is None else lengths.contiguous()
     _check_bwd(q, k, v, lengths, (do,), (lse, delta))
     lib = build.load("flash_attention", _SIGNATURES)
     D = q.shape[-1]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
+              for _ in range(2))
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dk.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dv.data_ptr(),
-            *_bwd_args(q, k, lengths), int(causal), 1.0 / math.sqrt(D),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            *_bwd_args(q, k, lengths, q, k, v, do), int(causal),
+            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
     return dk, dv
@@ -301,17 +331,29 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
 flash_bwd_dkdv.launches = 0
 
 
+def _bwd_inputs(q, k, v, o, do, lse) -> tuple:
+    """(q, k, v, o, do, lse) as the backward kernels take them: in bf16 each
+    of q, k, v, o and dO as it is where TMA can read it (project_qkv's k/v
+    views of the fused kv projection are), a contiguous copy only where it
+    cannot; in f32 contiguous copies; lse contiguous."""
+    if q.dtype == torch.bfloat16:
+        q, k, v, o, do = (_in_place(t)[0] for t in (q, k, v, o, do))
+    else:
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    return q, k, v, o, do, lse.contiguous()
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True,
                         lengths: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): :func:`flash_attention_bwd_plain` for CPU tensors,
-    else K1b-dq then K1b-dkdv on contiguous copies of the inputs."""
+    else K1b-dq then K1b-dkdv on the inputs :func:`_bwd_inputs` gives."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          lengths=lengths)
-    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    q, k, v, o, do, lse = _bwd_inputs(q, k, v, o, do, lse)
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal=causal,
                              lengths=lengths)
     dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,

@@ -3,7 +3,9 @@ computes its plain version, held here against the JAX package's Pallas
 kernel (interpret mode) or its reference, on the same numpy inputs; the
 plain backward versions against jax.vjp of the JAX functions whose XLA
 gradient the backward kernels replace."""
+import ctypes
 import importlib
+import importlib.util
 import os
 import re
 import shutil
@@ -383,6 +385,109 @@ def test_flash_bwd_plain_rounds_p_for_dv_only():
     for g, leaf in zip((dq, dk, dv), leaves):
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(_f32(g), _f32(leaf.grad), atol=3e-2)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: the backward kernels' bar
+    (``grad_within_bar``) is its own."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_bars", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("grad", ["dq", "dk"])
+def test_flash_bwd_split_ds_meets_the_bar_one_bf16_ds_does_not(grad):
+    """The premise of the tensor-core backward: dQ = dS K and dK = dS^T Q
+    take dS as bf16 operands. Emulated in f32 at a small causal GQA shape
+    with lengths, dS rounded once to bf16 misses phase 7's bar (1 bf16 ulp
+    + 2e-5 of max|ref|) against the plain backward by more than 10x, and
+    dS as two bf16 terms (hi = bf16(dS), lo = bf16(dS - hi)), each product
+    summed in f32, meets it with room to spare."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    within_bar = _chip_smoke().grad_within_bar
+    B, S, H, KV, D = 2, 96, 6, 2, 64
+    G = H // KV
+    rng = np.random.default_rng(15)
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+             .bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KV, D), np.float32))
+            .bfloat16() for _ in range(2))
+    ln = torch.tensor([96, 50], dtype=torch.int32)
+    o, lse = fa._plain_forward(q, k, v, True, ln)
+    ref = dict(zip(("dq", "dk"), fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, lengths=ln)[:2]))
+    # dS in f32 as the kernels form it: P from lse, Delta = rowsum(dO o)
+    s, mask = fa._scores(q, k, True, ln)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for t in (k, v))
+    delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dof @ vf.transpose(-1, -2) - delta), 0.0)
+    hi = ds.bfloat16().float()
+    lo = (ds - hi).bfloat16().float()
+
+    def grads(d):
+        dq = (d.double() @ kf.double()).transpose(1, 2) / np.sqrt(D)
+        dk = (d.transpose(-1, -2).double() @ q.double().transpose(1, 2))
+        dk = dk.reshape(B, KV, G, S, D).sum(2).transpose(1, 2) / np.sqrt(D)
+        return {"dq": dq.float().bfloat16(), "dk": dk.float().bfloat16()}
+
+    ok_one, _, need_one = within_bar(grads(hi)[grad], ref[grad])
+    ok_split, bar, need_split = within_bar(grads(hi + lo)[grad], ref[grad])
+    assert bar == "1 bf16 ulp + 2e-05 max|ref|"
+    assert not ok_one and need_one > 10 * 2e-5
+    assert ok_split and need_split < 2e-5 / 10
+
+
+def test_flash_bwd_bf16_reads_strided_views_in_place():
+    """The bf16 backward takes project_qkv's k/v views of the fused
+    projection, and q and dO as transposed views, as they are, with the
+    strides the C entries are given; it copies only what TMA cannot read
+    (a base off 16 bytes); in f32 every input becomes contiguous."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    B, S, H, KV, D = 2, 16, 6, 2, 64
+    kv = torch.zeros(B, S, 2, KV, D, dtype=torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q, do = (torch.zeros(B, H, S, D, dtype=torch.bfloat16).transpose(1, 2)
+             for _ in range(2))
+    o = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    lse = torch.zeros(B, H, S)
+    taken = fa._bwd_inputs(q, k, v, o, do, lse)
+    assert all(t is u for t, u in zip(taken, (q, k, v, o, do, lse)))
+    assert list(fa._stride_array(q, k, v, o, do)) == [
+        H * S * D, D, S * D, S * 2 * KV * D, 2 * KV * D, D,
+        S * 2 * KV * D, 2 * KV * D, D, S * H * D, H * D, D,
+        H * S * D, D, S * D]
+    flat = torch.zeros(1 + B * S * H * D, dtype=torch.bfloat16)
+    off = flat[1:].view(B, S, H, D)                     # base 2 bytes off
+    taken = fa._bwd_inputs(q, k, v, off, do, lse)
+    assert taken[3] is not off and taken[3].is_contiguous()
+    assert torch.equal(taken[3], off)
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    taken = fa._bwd_inputs(*f32, lse)
+    assert all(t.is_contiguous() for t in taken)
+    assert all(torch.equal(t, u) for t, u in zip(taken, f32))
+
+
+@pytest.mark.parametrize("entry", ["flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkdv"])
+def test_flash_entry_signatures_match_the_source(entry):
+    """ctypes passes as many arguments as the C entry takes, each pointer
+    as a pointer: a mismatch would only show as a fault on the card."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    params = re.search(rf"\nint {entry}\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()) for p in params.split(",")]
+    argtypes = fa._SIGNATURES[entry]
+    assert len(params) == len(argtypes)
+    for p, a in zip(params, argtypes):
+        assert ("*" in p) == (a is not ctypes.c_int and a is not
+                              ctypes.c_float), (p, a)
 
 
 @jax.jit
