@@ -19,20 +19,22 @@ Phases, each printing one JSON line and raising on failure:
    boundary, head dim 128), the norms at theirs (one row, a ragged last
    block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384),
    each with the variant the wrapper launched; and the launch floor, an
-   empty kernel's time;
+   empty kernel's time; K1, K2 and K3 also at the training shapes
+   (q (16, 128, 12, 64), rows (2048, 768));
 4. consistency: full-width tacc-100m, prefill + 4 decode steps against the
    full forward, and a prefill against the plain path on the CPU;
 5. serve: ServeEngine(max_batch=8, max_seq=512) serves 16 requests; every
    kernel's launch count must move;
 6. profile: torch.profiler over 8 prefills and 16 decode steps, for the
    time the card is busy and idle;
-7. kernels_bwd: each backward kernel (K1b-dq, K1b-dkdv, K2b, K3b, the dw
-   reduction) against its plain backward, at the training shapes of
-   tacc-100m and at their edges (flash also with q and dO as transposed
-   views and k/v as views of one fused tensor, read in place), with its
-   time, the plain version's, the backward of one PyTorch call where there
-   is one, and its bound; ptxas's spills of the D = 64 bf16 K1b kernels
-   must be 0;
+7. kernels_bwd: each backward kernel (K1b-dq, K1b-dkdv, and K2b and K3b,
+   each giving dx and dw in one launch) against its plain backward, at the
+   training shapes of tacc-100m and at their edges (flash also with q and
+   dO as transposed views and k/v as views of one fused tensor, read in
+   place), with its time, the plain version's, the backward of one PyTorch
+   call where there is one, and its bound; K1b's and dw's outputs must be
+   bit-equal over two calls, dw also under a CUDA graph's replay; ptxas's
+   spills of the D = 64 K1b kernels (bf16 and f32) must be 0;
 8. train_consistency: full-width tacc-100m, one forward and backward of
    train_logits + cross_entropy on the card through the kernels and on the
    CPU through the plain path, from the same weights and tokens;
@@ -68,15 +70,16 @@ from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  flash_attention_bwd_plain,
                                  flash_attention_plain, flash_bwd_dkdv,
                                  flash_bwd_dq, rmsnorm, rmsnorm_bwd,
-                                 rmsnorm_bwd_plain, rmsnorm_dw_reduce,
-                                 rmsnorm_plain, rmsnorm_residual,
+                                 rmsnorm_bwd_plain, rmsnorm_plain,
+                                 rmsnorm_residual,
                                  rmsnorm_residual_bwd,
                                  rmsnorm_residual_bwd_plain,
                                  rmsnorm_residual_plain)
 from repro_torch.kernels.flash_attention import _plain_forward
 from repro_torch.kernels.flash_attention import _bwd_inputs as bwd_inputs
 from repro_torch.kernels.flash_attention import _forward as flash_forward
-from repro_torch.kernels.rmsnorm import bwd_partials, launch_empty
+from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
+                                         launch_empty, pick_variant)
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
                                 init_params, prefill, train_logits)
 from repro_torch.serve import ServeEngine
@@ -90,6 +93,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 MAX_BATCH, MAX_SEQ = 8, 512
 N_REQUESTS, MAX_NEW = 16, 32
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 16, 128
 SEED = 0
 
 
@@ -173,21 +177,21 @@ def phase_device() -> dict:
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel: the flash kernels as
-    ``flash_fwd_wgmma<bf16, 64>``, the norm kernels as
-    ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, others by their
-    mangled name."""
-    m = re.search(r"(flash_fwd_[a-z]+|flash_bwd_[a-z]+_(?:kernel|wgmma))"
+    ``flash_fwd_wgmma<bf16, 64>`` or ``flash_bwd_dq_f32<float, 64>``, the
+    norm kernels as ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``,
+    others by their mangled name."""
+    m = re.search(r"(flash_fwd_[a-z]+|flash_bwd_[a-z]+_(?:wgmma|f32))"
                   r"I(f?|\d+__nv_bfloat16)Li(\d+)E", mangled)
     if m:
-        return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
-                f"{m.group(3)}>")
+        f32 = m.group(2) == "f" or m.group(1).endswith("_f32")
+        return f"{m.group(1)}<{'float' if f32 else 'bf16'}, {m.group(3)}>"
     m = re.search(r"(rmsnorm(?:_bwd)?_kernel)I(f|\d+__nv_bfloat16)Lb([01])E"
                   r"Li(\d+)ELi(\d+)ELb([01])E", mangled)
     if m:
         return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
                 f"residual={m.group(3)}, V={m.group(4)}, NV={m.group(5)}, "
                 f"{'wide' if m.group(6) == '1' else 'warp'}>")
-    m = re.search(r"(rmsnorm_dw_reduce_kernel|empty_kernel)", mangled)
+    m = re.search(r"(empty_kernel)", mangled)
     return m.group(1) if m else mangled
 
 
@@ -389,11 +393,13 @@ def rms_case(dtype, rows, residual: bool, *, D=None, offset=0, timed=True):
 
 
 def rms_cases(residual: bool, floor: float) -> list:
-    """K2's or K3's cases: the timed serving shapes first, then the edges,
-    each variant, and the JAX suite's shapes, in both dtypes."""
+    """K2's or K3's cases: the timed serving shapes first, then the
+    training shape, then the edges, each variant, and the JAX suite's
+    shapes, in both dtypes."""
     bf16, f32 = torch.bfloat16, torch.float32
     timed = [rms_case(dt, n, residual) for dt in (bf16, f32)
              for n in (MAX_SEQ, MAX_BATCH)]
+    timed.append(rms_case(bf16, TRAIN_BATCH * TRAIN_SEQ, residual))
     for c in timed:
         c["floor_ms"] = floor
     edges = [(1, {}), (13, {}),                      # a ragged last block
@@ -427,6 +433,9 @@ def phase_kernels() -> dict:
             flash_case(bf16, [136]),              # serve prompts' expected length
             flash_case(f32, [MAX_SEQ]),
             flash_case(bf16, [MAX_SEQ], D=128),
+            # the training shape: q (16, 128, 12, 64)
+            flash_case(bf16, [TRAIN_SEQ] * TRAIN_BATCH, S=TRAIN_SEQ),
+            flash_case(f32, [TRAIN_SEQ] * TRAIN_BATCH, S=TRAIN_SEQ),
             flash_case(bf16, [37, 0], timed=False),
             flash_case(f32, [300, 1], timed=False),
             flash_case(bf16, [MAX_SEQ], causal=False, timed=False),
@@ -641,12 +650,16 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
     _, lse_ref = _plain_forward(q, k, v, causal, ln)
     dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                      lengths=ln)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                lengths=ln)
     rq, rk, rv = flash_attention_bwd_plain(q, k, v, o, lse, do,
                                            causal=causal, lengths=ln)
     torch.cuda.synchronize()
     case = {"dtype": str(dtype).split(".")[-1], "q": [B, S, H, D],
             "kv": [B, S, KV, D], "causal": causal, "lengths": lengths,
-            "lse_err": max_err(lse, lse_ref)}
+            "lse_err": max_err(lse, lse_ref),
+            "bit_equal_over_two_calls": all(
+                torch.equal(a, b) for a, b in zip((dq, dk, dv), again))}
     if strided:
         case["strides"] = {n: list(t.stride())
                            for n, t in (("q", q), ("k", k), ("dO", do))}
@@ -656,6 +669,8 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
                                  f"that TMA can read: {case}")
     failed = ([] if case["lse_err"] <= 1e-4 * max(float(lse_ref.abs().max()),
                                                    1.0) else ["lse"])
+    if not case["bit_equal_over_two_calls"]:
+        failed.append("repeat")
     for name, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         good, tol, need = grad_within_bar(a, r, rounds_p=name == "dv")
         if not (good and bool(torch.isfinite(a.float()).all())):
@@ -709,7 +724,9 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
 
 def rms_bwd_case(dtype, rows, residual: bool, *, D=None, offset=0,
                  timed=False):
-    """K2b or K3b, then the dw reduction, against the plain backward."""
+    """K2b or K3b, dx and dw in one launch, against the plain backward; dw
+    must be bit-equal over two calls and, for a timed case, when the same
+    launch is captured in a CUDA graph and replayed twice."""
     D = D or get_config("tacc-100m").d_model
     g = torch.Generator(device="cuda").manual_seed(SEED + rows + D + 7)
     x = torch.randn(offset + rows * D, generator=g,
@@ -719,54 +736,64 @@ def rms_bwd_case(dtype, rows, residual: bool, *, D=None, offset=0,
     w = torch.randn(D, generator=g, device="cuda")
     eps = 1e-5
     if residual:
-        dx, dw = rmsnorm_residual_bwd(x, w, dy, ds, eps)
-        rdx, rdw = rmsnorm_residual_bwd_plain(x, w, dy, ds, eps)
-        variant = rmsnorm_residual_bwd.variant
+        kernel = lambda: rmsnorm_residual_bwd(x, w, dy, ds, eps)  # noqa: E731
+        plain = lambda: rmsnorm_residual_bwd_plain(x, w, dy, ds, eps)  # noqa: E731
+        wrapper = rmsnorm_residual_bwd
     else:
-        dx, dw = rmsnorm_bwd(x, w, dy, eps)
-        rdx, rdw = rmsnorm_bwd_plain(x, w, dy, eps)
-        variant = rmsnorm_bwd.variant
+        kernel = lambda: rmsnorm_bwd(x, w, dy, eps)  # noqa: E731
+        plain = lambda: rmsnorm_bwd_plain(x, w, dy, eps)  # noqa: E731
+        wrapper = rmsnorm_bwd
+    dx, dw = kernel()
+    variant = wrapper.variant
+    dx2, dw2 = kernel()
+    rdx, rdw = plain()
     torch.cuda.synchronize()
     ok, tol, need = grad_within_bar(dx, rdx)
     dw_tol = 1e-5 * float(rdw.abs().max())   # f32 sums over rows, reordered
-    ok = (ok and max_err(dw, rdw) <= dw_tol
+    repeat = bool(torch.equal(dw, dw2) and torch.equal(dx, dx2))
+    ok = (ok and max_err(dw, rdw) <= dw_tol and repeat
           and bool(torch.isfinite(dx.float()).all()))
     case = {"dtype": str(dtype).split(".")[-1], "x": [rows, D],
             "x_offset_bytes": offset * x.element_size(), "variant": variant,
             "max_abs_err": max_err(dx, rdx), "tol": tol, "need": need,
-            "dw_err": max_err(dw, rdw), "dw_tol": dw_tol}
+            "dw_err": max_err(dw, rdw), "dw_tol": dw_tol,
+            "bit_equal_over_two_calls": repeat}
+    if timed:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gdx, gdw = kernel()
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(bool(torch.equal(gdw, dw) and torch.equal(gdx, dx)))
+        case["bit_equal_under_graph_replay"] = all(replays)
+        ok = ok and all(replays)
     if not ok:
         raise AssertionError(f"{'K3b' if residual else 'K2b'} disagrees with "
-                             f"its plain version: {case}")
+                             f"its plain version or itself: {case}")
     if not timed:
         return case
     others = (dy, ds) if residual else (dy,)
+    # each input read once, dx and dw written once: the partial and group
+    # rows of dw stay in L2 and are not counted
     moved = nbytes(x, *others, w, dx, dw)
     b_ms, b_by = bound(moved, 8.0 * x.numel(), torch.float32)
-    _, partial = bwd_partials(x, w, dy, ds if residual else None, eps)
-    red_b, red_by = bound(nbytes(partial, dw), float(partial.numel()),
-                          torch.float32)
     if residual:
-        plain = lambda: rmsnorm_residual_bwd_plain(x, w, dy, ds, eps)  # noqa: E731
         lib, lib_name = None, None
     else:
-        plain = lambda: rmsnorm_bwd_plain(x, w, dy, eps)  # noqa: E731
         wx = w.to(dtype)
         lib = library_bwd_ms(lambda a, b: F.rms_norm(a, (D,), b, eps),
                              (x, wx), dy)
         lib_name = "backward of F.rms_norm (weight in the input dtype)"
     case.update(
-        ms=time_ms(lambda: bwd_partials(x, w, dy, ds if residual else None,
-                                        eps)),
-        total_ms=time_ms(lambda: (rmsnorm_residual_bwd(x, w, dy, ds, eps)
-                                  if residual else rmsnorm_bwd(x, w, dy, eps))),
-        plain_ms=time_ms(plain), library_ms=lib, library=lib_name,
-        bound_ms=b_ms, bound_by=b_by, bytes=moved, flops=8.0 * x.numel(),
-        reduce={"blocks": partial.shape[0],
-                "ms": time_ms(lambda: rmsnorm_dw_reduce(partial)),
-                "plain_ms": time_ms(lambda: partial.sum(0)),
-                "library_ms": time_ms(lambda: torch.sum(partial, 0)),
-                "bound_ms": red_b, "bound_by": red_by})
+        ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=lib,
+        library=lib_name, bound_ms=b_ms, bound_by=b_by, bytes=moved,
+        flops=8.0 * x.numel(), blocks=bwd_blocks(rows, pick_variant(x, w)),
+        dw=f"summed in this launch: each block writes its partial row, the "
+           f"last {REDUCERS} blocks each add a slice of the columns over all "
+           f"partial rows ({REDUCE_LANES} lanes of every {REDUCE_LANES}th "
+           f"row, then the lanes, in order); no separate launch")
     return case
 
 
@@ -780,19 +807,22 @@ def spill_bytes(lines) -> "int | None":
 
 def phase_kernels_bwd(ptxas: dict) -> dict:
     """Phase 7: every backward kernel against its plain backward, and
-    ptxas's registers and spills for each backward kernel; the D = 64
-    bf16 K1b kernels (the training shape) must not spill."""
+    ptxas's registers and spills for each backward kernel; the D = 64 K1b
+    kernels (the training shape's head dim), bf16 and f32, must not
+    spill."""
     spills = {n: spill_bytes(ptxas.get(n)) for n in
               ("flash_bwd_dq_wgmma<bf16, 64>",
-               "flash_bwd_dkdv_wgmma<bf16, 64>")}
+               "flash_bwd_dkdv_wgmma<bf16, 64>",
+               "flash_bwd_dq_f32<float, 64>",
+               "flash_bwd_dkdv_f32<float, 64>")}
     emit({"phase": "kernels_bwd_spills", "spill_bytes": spills})
     if any(v != 0 for v in spills.values()):
-        raise AssertionError(f"the D = 64 bf16 K1b kernels spill (or ptxas "
-                             f"did not report them): {spills}")
+        raise AssertionError(f"the D = 64 K1b kernels spill (or ptxas did "
+                             f"not report them): {spills}")
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("tacc-100m")
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    TB, TS = 16, 128                    # the training batch and sequence
+    TB, TS = TRAIN_BATCH, TRAIN_SEQ
     flash = [flash_bwd_case(bf16, TB, TS, H, KV, HD, timed=True),
              flash_bwd_case(f32, TB, TS, H, KV, HD, timed=True)]
     for dt in (bf16, f32):
@@ -823,8 +853,7 @@ def phase_kernels_bwd(ptxas: dict) -> dict:
                       rms_bwd_case(dt, 3, residual, D=8192)]
         norms[key] = cases
     out = {"phase": "kernels_bwd", "flash": flash, **norms,
-           "ptxas": {k: v for k, v in ptxas.items()
-                     if "_bwd_" in k or "dw_reduce" in k}}
+           "ptxas": {k: v for k, v in ptxas.items() if "_bwd_" in k}}
     emit(out)
     return out
 
@@ -888,7 +917,6 @@ def phase_train_consistency(cfg, params) -> dict:
 
 # -- phase 9 ---------------------------------------------------------------
 
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 20, 16, 128
 # The least fall of the loss over the 20 steps on batch 0 (trained on at
 # the first step) and on batch 23 (never trained on), each loss taken
 # without a gradient from the same tokens before and after. The evaluation
@@ -910,10 +938,6 @@ BWD_KERNELS = [
     ("rmsnorm_residual_bwd", rmsnorm_residual_bwd,
      "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "XLA's gradient of src/repro/models/transformer.py:187-189"),
-    ("rmsnorm_dw_reduce", rmsnorm_dw_reduce,
-     "src/repro_torch/kernels/csrc/rmsnorm.cu",
-     "XLA's gradient of src/repro/kernels/ref.py:24 (the scale's sum over "
-     "rows)"),
 ]
 
 
@@ -921,13 +945,13 @@ def expected_train_launches(cfg, steps: int) -> dict:
     """Launches of each kernel in ``steps`` train steps, from the code:
     every layer is an attention + dense FFN block under remat="full", so
     its forward runs twice (forward, then recomputed in the backward) and
-    its backward once; out_norm (K2) lies outside the blocks; every K2b
-    and K3b launch is followed by one dw reduction."""
+    its backward once; out_norm (K2) lies outside the blocks; K2b and K3b
+    each give dx and dw in one launch, with no separate dw reduction."""
     n = cfg.n_layers
     per_step = {"flash_attention": 2 * n, "rmsnorm": 2 * n + 1,
                 "rmsnorm_residual": 2 * n, "flash_bwd_dq": n,
                 "flash_bwd_dkdv": n, "rmsnorm_bwd": n + 1,
-                "rmsnorm_residual_bwd": n, "rmsnorm_dw_reduce": 2 * n + 1}
+                "rmsnorm_residual_bwd": n}
     return {k: steps * v for k, v in per_step.items()}
 
 
@@ -960,6 +984,8 @@ def phase_train(cfg) -> dict:
                                                BWD_KERNELS]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated: the peak below includes it
+    allocated_at_start = torch.cuda.memory_allocated()
     for fn in wrappers:
         fn.launches = 0
     losses, gnorms, lrs, step_ms = [], [], [], []
@@ -985,6 +1011,7 @@ def phase_train(cfg) -> dict:
            "step_ms_p50": float(np.median(steady)),
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / float(np.mean(steady)),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "memory_allocated_at_start_gb": allocated_at_start / 1e9,
            "launches": launches, "expected_launches": expected,
            "eval_loss_before_after": evals, "eval_fall": fall,
            "eval_fall_bar": EVAL_FALL}
@@ -1031,26 +1058,30 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict) -> dict:
                        or cases[fn.__name__][0]["x"]),
              "dtype": cases[fn.__name__][0]["dtype"]}
             for fn, src, tpu in KERNELS]
-    fl, k2, k3 = bwd["flash"][0], bwd["K2b"][0], bwd["K3b"][0]
-    per = {"flash_bwd_dq": {**fl["dq"], "plain_ms": fl["plain_ms"],
-                            "library_ms": fl["library_ms"],
-                            "max_abs_err": fl["dq_err"], "shape": fl["q"]},
-           "flash_bwd_dkdv": {**fl["dkdv"], "plain_ms": fl["plain_ms"],
-                              "library_ms": fl["library_ms"],
-                              "max_abs_err": max(fl["dk_err"], fl["dv_err"]),
-                              "shape": fl["kv"]},
+    fl, f32, k2, k3 = (bwd["flash"][0], bwd["flash"][1], bwd["K2b"][0],
+                       bwd["K3b"][0])
+
+    def flash_row(c, part, err):
+        return {**c[part], "plain_ms": c["plain_ms"],
+                "library_ms": c["library_ms"], "max_abs_err": err}
+    per = {"flash_bwd_dq": {**flash_row(fl, "dq", fl["dq_err"]),
+                            "shape": fl["q"],
+                            "f32": flash_row(f32, "dq", f32["dq_err"])},
+           "flash_bwd_dkdv": {**flash_row(fl, "dkdv",
+                                          max(fl["dk_err"], fl["dv_err"])),
+                              "shape": fl["kv"],
+                              "f32": flash_row(f32, "dkdv", max(
+                                  f32["dk_err"], f32["dv_err"]))},
            "rmsnorm_bwd": {**k2, "shape": k2["x"]},
-           "rmsnorm_residual_bwd": {**k3, "shape": k3["x"]},
-           "rmsnorm_dw_reduce": {**k2["reduce"], "max_abs_err": k2["dw_err"],
-                                 "shape": [k2["reduce"]["blocks"],
-                                           k2["x"][1]]}}
+           "rmsnorm_residual_bwd": {**k3, "shape": k3["x"]}}
     for name, fn, src, what in BWD_KERNELS:
         c = per[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": what, "launches": trained["launches"][name],
                      "launches_in": "train (phase 9)",
                      **{k: c.get(k) for k in keys if k != "floor_ms"},
-                     "shape": c["shape"], "dtype": fl["dtype"]})
+                     "shape": c["shape"], "dtype": fl["dtype"],
+                     **{k: c[k] for k in ("f32", "dw") if k in c}})
     return {"kernels": rows}
 
 

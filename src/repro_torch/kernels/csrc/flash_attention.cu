@@ -70,6 +70,7 @@ constexpr int kBlockK = 64;
 constexpr int kTX = 16;                 // threads along keys / head dim
 constexpr int kTY = kThreads / kTX;     // threads along query rows
 constexpr float kNegInf = -1e30f;       // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
 
 // The row log-sum-exp the backward recomputes P from: m + log(l). A row
@@ -271,10 +272,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //   rowsum(dO o) for its rows and writes it, then walks the k tiles the
 //   forward walked, recomputing P = exp(score - lse) from the forward's row
 //   log-sum-exp: dP = dO V^T, dS = P (dP - Delta), dQ += dS K scale.
-// - dkdv: one block per (64-row k tile, KV head, batch). It walks the
-//   H / KV query heads of its KV head and the q tiles at or below the
-//   diagonal, reading Delta: dV += P~^T dO, dK += dS^T Q scale. The GQA
-//   sum over query heads stays in the block's registers.
+// - dkdv: one block per (k tile, KV head, batch), 64 keys in bf16 and 32
+//   in f32. It walks the H / KV query heads of its KV head and the q tiles
+//   at or below the diagonal, reading Delta: dV += P~^T dO, dK += dS^T Q
+//   scale. The GQA sum over query heads stays in the block's registers.
 //
 // P~ is P rounded to the input type: the forward rounds p before the PV
 // product and that cast passes the cotangent through, so dV takes P~ and
@@ -288,272 +289,430 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // 2 S^2 D per (b, h), halved by the mask, 1.0 GFLOP, 1.0 us at the bf16
 // tensor-core peak. So by bytes.
 //
-// float32 (flash_bwd_dq_kernel, flash_bwd_dkdv_kernel) keeps every product
-// on the f32 FMA units, with 64 x 64 tiles padded in shared memory as in
-// the f32 forward: TF32 keeps about three decimal digits and cannot meet
-// the f32 bar (2e-5), and f32 is on neither the training nor the serving
-// path. bfloat16 runs on the tensor cores (flash_bwd_*_wgmma, below).
+// float32 (flash_bwd_dq_f32, flash_bwd_dkdv_f32) keeps every product in
+// true f32 on the FMA units: TF32 keeps about three decimal digits and
+// cannot meet the f32 bar (2e-5). bfloat16 runs on the tensor cores
+// (flash_bwd_*_wgmma, below). In f32 the same training shape moves 34 MB
+// (10 us at 3.35 TB/s) and its five products, 1.0 GFLOP, take 15 us at the
+// 67 TFLOP/s f32 peak: bound by operations, so the design is about keeping
+// the FMA units fed.
+//
+// - 16-byte shared loads along the reduction: every tile stays row-major
+//   as it lies in memory, rows padded by kPad floats, and a thread reads
+//   four consecutive values of each of its rows at once. With the thread
+//   layout of f32_lane a warp's 16-byte load touches at most 128 distinct
+//   bytes on distinct banks: 8 or 10.7 FMAs per shared-memory wavefront,
+//   above the 4 the SM needs to keep its FMA units busy.
+// - Loads in flight while the products run: tiles arrive by 16-byte
+//   cp.async, zero-filled past S. K1b-dkdv streams the Q, dO, lse and
+//   Delta of its (head, q tile) pairs through two stages; K1b-dq loads K
+//   and V once per k tile and writes dS over V once dP is formed, so at
+//   D = 64 it fits three blocks to an SM, whose loads overlap each
+//   other's products.
+// - More, smaller blocks for K1b-dkdv: a block owns 32 keys
+//   (kDkdvRows), so the training shape's 128 blocks of 64 keys become 256,
+//   two to an SM; the heavy ones (k tiles under the most q tiles) are
+//   dispatched first, so an SM tends to pair a heavy with a light one.
+//   K1b-dq runs its longest q tiles first. Both take 128 threads.
+// - P = exp2(score scale log2(e) - lse log2(e)).
+//
+// The GQA sum over query heads, and every other sum, runs inside one
+// block in an order fixed by the code: K1b-dkdv adds its (head, q tile)
+// pairs in order head by head, q tile by q tile.
 
-constexpr int kRQ = kBlockQ / kTY;      // tile rows per thread
-constexpr int kCK = kBlockK / kTX;      // tile columns per thread
-constexpr int kKP = kBlockK + 1;        // padded row of a 64 x 64 f32 tile
+constexpr int kF32Threads = 128;
+constexpr int kDkdvRows = 32;           // keys of a K1b-dkdv f32 block
+constexpr int kPad = 4;                 // floats after each row of a D-wide tile
+constexpr int kSP = kBlockK + 8;        // row of a 64-wide P or dS tile
 
-template <int D>
-constexpr int bwd_smem_floats(int square_tiles) {
-  return 4 * kBlockQ * (D + 1) + square_tiles * kBlockQ * kKP + 2 * kBlockQ;
+// Thread t's place in the f32 backward's tiles: rows ty + 8 i; in a product
+// over the head dim (abt_f32) columns tx + 16 j, in a product into a D-wide
+// tile (pm_f32) columns 4 tx + 64 j .. + 3. A warp holds 4 consecutive ty
+// and 8 consecutive tx.
+__device__ __forceinline__ void f32_lane(int& tx, int& ty) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  ty = l / 8 + 4 * (w % 2);
+  tx = l % 8 + 8 * (w / 2);
 }
 
-// A 64-row tile of a contiguous (B, S, heads, D) tensor, rows row0.., head
-// h, into dst (64 x (D + 1) f32); rows past S read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int b, int row0, int h, int S,
-                                          int heads) {
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, s = row0 + r;
-    dst[r * (D + 1) + c] =
-        s < S ? to_f32(src[(((int64_t)b * S + s) * heads + h) * D + c]) : 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows row0 .. row0 + R - 1 of head h of a contiguous (B, S, heads, D) f32
+// tensor into dst (rows of D + kPad floats) by 16-byte cp.async; rows past
+// S are zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int b, int row0, int h, int S,
+                                              int heads) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks), s = row0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + r * (D + kPad) + c,
+               ok ? src + (((int64_t)b * S + s) * heads + h) * D + c : src, ok);
   }
 }
 
-// out[a][j] = sum_d A[ty + a kTY][d] Bm[tx + j kTX][d] over two 64 x D
-// tiles in shared memory (rows padded to D + 1).
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&out)[kRQ][kCK],
-                                         const float* A, const float* Bm,
-                                         int tx, int ty) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a)
-#pragma unroll
-    for (int j = 0; j < kCK; ++j) out[a][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[kRQ], bv[kCK];
-#pragma unroll
-    for (int a = 0; a < kRQ; ++a) av[a] = A[(ty + a * kTY) * DP + d];
-#pragma unroll
-    for (int j = 0; j < kCK; ++j) bv[j] = Bm[(tx + j * kTX) * DP + d];
-#pragma unroll
-    for (int a = 0; a < kRQ; ++a)
-#pragma unroll
-      for (int j = 0; j < kCK; ++j) out[a][j] = fmaf(av[a], bv[j], out[a][j]);
-  }
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// acc[a][c] += sum_j P[ty + a kTY][j] M[j][tx + c kTX]: P a 64 x 64 tile
-// (rows padded to kKP), M a 64 x D tile (rows padded to D + 1).
-template <int D>
-__device__ __forceinline__ void tile_pm(float (&acc)[kRQ][D / kTX],
-                                        const float* P, const float* M,
+// out[i][j] = sum over d < DIN, in order, of A[(ty + 8 i) lda + d]
+// B[(tx + 16 j) ldb + d]: A and B row-major in shared memory, read four
+// values of d at a time.
+template <int NR, int DIN>
+__device__ __forceinline__ void abt_f32(float (&out)[NR][4], const float* A,
+                                        int lda, const float* B, int ldb,
                                         int tx, int ty) {
-  constexpr int DP = D + 1;
-#pragma unroll 4
-  for (int j = 0; j < kBlockK; ++j) {
-    float mv[D / kTX];
 #pragma unroll
-    for (int c = 0; c < D / kTX; ++c) mv[c] = M[j * DP + tx + c * kTX];
+  for (int i = 0; i < NR; ++i)
 #pragma unroll
-    for (int a = 0; a < kRQ; ++a) {
-      const float p = P[(ty + a * kTY) * kKP + j];
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DIN; d += 4) {
+    float4 a[NR], bv[4];
 #pragma unroll
-      for (int c = 0; c < D / kTX; ++c) acc[a][c] = fmaf(p, mv[c], acc[a][c]);
+    for (int i = 0; i < NR; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 8 * i) * lda + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * ldb + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          out[i][j] = fmaf(lane4(a[i], e), lane4(bv[j], e), out[i][j]);
+  }
+}
+
+// acc[i][4 j + e] += sum over k < 64, in order, of P[(ty + 8 i) ldp + k]
+// M[k ldm + 4 tx + 64 j + e]: P (rows of 64) and M (64 rows of DOUT)
+// row-major in shared memory, P read four values of k at a time, M four
+// columns at a time.
+template <int NR, int DOUT>
+__device__ __forceinline__ void pm_f32(float (&acc)[NR][DOUT / 16],
+                                       const float* P, int ldp,
+                                       const float* M, int ldm, int tx,
+                                       int ty) {
+  constexpr int NJ = DOUT / 64;
+#pragma unroll 2
+  for (int k = 0; k < 64; k += 4) {
+    float4 p[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 8 * i) * ldp + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 m[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        m[j] = *reinterpret_cast<const float4*>(M + (k + e) * ldm + 4 * tx +
+                                                64 * j);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float pv = lane4(p[i], e);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[i][4 * j] = fmaf(pv, m[j].x, acc[i][4 * j]);
+          acc[i][4 * j + 1] = fmaf(pv, m[j].y, acc[i][4 * j + 1]);
+          acc[i][4 * j + 2] = fmaf(pv, m[j].z, acc[i][4 * j + 2]);
+          acc[i][4 * j + 3] = fmaf(pv, m[j].w, acc[i][4 * j + 3]);
+        }
+      }
     }
   }
 }
 
-// q, o, dO, dq: (B, S, H, D); k, v: (B, S, KV, D); lse, delta: (B, H, S)
-// f32. grid = (ceil(S / 64), H, B), block = 128 threads.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dO, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq,
-                    const int* __restrict__ lengths, int S, int H, int KV,
-                    int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int CD = D / kTX;
+// Rows ty + 8 i (i < NR) of a D-wide tile held as pm_f32 holds it, times
+// mul, to out (rows of `stride` elements from row `row0`); rows at or past
+// S are skipped.
+template <int NR, int D>
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ out,
+                                               int64_t stride, int row0,
+                                               int S,
+                                               const float (&acc)[NR][D / 16],
+                                               float mul, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int row = row0 + ty + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j)
+      *reinterpret_cast<float4*>(out + row * stride + 4 * tx + 64 * j) =
+          make_float4(acc[i][4 * j] * mul, acc[i][4 * j + 1] * mul,
+                      acc[i][4 * j + 2] * mul, acc[i][4 * j + 3] * mul);
+  }
+}
+
+template <int D>
+constexpr int dq_f32_smem_floats() {
+  return 4 * kBlockQ * (D + kPad) + kBlockQ;
+}
+
+template <int D>
+constexpr int dkdv_f32_smem_floats() {
+  return (2 * kDkdvRows + 4 * kBlockQ) * (D + kPad) + 2 * kDkdvRows * kSP +
+         4 * kBlockQ;
+}
+
+// q, o, dO, dq: (B, S, H, D); k, v: (B, S, KV, D); lse, delta: (B, H, S),
+// all f32 and contiguous. grid = (H, B, ceil(S / 64)), the last q tile
+// first under the causal mask (it walks the most k tiles); block = 128.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ o,
+                 const float* __restrict__ dO, const float* __restrict__ lse,
+                 float* __restrict__ delta, float* __restrict__ dq,
+                 const int* __restrict__ lengths, int S, int H, int KV,
+                 int causal, float scale) {
+  constexpr int DP = D + kPad;
   extern __shared__ float smem[];
   float* Qs = smem;                     // 64 x DP
   float* dOs = Qs + kBlockQ * DP;       // 64 x DP
-  float* Ks = dOs + kBlockQ * DP;       // 64 x DP; o while Delta is formed
-  float* Vs = Ks + kBlockK * DP;        // 64 x DP
-  float* dSs = Vs + kBlockK * DP;       // 64 x kKP
-  float* Ls = dSs + kBlockQ * kKP;      // 64: lse
-  float* Dl = Ls + kBlockQ;             // 64: Delta
+  float* Ks = dOs + kBlockQ * DP;       // 64 x DP
+  float* Vs = Ks + kBlockK * DP;        // 64 x DP; dS once dP is formed
+  float* dSs = Vs;
+  float* Ls = Vs + kBlockK * DP;        // 64: lse
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = causal ? (int)(gridDim.z - 1 - blockIdx.z) : (int)blockIdx.z;
+  const int q0 = qt * kBlockQ;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / (H / KV);
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  int tx, ty;
+  f32_lane(tx, ty);
   const int len = lengths ? lengths[b] : S;
   const int64_t row_base = ((int64_t)b * H + h) * S;
-
-  load_tile<T, D>(Qs, q, b, q0, h, S, H);
-  load_tile<T, D>(dOs, dO, b, q0, h, S, H);
-  load_tile<T, D>(Ks, o, b, q0, h, S, H);
-  __syncthreads();
-  {                                     // Delta: two threads a row
-    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
-    float acc = 0.f;
-    for (int c = half; c < D; c += 2) acc = fmaf(dOs[r * DP + c], Ks[r * DP + c], acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    const int row = q0 + r;
-    if (half == 0) {
-      Dl[r] = acc;
-      Ls[r] = row < S ? lse[row_base + row] : 0.f;
-      if (row < S) delta[row_base + row] = acc;
-    }
-  }
-
-  float acc[kRQ][CD];
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[a][c] = 0.f;
-
   // the k tiles the forward walked; with no valid key (len <= 0) every
   // score is masked and dq is 0
   int kend = causal ? min(S, q0 + kBlockQ) : S;
   kend = len > 0 ? min(kend, len) : 0;
+  const int nk = (kend + kBlockK - 1) / kBlockK;
 
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();                    // the last tile's readers are done
-    load_tile<T, D>(Ks, k, b, k0, kvh, S, KV);
-    load_tile<T, D>(Vs, v, b, k0, kvh, S, KV);
-    __syncthreads();
-    float sc[kRQ][kCK], dp[kRQ][kCK];
-    tile_abt<D>(sc, Qs, Ks, tx, ty);
-    tile_abt<D>(dp, dOs, Vs, tx, ty);
+  load_rows_f32<kBlockQ, D>(Qs, q, b, q0, h, S, H);
+  load_rows_f32<kBlockQ, D>(dOs, dO, b, q0, h, S, H);
+  if (nk > 0) {
+    load_rows_f32<kBlockK, D>(Ks, k, b, 0, kvh, S, KV);
+    load_rows_f32<kBlockK, D>(Vs, v, b, 0, kvh, S, KV);
+  }
+  if (threadIdx.x < kBlockQ) {
+    const int row = q0 + threadIdx.x;
+    cp_async4(Ls + threadIdx.x, row < S ? lse + row_base + row : lse, row < S);
+  }
+  cp_async_commit();
+
+  // Delta = rowsum(dO o), two threads a row, each half the row: o straight
+  // from device memory while the tiles arrive, dO from its tile
+  const int dr = threadIdx.x / 2, dh = threadIdx.x % 2;
+  float4 ov[D / 8];
+  {
+    const bool in = q0 + dr < S;
+    const float4* po = reinterpret_cast<const float4*>(
+        o + (((int64_t)b * S + (in ? q0 + dr : 0)) * H + h) * D + dh * (D / 2));
 #pragma unroll
-    for (int a = 0; a < kRQ; ++a) {
-      const int r = ty + a * kTY;
-      const int qpos = q0 + r;
+    for (int c = 0; c < D / 8; ++c)
+      ov[c] = in ? __ldg(po + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float dsum = 0.f;
+  {
+    const float* pd = dOs + dr * DP + dh * (D / 2);
 #pragma unroll
-      for (int j = 0; j < kCK; ++j) {
-        const int kpos = k0 + tx + j * kTX;
-        const bool ok = kpos < len && (!causal || kpos <= qpos);
-        float ds = 0.f;
-        if (ok && kpos < S) ds = expf(sc[a][j] * scale - Ls[r]) * (dp[a][j] - Dl[r]);
-        dSs[r * kKP + tx + j * kTX] = ds;
+    for (int c = 0; c < D / 8; ++c) {
+      const float4 g = *reinterpret_cast<const float4*>(pd + 4 * c);
+      dsum = fmaf(g.x, ov[c].x, dsum);
+      dsum = fmaf(g.y, ov[c].y, dsum);
+      dsum = fmaf(g.z, ov[c].z, dsum);
+      dsum = fmaf(g.w, ov[c].w, dsum);
+    }
+  }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  __shared__ float Dl[kBlockQ];
+  if (dh == 0) {
+    Dl[dr] = dsum;
+    if (q0 + dr < S) delta[row_base + q0 + dr] = dsum;
+  }
+  __syncthreads();
+  // Delta and lse log2(e) of this thread's rows
+  float dl[8], l2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    dl[i] = Dl[ty + 8 * i];
+    l2[i] = Ls[ty + 8 * i] * kLog2e;
+  }
+
+  float acc[8][D / 16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * kBlockK;
+    if (j > 0) {
+      cp_async_wait<0>();
+      __syncthreads();                  // K and V of this tile are in
+    }
+    float sc[8][4], dp[8][4];
+    abt_f32<8, D>(sc, Qs, DP, Ks, DP, tx, ty);
+    abt_f32<8, D>(dp, dOs, DP, Vs, DP, tx, ty);
+    __syncthreads();                    // every warp is done with V
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty + 8 * i, qpos = q0 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kc = tx + 16 * c, kpos = k0 + kc;
+        // a masked score, or a key past S, takes no gradient
+        const bool ok = kpos < len && kpos < S && (!causal || kpos <= qpos);
+        dSs[r * DP + kc] =
+            ok ? exp2f(fmaf(sc[i][c], scale2, -l2[i])) * (dp[i][c] - dl[i])
+               : 0.f;
       }
     }
-    __syncthreads();                    // dS is written
-    tile_pm<D>(acc, dSs, Ks, tx, ty);
+    __syncthreads();                    // dS is written over V
+    pm_f32<8, D>(acc, dSs, DP, Ks, DP, tx, ty);    // dQ += dS K
+    __syncthreads();                    // K and dS are free
+    if (j + 1 < nk) {
+      load_rows_f32<kBlockK, D>(Ks, k, b, k0 + kBlockK, kvh, S, KV);
+      load_rows_f32<kBlockK, D>(Vs, v, b, k0 + kBlockK, kvh, S, KV);
+      cp_async_commit();
+    }
   }
-
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a) {
-    const int row = q0 + ty + a * kTY;
-    if (row >= S) continue;
-    T* out = dq + (((int64_t)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) out[tx + c * kTX] = from_f32<T>(acc[a][c] * scale);
-  }
+  store_rows_f32<8, D>(dq + (int64_t)b * S * H * D + (int64_t)h * D,
+                       (int64_t)H * D, q0, S, acc, scale, tx, ty);
 }
 
-// dk, dv: (B, S, KV, D); the rest as flash_bwd_dq_kernel, which wrote
-// delta. grid = (ceil(S / 64), KV, B), block = 128 threads. Thread (tx, ty)
-// owns key rows ty + a kTY and columns tx + c kTX of dK and dV.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dO,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, const int* __restrict__ lengths,
-                      int S, int H, int KV, int causal, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int CD = D / kTX;
+// dk, dv: (B, S, KV, D); the rest as flash_bwd_dq_f32, which wrote delta.
+// grid = (KV, B, ceil(S / 32)): blockIdx.z is the 32-key tile, slowest, so
+// the tiles with the most q tiles below them start first; block = 128.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dO,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, const int* __restrict__ lengths,
+                   int S, int H, int KV, int causal, float scale) {
+  constexpr int DP = D + kPad, R = kDkdvRows;
   extern __shared__ float smem[];
-  float* Ks = smem;                     // 64 x DP
-  float* Vs = Ks + kBlockK * DP;        // 64 x DP
-  float* Qs = Vs + kBlockK * DP;        // 64 x DP
-  float* dOs = Qs + kBlockQ * DP;       // 64 x DP
-  float* Pt = dOs + kBlockQ * DP;       // 64 keys x kKP: P~^T
-  float* dSt = Pt + kBlockK * kKP;      // 64 keys x kKP: dS^T
-  float* Ls = dSt + kBlockK * kKP;      // 64: lse of the q tile
-  float* Dl = Ls + kBlockQ;             // 64: Delta of the q tile
+  float* Ks = smem;                     // R x DP
+  float* Vs = Ks + R * DP;              // R x DP
+  float* Qs = Vs + R * DP;              // 2 stages of 64 x DP
+  float* dOs = Qs + 2 * kBlockQ * DP;   // 2 stages of 64 x DP
+  float* Pt = dOs + 2 * kBlockQ * DP;   // R x kSP: P~^T
+  float* dSt = Pt + R * kSP;            // R x kSP: dS^T
+  float* Rows = dSt + R * kSP;          // 2 stages of 64 lse, 64 Delta
 
-  const int k0 = blockIdx.x * kBlockK;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * R;
   const int G = H / KV;
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
+  int tx, ty;
+  f32_lane(tx, ty);
   const int len = lengths ? lengths[b] : S;
   const bool empty = len <= 0;          // no valid key: P = 1/S everywhere
-
-  load_tile<T, D>(Ks, k, b, k0, kvh, S, KV);
-  load_tile<T, D>(Vs, v, b, k0, kvh, S, KV);
-
-  float dka[kRQ][CD], dva[kRQ][CD];
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a)
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dka[a][c] = dva[a][c] = 0.f;
 
   // keys at or past lengths[b] take no gradient; under the causal mask
   // only q tiles at or below this k tile's diagonal see it
   const bool none = !empty && k0 >= len;
   const int qt0 = causal && !empty ? k0 / kBlockQ : 0;
-  const int nqt = none ? 0 : (S + kBlockQ - 1) / kBlockQ;
+  const int per = none ? 0 : (S + kBlockQ - 1) / kBlockQ - qt0;
+  const int n = G * per;                // (head, q tile) pairs, head-major
 
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const int64_t row_base = ((int64_t)b * H + h) * S;
-    for (int qt = qt0; qt < nqt; ++qt) {
-      const int q0 = qt * kBlockQ;
-      __syncthreads();                  // the last tile's readers are done
-      load_tile<T, D>(Qs, q, b, q0, h, S, H);
-      load_tile<T, D>(dOs, dO, b, q0, h, S, H);
-      if (threadIdx.x < kBlockQ) {
-        const int row = q0 + threadIdx.x;
-        Ls[threadIdx.x] = row < S ? lse[row_base + row] : 0.f;
-        Dl[threadIdx.x] = row < S ? delta[row_base + row] : 0.f;
-      }
-      __syncthreads();
-      float st[kRQ][kCK], dpt[kRQ][kCK];
-      tile_abt<D>(st, Ks, Qs, tx, ty);  // scores, transposed
-      tile_abt<D>(dpt, Vs, dOs, tx, ty);
+  // pair i into stage st: Q and dO tiles, lse and Delta of its rows
+  auto load_pair = [&](int i, int st) {
+    const int h = kvh * G + i / per, q0 = (qt0 + i % per) * kBlockQ;
+    load_rows_f32<kBlockQ, D>(Qs + st * kBlockQ * DP, q, b, q0, h, S, H);
+    load_rows_f32<kBlockQ, D>(dOs + st * kBlockQ * DP, dO, b, q0, h, S, H);
+    const int t = threadIdx.x, row = q0 + t % kBlockQ;
+    const float* src = t < kBlockQ ? lse : delta;
+    cp_async4(Rows + st * 2 * kBlockQ + t,
+              row < S ? src + ((int64_t)b * H + h) * S + row : src, row < S);
+    cp_async_commit();
+  };
+  if (n > 0) {
+    load_rows_f32<R, D>(Ks, k, b, k0, kvh, S, KV);
+    load_rows_f32<R, D>(Vs, v, b, k0, kvh, S, KV);
+    load_pair(0, 0);
+    if (n > 1) load_pair(1, 1);
+  }
+
+  float dka[4][D / 16], dva[4][D / 16];
 #pragma unroll
-      for (int a = 0; a < kRQ; ++a) {
-        const int kr = ty + a * kTY;
-        const int kpos = k0 + kr;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < kCK; ++j) {
-          const int qc = tx + j * kTX;
-          const int qpos = q0 + qc;
-          const bool ok = kpos < len && (!causal || kpos <= qpos);
-          float p = 0.f, ds = 0.f;
-          if (kpos < S && qpos < S) {
-            if (ok) {
-              p = expf(st[a][j] * scale - Ls[qc]);
-              ds = p * (dpt[a][j] - Dl[qc]);
-            } else if (empty) {
-              p = expf(-Ls[qc]);        // the masked score, taken as 0
-            }
+    for (int c = 0; c < D / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, q0 = (qt0 + i % per) * kBlockQ;
+    if (i + 1 < n) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();                    // pair i is in
+    const float* Q = Qs + st * kBlockQ * DP;
+    const float* dOt = dOs + st * kBlockQ * DP;
+    const float* L = Rows + st * 2 * kBlockQ;
+    float sc[4][4], dpt[4][4];
+    abt_f32<4, D>(sc, Ks, DP, Q, DP, tx, ty);      // scores, transposed
+    abt_f32<4, D>(dpt, Vs, DP, dOt, DP, tx, ty);   // dP^T
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int kr = ty + 8 * a, kpos = k0 + kr;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qc = tx + 16 * c, qpos = q0 + qc;
+        const bool ok = kpos < len && (!causal || kpos <= qpos);
+        float p = 0.f, ds = 0.f;
+        if (kpos < S && qpos < S) {
+          if (ok) {
+            p = exp2f(fmaf(sc[a][c], scale2, -L[qc] * kLog2e));
+            ds = p * (dpt[a][c] - L[kBlockQ + qc]);
+          } else if (empty) {
+            p = exp2f(-L[qc] * kLog2e);  // the masked score, taken as 0
           }
-          Pt[kr * kKP + qc] = to_f32(from_f32<T>(p));
-          dSt[kr * kKP + qc] = ds;
         }
+        Pt[kr * kSP + qc] = p;
+        dSt[kr * kSP + qc] = ds;
       }
-      __syncthreads();                  // P~^T and dS^T are written
-      tile_pm<D>(dva, Pt, dOs, tx, ty);
-      tile_pm<D>(dka, dSt, Qs, tx, ty);
     }
+    __syncthreads();                    // P~^T and dS^T are written
+    pm_f32<4, D>(dva, Pt, kSP, dOt, DP, tx, ty);   // dV += P~^T dO
+    pm_f32<4, D>(dka, dSt, kSP, Q, DP, tx, ty);    // dK += dS^T Q
+    __syncthreads();                    // stage st, P~^T and dS^T are free
+    if (i + 2 < n) load_pair(i + 2, st);
   }
 
-#pragma unroll
-  for (int a = 0; a < kRQ; ++a) {
-    const int row = k0 + ty + a * kTY;
-    if (row >= S) continue;
-    const int64_t off = (((int64_t)b * S + row) * KV + kvh) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      dk[off + tx + c * kTX] = from_f32<T>(dka[a][c] * scale);
-      dv[off + tx + c * kTX] = from_f32<T>(dva[a][c]);
-    }
-  }
+  const int64_t off = (int64_t)b * S * KV * D + (int64_t)kvh * D;
+  store_rows_f32<4, D>(dk + off, (int64_t)KV * D, k0, S, dka, scale, tx, ty);
+  store_rows_f32<4, D>(dv + off, (int64_t)KV * D, k0, S, dva, 1.f, tx, ty);
 }
 
 // Sets a kernel's dynamic shared memory limit once per device, so that
@@ -574,36 +733,38 @@ int allow_smem(Kernel kernel, int bytes, bool (&configured)[kMaxDevices]) {
   return 0;
 }
 
-template <typename T, int D>
-int launch_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                  const void* dO, const float* lse, float* delta, void* dq,
-                  const int* lengths, int B, int S, int H, int KV, int causal,
-                  float scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(float) * bwd_smem_floats<D>(1);
+template <int D>
+int launch_bwd_dq_f32(const void* q, const void* k, const void* v,
+                      const void* o, const void* dO, const float* lse,
+                      float* delta, void* dq, const int* lengths, int B,
+                      int S, int H, int KV, int causal, float scale,
+                      cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * dq_f32_smem_floats<D>();
   static bool configured[kMaxDevices] = {};
-  const int err = allow_smem(flash_bwd_dq_kernel<T, D>, smem, configured);
+  const int err = allow_smem(flash_bwd_dq_f32<D>, smem, configured);
   if (err) return err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dO, lse,
-      delta, (T*)dq, lengths, S, H, KV, causal, scale);
+  const dim3 grid(H, B, (S + kBlockQ - 1) / kBlockQ);
+  flash_bwd_dq_f32<D><<<grid, kF32Threads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dO, lse, delta, (float*)dq, lengths, S, H, KV, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_bwd_dkdv(const void* q, const void* k, const void* v,
-                    const void* dO, const float* lse, const float* delta,
-                    void* dk, void* dv, const int* lengths, int B, int S,
-                    int H, int KV, int causal, float scale,
-                    cudaStream_t stream) {
-  const int smem = (int)sizeof(float) * bwd_smem_floats<D>(2);
+template <int D>
+int launch_bwd_dkdv_f32(const void* q, const void* k, const void* v,
+                        const void* dO, const float* lse, const float* delta,
+                        void* dk, void* dv, const int* lengths, int B, int S,
+                        int H, int KV, int causal, float scale,
+                        cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * dkdv_f32_smem_floats<D>();
   static bool configured[kMaxDevices] = {};
-  const int err = allow_smem(flash_bwd_dkdv_kernel<T, D>, smem, configured);
+  const int err = allow_smem(flash_bwd_dkdv_f32<D>, smem, configured);
   if (err) return err;
-  const dim3 grid((S + kBlockK - 1) / kBlockK, KV, B);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, lse, delta,
-      (T*)dk, (T*)dv, lengths, S, H, KV, causal, scale);
+  const dim3 grid(KV, B, (S + kDkdvRows - 1) / kDkdvRows);
+  flash_bwd_dkdv_f32<D><<<grid, kF32Threads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dO,
+      lse, delta, (float*)dk, (float*)dv, lengths, S, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -619,7 +780,6 @@ bool bwd_ok(int B, int S, int H, int KV, int D, int dtype) {
 
 constexpr int kTile = 64;               // q rows, keys per k tile, columns per swizzle atom
 constexpr int kAtomBytes = kTile * 128; // 64 rows of one 128-byte swizzled row each
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, in bytes from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 1024 bytes): Q, two K stages, two V stages, then
@@ -986,7 +1146,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------------
 //
 // flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma compute what the f32 kernels
-// above compute, on the same grids and in the same order, at the bound
+// above compute, in the same order (K1b-dkdv on 64-key tiles), at the bound
 // stated there (17 MB, 5.1 us; 1.0 GFLOP, 1.0 us: by bytes). What the
 // design does:
 //
@@ -1641,10 +1801,10 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
     const int heads[5] = {H, KV, KV, H, H};
     if (!dense(strides, heads, 5, S, D)) return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch_bwd_dq<float, 64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
-                                      KV, causal, scale, st);
-    return launch_bwd_dq<float, 128>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+      return launch_bwd_dq_f32<64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
                                      KV, causal, scale, st);
+    return launch_bwd_dq_f32<128>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                    KV, causal, scale, st);
   }
   const void* ptrs[5] = {q, k, v, o, dO};
   for (int i = 0; i < 5; ++i)
@@ -1674,10 +1834,10 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
     const int heads[4] = {H, KV, KV, H};
     if (!dense(strides, heads, 4, S, D)) return (int)cudaErrorInvalidValue;
     if (D == 64)
-      return launch_bwd_dkdv<float, 64>(q, k, v, dO, l, dl, dk, dv, len, B, S,
-                                        H, KV, causal, scale, st);
-    return launch_bwd_dkdv<float, 128>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+      return launch_bwd_dkdv_f32<64>(q, k, v, dO, l, dl, dk, dv, len, B, S,
                                        H, KV, causal, scale, st);
+    return launch_bwd_dkdv_f32<128>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+                                        H, KV, causal, scale, st);
   }
   const void* ptrs[4] = {q, k, v, dO};
   for (int i = 0; i < 4; ++i)

@@ -55,13 +55,20 @@
 // The two row sums (x^2 and g x) are independent, so they share one
 // reduction. It reads two or three rows and writes one: at (2048, 768) bf16,
 // 9.4 MB for K2b (2.8 us at 3.35 TB/s) and 12.6 MB for K3b (3.8 us), bound
-// by bytes, like the forward. dw = sum over rows of dy x r needs a sum
-// across rows, which blocks cannot share: each block walks its rows with a
-// grid stride (at most kBwdBlocks blocks), keeps its columns' partial sums
-// in registers, combines its warps' partials in shared memory in a fixed
-// order, and writes one row of an f32 scratch (blocks, D); then
-// rmsnorm_dw_reduce sums that scratch over blocks in an order fixed by the
-// code. No atomics: the result does not depend on scheduling.
+// by bytes, like the forward.
+//
+// dw = sum over rows of dy x r needs a sum across rows, which blocks cannot
+// share. Each block walks its rows with a grid stride (at most kBwdBlocks
+// blocks), keeps its columns' partial sums in registers, combines its
+// warps' partials in shared memory in a fixed order, and writes one row of
+// an f32 scratch (blocks, D). The same launch then sums those rows
+// (dw_tail): every block releases its arrival on a device-wide counter and
+// is done, without waiting for the atomic's result; the last few blocks
+// (at most kReducers) wait for all arrivals and each sums a slice of dw's
+// columns over all partial rows, every column in an order fixed by the
+// code, so dw does not depend on scheduling. The only atomics are on the
+// counter, never on data. No separate reduction kernel, and no round trip
+// of the partials through a second launch.
 //
 // Plain C interface, loaded with ctypes. Each entry returns the value of
 // cudaGetLastError() after its launch (0 = success), or
@@ -80,8 +87,8 @@ constexpr int kWarpMaxWidth = 2048;  // widest row of the warp layout
 constexpr int kWideThreads = 1024;   // most threads on one row (wide layout)
 constexpr int kMaxWidth = 16384;     // widest row of any variant
 constexpr int kBwdBlocks = 264;      // most blocks of a backward launch (2 per SM)
-constexpr int kReduceCols = 32;      // rmsnorm_dw_reduce: columns of a block
-constexpr int kReduceLanes = 8;      // and threads on each column
+constexpr int kReducers = 48;        // most blocks that sum dw's columns
+constexpr int kReduceLanes = 16;     // dw: threads on one column, adding every 16th row
 
 // The raw bits of one access: V elements of T, 16 bytes or one element.
 template <typename T, int V>
@@ -259,18 +266,159 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
 }
 
+// Adds v to a device-wide counter, releasing: every global write ordered
+// before it (by this thread, or by the block's threads through a barrier)
+// is visible to whoever acquires the sum.
+__device__ __forceinline__ void add_release(unsigned long long* p,
+                                            unsigned long long v) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long add_acq_rel(
+    unsigned long long* p, unsigned long long v) {
+  unsigned long long old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], %2;"
+               : "=l"(old) : "l"(p), "l"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// dst[c] for c in [c0, c1) = the sum over the nb rows b of src[b * cols +
+// c], by one block, in an order fixed by the code: lane j of a column
+// (kReduceLanes of them) adds rows j, j + kReduceLanes, ... in order, with
+// CHUNK loads in flight before it adds them, and lane 0 then adds the
+// lanes' sums in order j = 0, 1, ... Columns are the fastest thread index,
+// so a warp reads whole 128-byte runs of a few rows. Other blocks wrote
+// src: it is read through L2 (__ldcg). buf: kReduceLanes x (blockDim.x /
+// kReduceLanes) F of shared memory.
+template <int CHUNK, typename F>
+__device__ __forceinline__ void sum_slice(const F* src, int nb, int cols,
+                                          int c0, int c1, F* dst, F* buf) {
+  const int per = blockDim.x / kReduceLanes;        // columns a pass
+  const int co = threadIdx.x % per, j = threadIdx.x / per;
+  for (int p0 = c0; p0 < c1; p0 += per) {
+    const int c = p0 + co;
+    F acc;
+    bool first = true;
+    if (c < c1) {
+      for (int b0 = j; b0 < nb; b0 += CHUNK * kReduceLanes) {
+        F v[CHUNK];
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) {
+          const int b = b0 + i * kReduceLanes;
+          if (b < nb) v[i] = __ldcg(src + (int64_t)b * cols + c);
+        }
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i)
+          if (b0 + i * kReduceLanes < nb) {
+            acc = first ? v[i] : add(acc, v[i]);
+            first = false;
+          }
+      }
+    }
+    if (first) acc = F{};                           // a lane with no row
+    buf[j * per + co] = acc;
+    __syncthreads();
+    if (j == 0 && c < c1) {
+      F sum = buf[co];
+      for (int l = 1; l < kReduceLanes; ++l) sum = add(sum, buf[l * per + co]);
+      dst[c] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// The backward's last step, in every block after it wrote its partial row
+// (blocks nb of them, rows of D in `partial`). Each block releases its
+// arrival on *arrivals and, unless it is one of the last `reducers` blocks,
+// is done: it waits for nothing. Reducer r acquires until all nb blocks of
+// this launch have arrived, then sums its slice of dw's columns over every
+// partial row (sum_slice's fixed order, whichever blocks reduce).
+//
+// Only the reducers wait, and only on blocks that never wait: a block they
+// wait for runs to its end once it is resident, and it becomes resident as
+// soon as any non-reducer finishes, since the reducers alone can never fill
+// the card (the launcher keeps them below half the SM count). So no
+// schedule deadlocks. A wait longer than 10 s (a broken launch) traps
+// rather than hanging the card.
+//
+// *arrivals only grows: a launch adds nb, so every launch on one counter
+// with one nb starts at a multiple of nb (the wrapper keeps a counter per
+// block count), and a reducer's own arrival tells it which multiple ends
+// this launch. No reset and no memset; a CUDA graph's replays count on.
+// buf: 16 KB of shared memory.
+template <bool WIDE>
+__device__ __forceinline__ void dw_tail(const float* partial,
+                                        unsigned long long* arrivals,
+                                        float* dw, int D, int reducers,
+                                        void* buf) {
+  const unsigned long long nb = gridDim.x;
+  const int r = (int)blockIdx.x - ((int)nb - reducers);
+  __syncthreads();                                  // the partial row is out
+  if (threadIdx.x == 0) {
+    if (r < 0) {
+      add_release(arrivals, 1ull);
+    } else {
+      const unsigned long long old = add_acq_rel(arrivals, 1ull);
+      const unsigned long long end = old - old % nb + nb;
+      const unsigned long long t0 = now_ns();
+      while (load_acquire(arrivals) < end) {
+        __nanosleep(64);
+        if (now_ns() - t0 > 10000000000ull) __trap();
+      }
+    }
+  }
+  if (r < 0) return;
+  __syncthreads();
+  // the slice of columns (16-byte columns where D allows) this reducer sums
+  constexpr int CHUNK = WIDE ? 4 : (kBwdBlocks + kReduceLanes - 1) / kReduceLanes;
+  if (D % 4 == 0) {
+    const int cols = D / 4, per = (cols + reducers - 1) / reducers;
+    sum_slice<CHUNK>(reinterpret_cast<const float4*>(partial), (int)nb, cols,
+                     r * per, min(cols, (r + 1) * per),
+                     reinterpret_cast<float4*>(dw),
+                     reinterpret_cast<float4*>(buf));
+  } else {
+    const int per = (D + reducers - 1) / reducers;
+    sum_slice<CHUNK>(partial, (int)nb, D, r * per, min(D, (r + 1) * per), dw,
+                     reinterpret_cast<float*>(buf));
+  }
+}
+
 // The backward of rmsnorm_kernel, in the same layouts (WIDE, V, NV).
 // RESIDUAL = false (K2b): dx = d/dx of rmsnorm(x) * w at cotangent dy.
 // RESIDUAL = true (K3b): x holds the saved sum s, dy the cotangent of the
 // normed output and ds that of s; writes dx = T(ds + d/ds rmsnorm(s) * w).
-// Either way, writes row blockIdx.x of partial: this block's sum over its
-// rows of dy x r, per column. Rows are walked with a grid stride.
+// Either way, writes row blockIdx.x of partial (this block's sum over its
+// rows of dy x r, per column), then takes its part in summing those rows
+// into dw (dw_tail). Rows are walked with a grid stride.
 template <typename T, bool RESIDUAL, int V, int NV, bool WIDE>
 __global__ void __launch_bounds__(WIDE ? kWideThreads : 32 * kRowsPerBlock)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                    const T* __restrict__ ds, const float* __restrict__ w,
-                   T* __restrict__ dx, float* __restrict__ partial, int N,
-                   int D, float eps) {
+                   T* __restrict__ dx, float* __restrict__ dw_out,
+                   float* __restrict__ partial,
+                   unsigned long long* __restrict__ arrivals, int reducers,
+                   int N, int D, float eps) {
   const int t = WIDE ? (int)threadIdx.x : (int)(threadIdx.x % 32);
   const int nt = WIDE ? (int)blockDim.x : 32;     // threads on the row
   const int first = WIDE ? (int)blockIdx.x
@@ -339,6 +487,8 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     }
   }
 
+  // the warps' partials, then dw_tail's lanes
+  __shared__ __align__(16) float red[kRowsPerBlock][kWarpMaxWidth];
   float* out = partial + (int64_t)blockIdx.x * D;
   if constexpr (WIDE) {                           // each thread owns its columns
 #pragma unroll
@@ -350,7 +500,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       }
     }
   } else {                                        // add the block's warps in order
-    __shared__ float red[kRowsPerBlock][kWarpMaxWidth];
     const int warp = threadIdx.x / 32;
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -368,59 +517,50 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       out[c] = acc;
     }
   }
-}
-
-// dw[c] = the sum over b of partial[b][c]. A block owns kReduceCols
-// neighbouring columns (a warp reads 128 contiguous bytes) and puts
-// kReduceLanes threads on each: thread j sums rows j, j + kReduceLanes, ...
-// in order, and the lanes' sums are added in order j = 0, 1, ... The order
-// is fixed by the code, so the result does not depend on scheduling; the
-// lanes keep several independent loads in flight.
-__global__ void __launch_bounds__(kReduceCols * kReduceLanes)
-rmsnorm_dw_reduce_kernel(const float* __restrict__ partial,
-                         float* __restrict__ dw, int nb, int D) {
-  __shared__ float lanes[kReduceLanes][kReduceCols];
-  const int col = threadIdx.x % kReduceCols, j = threadIdx.x / kReduceCols;
-  const int c = blockIdx.x * kReduceCols + col;
-  float acc = 0.f;
-  if (c < D) {
-#pragma unroll 4
-    for (int b = j; b < nb; b += kReduceLanes) acc += partial[(int64_t)b * D + c];
-  }
-  lanes[j][col] = acc;
-  __syncthreads();
-  if (j == 0 && c < D) {
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kReduceLanes; ++i) sum += lanes[i][col];
-    dw[c] = sum;
-  }
+  dw_tail<WIDE>(partial, arrivals, dw_out, D, reducers, &red[0][0]);
 }
 
 __global__ void empty_kernel() {}
 
 // The arguments of one launch, forward or backward. Forward: x, r (K3), w
-// in; y, s (K3) out. Backward: x (or s), dy, ds (K3b), w in; dx, partial
-// out, on `blocks` blocks.
+// in; y, s (K3) out. Backward: x (or s), dy, ds (K3b), w in; dx, dw out,
+// on `blocks` blocks, with the f32 scratch (one partial row of D per
+// block) and the arrival counter.
 struct Args {
   const void* x;
   const void* r;      // forward: the residual; backward: dy
   const void* ds;     // backward, K3b only
   const void* w;
   void* y;            // forward: y; backward: dx
-  void* s;            // forward: the sum; backward: the dw partials
+  void* s;            // forward: the sum; backward: dw
   int N, D;
   float eps;
   int blocks;         // backward only
+  float* scratch;               // backward only
+  unsigned long long* arrivals; // backward only
   cudaStream_t st;
 };
+
+// Blocks of a backward launch that sum dw: at most kReducers, and fewer
+// than half the SMs, so that the blocks they wait for always find an SM.
+int reducers(int blocks) {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  return max(1, min(min(kReducers, blocks), sms[dev] / 2));
+}
 
 template <bool BWD, typename T, bool RESIDUAL, int V, int NV, bool WIDE>
 void launch_kernel(int grid, int threads, const Args& a) {
   if constexpr (BWD)
     rmsnorm_bwd_kernel<T, RESIDUAL, V, NV, WIDE><<<a.blocks, threads, 0, a.st>>>(
         (const T*)a.x, (const T*)a.r, (const T*)a.ds, (const float*)a.w,
-        (T*)a.y, (float*)a.s, a.N, a.D, a.eps);
+        (T*)a.y, (float*)a.s, a.scratch, a.arrivals, reducers(a.blocks), a.N,
+        a.D, a.eps);
   else
     rmsnorm_kernel<T, RESIDUAL, V, NV, WIDE><<<grid, threads, 0, a.st>>>(
         (const T*)a.x, (const T*)a.r, (const float*)a.w, (T*)a.y, (T*)a.s,
@@ -473,7 +613,8 @@ int launch(const Args& a, int dtype, int variant) {
   const int D = a.D;
   if (variant < 0 || variant > 2 || (dtype != 0 && dtype != 1) || D < 1 ||
       D > (variant == 0 ? kWarpMaxWidth : kMaxWidth) ||
-      (BWD && (a.blocks < 1 || a.blocks > kBwdBlocks)) ||
+      (BWD && (a.blocks < 1 || a.blocks > kBwdBlocks || !a.s || !a.scratch ||
+               !a.arrivals || !aligned16(a.scratch))) ||
       (vector && ((D * elem) % 16 != 0 || !aligned16(a.x) ||
                   !aligned16(a.r) || !aligned16(a.ds) || !aligned16(a.w) ||
                   !aligned16(a.y) || !aligned16(a.s))))
@@ -492,46 +633,54 @@ extern "C" {
 int rmsnorm_fwd(const void* x, const void* w, void* y, int N, int D,
                 float eps, int dtype, int variant, void* stream) {
   return launch<false, false>({x, nullptr, nullptr, w, y, nullptr, N, D, eps,
-                               0, (cudaStream_t)stream}, dtype, variant);
+                               0, nullptr, nullptr, (cudaStream_t)stream},
+                              dtype, variant);
 }
 
 // x, r, y, s: (N, D) of dtype; w: (D,) float32.
 int rmsnorm_residual_fwd(const void* x, const void* r, const void* w,
                          void* y, void* s, int N, int D, float eps, int dtype,
                          int variant, void* stream) {
-  return launch<false, true>({x, r, nullptr, w, y, s, N, D, eps, 0,
+  return launch<false, true>({x, r, nullptr, w, y, s, N, D, eps, 0, nullptr,
+                              nullptr, (cudaStream_t)stream}, dtype, variant);
+}
+
+// K2b. x, dy, dx: (N, D) of dtype; w, dw: (D,) float32; scratch: float32
+// of kBwdBlocks * D, 16-byte aligned; arrivals: one u64 counter, 0 when
+// first used, which every launch on it advances by `blocks`: launches on
+// one counter must all take the same `blocks`, and must be ordered (one
+// stream), since two at once would count each other's blocks. ds is not
+// read.
+int rmsnorm_bwd(const void* x, const void* dy, const void* ds, const void* w,
+                void* dx, void* dw, void* scratch, void* arrivals, int N,
+                int D, float eps, int dtype, int variant, int blocks,
+                void* stream) {
+  (void)ds;
+  return launch<true, false>({x, dy, nullptr, w, dx, dw, N, D, eps, blocks,
+                              (float*)scratch, (unsigned long long*)arrivals,
                               (cudaStream_t)stream}, dtype, variant);
 }
 
-// K2b. x, dy, dx: (N, D) of dtype; w: (D,) float32; partial: (blocks, D)
-// float32, one row per block. ds is not read.
-int rmsnorm_bwd(const void* x, const void* dy, const void* ds, const void* w,
-                void* dx, void* partial, int N, int D, float eps, int dtype,
-                int variant, int blocks, void* stream) {
-  (void)ds;
-  return launch<true, false>({x, dy, nullptr, w, dx, partial, N, D, eps,
-                              blocks, (cudaStream_t)stream}, dtype, variant);
-}
-
-// K3b. s (the forward's sum), dy, ds, dt: (N, D) of dtype; w, partial as
-// for rmsnorm_bwd.
+// K3b. s (the forward's sum), dy, ds, dt: (N, D) of dtype; the rest as for
+// rmsnorm_bwd.
 int rmsnorm_residual_bwd(const void* s, const void* dy, const void* ds,
-                         const void* w, void* dt, void* partial, int N, int D,
-                         float eps, int dtype, int variant, int blocks,
-                         void* stream) {
-  return launch<true, true>({s, dy, ds, w, dt, partial, N, D, eps, blocks,
+                         const void* w, void* dt, void* dw, void* scratch,
+                         void* arrivals, int N, int D, float eps, int dtype,
+                         int variant, int blocks, void* stream) {
+  return launch<true, true>({s, dy, ds, w, dt, dw, N, D, eps, blocks,
+                             (float*)scratch, (unsigned long long*)arrivals,
                              (cudaStream_t)stream}, dtype, variant);
 }
 
-// dw (D,) float32 = the sum over rows of partial (nb, D) float32, in order.
-int rmsnorm_dw_reduce(const void* partial, void* dw, int nb, int D,
-                      void* stream) {
-  if (nb < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  rmsnorm_dw_reduce_kernel<<<(D + kReduceCols - 1) / kReduceCols,
-                             kReduceCols * kReduceLanes, 0,
-                             (cudaStream_t)stream>>>(
-      (const float*)partial, (float*)dw, nb, D);
-  return (int)cudaGetLastError();
+// The id of the CUDA graph capture under way on the stream, or 0 when none
+// is: scratch and a counter made during a capture belong to that capture.
+int rmsnorm_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  *id = 0;
+  const cudaError_t err =
+      cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, id);
+  if (status != cudaStreamCaptureStatusActive) *id = 0;
+  return (int)err;
 }
 
 // One block of kRowsPerBlock warps that does nothing: the floor under the

@@ -14,19 +14,19 @@ launches its kernel or raises. ``rmsnorm.launches`` and
 names the variant each launched last.
 
 Gradients: :func:`rmsnorm` and :func:`rmsnorm_residual` go through
-:class:`RMSNormFn` and :class:`RMSNormResidualFn`, whose backward is a
-kernel of the same source in the same three variants (K2b, K3b: dx, and
-each block's partial sum of dw), then ``rmsnorm_dw_reduce``, which sums the
-partials in a fixed order. The JAX package has no backward kernel; these
-hold to ``jax.grad`` of ``repro/kernels/ref.py`` ``rmsnorm_ref`` and of the
-model's unfused ``x + y; norm``. ``rmsnorm_bwd.launches``,
-``rmsnorm_residual_bwd.launches`` and ``rmsnorm_dw_reduce.launches`` count
-their launches.
+:class:`RMSNormFn` and :class:`RMSNormResidualFn`, whose backward is one
+launch of a kernel of the same source in the same three variants (K2b,
+K3b): dx, and dw, which each block's partial sum and, in the same launch,
+a sum of those partials by the last few blocks give in an order fixed by
+the code (:data:`REDUCE_LANES`). The JAX package has no backward kernel;
+these hold to ``jax.grad`` of ``repro/kernels/ref.py`` ``rmsnorm_ref`` and
+of the model's unfused ``x + y; norm``. ``rmsnorm_bwd.launches`` and
+``rmsnorm_residual_bwd.launches`` count their launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,8 @@ WARP_MAX_WIDTH = 2048      # kWarpMaxWidth: one warp per row up to this width
 VARIANTS = ("warp", "wide", "scalar")   # by the C entries' code
 ROWS_PER_BLOCK = 4         # kRowsPerBlock: rows of one warp-layout block
 BWD_BLOCKS = 264           # kBwdBlocks: most blocks of a backward launch
+REDUCERS = 48              # kReducers: most blocks that sum dw's columns
+REDUCE_LANES = 16          # kReduceLanes: dw adds every 16th partial row
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -102,11 +104,13 @@ _SIGNATURES = {
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rmsnorm_residual_fwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rmsnorm_empty": [_P],
-    # x or s, dy, ds, w, dx, partial, N, D, eps, dtype, variant, blocks, stream
-    "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-    "rmsnorm_residual_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
-                             _P],
-    "rmsnorm_dw_reduce": [_P, _P, _I, _I, _P],
+    # x or s, dy, ds, w, dx, dw, scratch, arrivals, N, D, eps, dtype,
+    # variant, blocks, stream
+    "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
+                    _P],
+    "rmsnorm_residual_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                             _I, _I, _P],
+    "rmsnorm_capture_id": [_P, ctypes.POINTER(ctypes.c_ulonglong)],
 }
 
 
@@ -204,28 +208,42 @@ def bwd_blocks(rows: int, variant: int) -> int:
     return max(1, min(-(-rows // per), BWD_BLOCKS))
 
 
-def rmsnorm_dw_reduce(partial: torch.Tensor) -> torch.Tensor:
-    """dw (D,) f32: the sum over rows of ``partial`` (blocks, D) f32 on the
-    card, each column in block order (deterministic)."""
-    lib = build.load("rmsnorm", _SIGNATURES)
-    nb, D = partial.shape
-    dw = torch.empty(D, dtype=torch.float32, device=partial.device)
-    with torch.cuda.device(partial.device):
-        err = lib.rmsnorm_dw_reduce(partial.data_ptr(), dw.data_ptr(), nb, D,
-                                    torch.cuda.current_stream().cuda_stream)
-    build.check(err, "rmsnorm_dw_reduce")
-    rmsnorm_dw_reduce.launches += 1
-    return dw
+# The backward's scratch (one partial row of dw per block) and its arrival
+# counter, by (device, stream, CUDA graph capture id or 0, D, blocks). A
+# launch advances its counter by its block count and expects it at a
+# multiple of that count: so launches on one stream, which run in turn,
+# share a counter for one block count, but two launches on different
+# streams could run at once and count each other's blocks, and each stream
+# has its own. A set made during a graph capture is zeroed by a node of
+# that graph at each replay, before its launches; it is never used outside
+# that capture.
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-rmsnorm_dw_reduce.launches = 0
+def _capture_id(lib, stream: int) -> int:
+    if not torch.cuda.is_current_stream_capturing():
+        return 0
+    cid = ctypes.c_ulonglong(0)
+    build.check(lib.rmsnorm_capture_id(stream, ctypes.byref(cid)),
+                "rmsnorm_capture_id")
+    return cid.value
 
 
-def bwd_partials(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
-                 ds: Optional[torch.Tensor] = None, eps: float = 1e-5
+def _bwd_scratch(lib, device: torch.device, stream: int, D: int, blocks: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2b (``ds`` None) or K3b on CUDA tensors: (dx, the f32 dw
-    partials (blocks, D)), for :func:`rmsnorm_dw_reduce`."""
+    key = (device.index, stream, _capture_id(lib, stream), D, blocks)
+    got = _scratch.get(key)
+    if got is None:
+        got = (torch.empty(BWD_BLOCKS * D, dtype=torch.float32, device=device),
+               torch.zeros(1, dtype=torch.int64, device=device))
+        _scratch[key] = got
+    return got
+
+
+def _bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+         ds: Optional[torch.Tensor], eps: float
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K2b (``ds`` None) or K3b on CUDA tensors: (dx, dw)."""
     others = (dy,) if ds is None else (dy, ds)
     _check(x, w, *others)
     x, w = x.contiguous(), w.contiguous()
@@ -234,23 +252,26 @@ def bwd_partials(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     D = x.shape[-1]
     N = x.numel() // D
     dx = torch.empty_like(x)
-    nb = bwd_blocks(N, variant)
     if N == 0:
-        return dx, torch.zeros(1, D, dtype=torch.float32, device=x.device)
-    partial = torch.empty(nb, D, dtype=torch.float32, device=x.device)
+        return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
     entry = "rmsnorm_bwd" if ds is None else "rmsnorm_residual_bwd"
     lib = build.load("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        blocks = bwd_blocks(N, variant)
+        scratch, arrivals = _bwd_scratch(lib, x.device, stream, D, blocks)
         err = getattr(lib, entry)(
             x.data_ptr(), others[0].data_ptr(),
             None if ds is None else others[1].data_ptr(), w.data_ptr(),
-            dx.data_ptr(), partial.data_ptr(), N, D, eps, _DTYPES[x.dtype],
-            variant, nb, torch.cuda.current_stream().cuda_stream)
+            dx.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+            arrivals.data_ptr(), N, D, eps, _DTYPES[x.dtype], variant, blocks,
+            stream)
     build.check(err, entry)
     fn = rmsnorm_bwd if ds is None else rmsnorm_residual_bwd
     fn.launches += 1
     fn.variant = VARIANTS[variant]
-    return dx, partial
+    return dx, dw
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -258,8 +279,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     """(dx in x.dtype, dw f32) of rmsnorm at x for the cotangent dy."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, w, dy, eps)
-    dx, partial = bwd_partials(x, w, dy, None, eps)
-    return dx, rmsnorm_dw_reduce(partial)
+    return _bwd(x, w, dy, None, eps)
 
 
 rmsnorm_bwd.launches = 0
@@ -273,8 +293,7 @@ def rmsnorm_residual_bwd(s: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     of (y, s); dt is the gradient of both x and r."""
     if s.device.type == "cpu":
         return rmsnorm_residual_bwd_plain(s, w, dy, ds, eps)
-    dt, partial = bwd_partials(s, w, dy, ds, eps)
-    return dt, rmsnorm_dw_reduce(partial)
+    return _bwd(s, w, dy, ds, eps)
 
 
 rmsnorm_residual_bwd.launches = 0

@@ -574,7 +574,9 @@ def test_backward_wrappers_refuse_other_devices():
     (300, 2, 264)])
 def test_rmsnorm_bwd_blocks_and_source_constants(rows, variant, blocks):
     """A backward launch takes a block per 4 rows (warp layout) or per row,
-    at most BWD_BLOCKS; those constants are the source's."""
+    at most BWD_BLOCKS; those constants, and dw's reducers and lanes, are
+    the source's. Fewer reducers than half an H100's 132 SMs wait at once,
+    so the blocks they wait for always find an SM."""
     rms = _rms_module()
     assert rms.bwd_blocks(rows, variant) == blocks
     src = (build.CSRC / "rmsnorm.cu").read_text()
@@ -582,3 +584,155 @@ def test_rmsnorm_bwd_blocks_and_source_constants(rows, variant, blocks):
               re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert consts["kBwdBlocks"] == rms.BWD_BLOCKS
     assert consts["kRowsPerBlock"] == rms.ROWS_PER_BLOCK
+    assert consts["kReducers"] == rms.REDUCERS < 132 // 2
+    assert consts["kReduceLanes"] == rms.REDUCE_LANES
+    # the lanes of one column fill a warp-layout block by whole columns
+    assert (rms.ROWS_PER_BLOCK * 32) % rms.REDUCE_LANES == 0
+
+
+@pytest.mark.parametrize("entry", ["rmsnorm_fwd", "rmsnorm_residual_fwd",
+                                   "rmsnorm_bwd", "rmsnorm_residual_bwd",
+                                   "rmsnorm_capture_id", "rmsnorm_empty"])
+def test_rmsnorm_entry_signatures_match_the_source(entry):
+    """ctypes passes as many arguments as each C entry of rmsnorm.cu takes,
+    each pointer as a pointer."""
+    rms = _rms_module()
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    params = re.search(rf"\nint {entry}\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()) for p in params.split(",")]
+    argtypes = rms._SIGNATURES[entry]
+    assert len(params) == len(argtypes)
+    for p, a in zip(params, argtypes):
+        assert ("*" in p) == (a is not ctypes.c_int and a is not
+                              ctypes.c_float), (p, a)
+
+
+def _dw_in_kernel_order(x, dy, eps, lanes, reducers):
+    """dw as K2b's launch sums it, in f32 (numpy): each warp of 4 adds
+    dy x r over its rows (row b*4 + w, then every 4*blocks-th) in order,
+    each block adds its 4 warps in order into its partial row, and each of
+    ``reducers`` blocks takes a slice of the columns, where lane j of a
+    column adds partial rows j, j + lanes, ... in order and then the lanes
+    are added in order."""
+    N, D = x.shape
+    xf = x.astype(np.float32)
+    r = (1.0 / np.sqrt((xf * xf).mean(-1, dtype=np.float32)
+                       + np.float32(eps))).astype(np.float32)
+    contrib = (dy.astype(np.float32) * xf) * r[:, None]
+    nb = max(1, min(-(-N // 4), 264))
+    warp_sums = np.zeros((nb, 4, D), np.float32)
+    for row in range(N):                    # each warp's rows, in order
+        w = row % (4 * nb)
+        warp_sums[w // 4, w % 4] += contrib[row]
+    partial = np.zeros((nb, D), np.float32)
+    for w in range(4):
+        partial += warp_sums[:, w]
+    dw = np.zeros(D, np.float32)
+    per = -(-D // reducers)
+    for c0 in range(0, D, per):             # one reducer's slice
+        cols = slice(c0, min(D, c0 + per))
+        lane_sums = []
+        for j in range(lanes):
+            rows = partial[j::lanes, cols]
+            acc = rows[0].copy() if len(rows) else np.zeros_like(dw[cols])
+            for row in rows[1:]:
+                acc += row
+            lane_sums.append(acc)
+        total = lane_sums[0].copy()
+        for acc in lane_sums[1:]:
+            total += acc
+        dw[cols] = total
+    return dw
+
+
+@pytest.mark.parametrize("N,D", [(2048, 768), (1100, 256), (13, 768)])
+def test_rmsnorm_dw_kernel_order_meets_the_bar_and_repeats(N, D):
+    """The fused backward's order of dw's sums (per-warp rows, the block's
+    warps, then REDUCE_LANES lanes of every REDUCE_LANES-th partial row and
+    the lanes in order) is within chip_smoke.py's 1e-5 max|dw| of the plain
+    backward, is the same bits run to run, and does not depend on how many
+    blocks reduce (each column's order is fixed by the code)."""
+    rms = _rms_module()
+    rng = np.random.default_rng(N + D)
+    x, dy = (rng.standard_normal((N, D), np.float32) for _ in range(2))
+    w = rng.standard_normal(D, np.float32)
+    _, ref = rms.rmsnorm_bwd_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(dy))
+    ref = ref.numpy()
+    got = _dw_in_kernel_order(x, dy, 1e-5, rms.REDUCE_LANES, rms.REDUCERS)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * float(np.abs(ref).max()))
+    assert np.array_equal(got, _dw_in_kernel_order(
+        x, dy, 1e-5, rms.REDUCE_LANES, rms.REDUCERS))
+    for reducers in (1, 7):
+        assert np.array_equal(got, _dw_in_kernel_order(
+            x, dy, 1e-5, rms.REDUCE_LANES, reducers))
+
+
+def _fma_f32(a, b, c):
+    """fmaf on float32 arrays: the product exact in float64, one rounding
+    of the sum (a float64 sum then a float32 rounding: two roundings,
+    which differ from one only at rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,H,KV,D,causal,lengths", BWD_CASES,
+                         ids=[f"S{c[0]}-G{c[1] // c[2]}-D{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}"
+                              for c in BWD_CASES])
+def test_flash_bwd_f32_kernel_order_vs_jax_grad(S, H, KV, D, causal,
+                                                lengths):
+    """K1b f32's order of accumulation, emulated in float32 with fused
+    multiply-adds: dQ adds dS K over keys in order, dK and dV add dS^T Q
+    and P^T dO over the query heads of their KV head in order (g = 0, 1,
+    ...), each over its queries in order, one accumulator per (key,
+    column) in the block that owns the key. Held against jax.vjp of the
+    XLA path at chip_smoke.py's f32 bar, 2e-5 of max(|ref|, 1)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rng = np.random.default_rng(S + H + D + 1)
+    B, G = 2, H // KV
+    q, do = (rng.standard_normal((B, S, H, D), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, KV, D), np.float32) for _ in range(2))
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    ln = None if lens is None else torch.from_numpy(lens)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa._plain_forward(tq, tk, tv, causal, ln)
+    # P and dS (B, H, S, S) as the kernels form them, rounded to f32
+    s, mask = fa._scores(tq, tk, causal, ln)
+    if ln is not None:
+        empty = (ln <= 0)[:, None, None, None]
+        s = torch.where(mask, s, torch.where(empty, 0.0, fa.NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dof = tdo.transpose(1, 2)
+    vf = tv.repeat_interleave(G, dim=2).transpose(1, 2)
+    delta = (dof * o.transpose(1, 2)).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dof @ vf.transpose(-1, -2) - delta), 0.0)
+    p, ds = p.numpy(), ds.numpy()
+    scale = np.float32(1.0 / np.sqrt(D))
+    dq = np.zeros((B, H, S, D), np.float32)
+    kh = np.repeat(k, G, axis=2).transpose(0, 2, 1, 3)     # (B, H, S, D)
+    for key in range(S):
+        dq = _fma_f32(ds[..., :, key:key + 1], kh[:, :, key:key + 1, :], dq)
+    dk = np.zeros((B, KV, S, D), np.float32)
+    dv = np.zeros((B, KV, S, D), np.float32)
+    qh = q.transpose(0, 2, 1, 3).reshape(B, KV, G, S, D)
+    doh = do.transpose(0, 2, 1, 3).reshape(B, KV, G, S, D)
+    pg = p.reshape(B, KV, G, S, S)
+    dsg = ds.reshape(B, KV, G, S, S)
+    for g in range(G):
+        for qi in range(S):
+            dk = _fma_f32(dsg[:, :, g, qi, :, None], qh[:, :, g, qi, None, :],
+                          dk)
+            dv = _fma_f32(pg[:, :, g, qi, :, None], doh[:, :, g, qi, None, :],
+                          dv)
+    got = {"q": (dq * scale).transpose(0, 2, 1, 3),
+           "k": (dk * scale).transpose(0, 2, 1, 3),
+           "v": dv.transpose(0, 2, 1, 3)}
+    jl = jnp.asarray(lens if lens is not None else np.full(B, S, np.int32))
+    vjp = _xla_gqa_vjp if causal else _xla_full_vjp
+    jgrads = vjp(*(jnp.asarray(a) for a in (q, k, v)), jl, jnp.asarray(do))
+    for name, jg in zip("qkv", jgrads):
+        jg = np.asarray(jg)
+        bar = 2e-5 * max(float(np.abs(jg).max()), 1.0)
+        np.testing.assert_allclose(got[name], jg, rtol=0, atol=bar,
+                                   err_msg=f"d{name}")

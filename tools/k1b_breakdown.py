@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where K1b's time goes on a CUDA card: the bf16 backward kernels timed
-whole and with parts taken out.
+"""Where K1b's time goes on a CUDA card: the backward kernels timed whole
+and with parts taken out, bf16 (wgmma) and f32 (FMA).
 
     python3 tools/k1b_breakdown.py
 
@@ -9,11 +9,11 @@ disabled by a text patch, built with ``nvcc`` into
 ``build/k1b_breakdown/`` and loaded in place of the library; K1b-dq and
 K1b-dkdv are then timed as ``chip_smoke.py`` times them (CUDA graph
 replay), at the training shape of tacc-100m (q (16, 128, 12, 64), k/v
-strided views (16, 128, 4, 64), causal), two rounds in turn. A variant's
-results are wrong by design; only its time is read. It prints the card's
-name and power limit, then one JSON line of microseconds per variant:
-[dq, dkdv] for each round. A patch that no longer matches the source
-fails, naming its variant.
+(16, 128, 4, 64), causal; bf16 k/v as strided views, f32 contiguous), two
+rounds in turn. A variant's results are wrong by design; only its time is
+read. It prints the card's name and power limit, then one JSON line of
+microseconds per variant: [dq, dkdv] for each round. A patch that no
+longer matches the source fails, naming its variant.
 """
 import ctypes
 import importlib
@@ -55,12 +55,36 @@ VARIANTS = {
                         (_WG1, _WG1.replace("} else {", "} else if (false) {"))],
 }
 
+_F32_DQ = "    float sc[8][4], dp[8][4];\n"
+_F32_DQ_END = "    __syncthreads();                    // dS is written over V\n"
+_F32_DQ_PM = "    pm_f32<8, D>(acc, dSs, DP, Ks, DP, tx, ty);"
+_F32_DKDV = "    float sc[4][4], dpt[4][4];\n"
+_F32_DKDV_END = ("    __syncthreads();                    "
+                 "// stage st, P~^T and dS^T are free\n")
+_F32_DKDV_PM = ("    pm_f32<4, D>(dva, Pt, kSP, dOt, DP, tx, ty);   // dV += P~^T dO\n"
+                "    pm_f32<4, D>(dka, dSt, kSP, Q, DP, tx, ty);")
+F32_VARIANTS = {
+    "f32_whole": [],
+    # K1b-dq f32 without dQ += dS K; with its loop's loads and waits only
+    "f32_dq_no_dsk": [(_F32_DQ_PM, "")],
+    "f32_dq_loads_only": [(_F32_DQ, "    if (j < 0) {\n" + _F32_DQ),
+                          (_F32_DQ_END, "    }\n" + _F32_DQ_END),
+                          (_F32_DQ_PM, "")],
+    # K1b-dkdv f32 without dV's and dK's products; with loads and waits only
+    "f32_dkdv_no_pm": [(_F32_DKDV_PM, "")],
+    "f32_dkdv_loads_only": [(_F32_DKDV, "    if (i < 0) {\n" + _F32_DKDV),
+                            (_F32_DKDV_END, "    }\n" + _F32_DKDV_END)],
+}
 
-def build_variants(out_dir: str) -> dict:
-    src = (build.CSRC / "flash_attention.cu").read_text()
+
+def build_variants(out_dir: str, variants: dict, source: str = "flash_attention",
+                   signatures: dict = None) -> dict:
+    """Each variant of csrc/<source>.cu built into out_dir (all nvcc runs
+    at once) and loaded, its entries given ``signatures``."""
+    src = (build.CSRC / f"{source}.cu").read_text()
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, patches in variants.items():
         text = src
         for old, new in patches:
             if text.count(old) != 1:
@@ -80,7 +104,7 @@ def build_variants(out_dir: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed on variant {name}:\n{err}")
         lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        for fn, argtypes in fa._SIGNATURES.items():
+        for fn, argtypes in (signatures or fa._SIGNATURES).items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -89,18 +113,26 @@ def build_variants(out_dir: str) -> dict:
 
 def main() -> None:
     chip_smoke.phase_device()
-    libs = build_variants(os.path.join(ROOT, "build", "k1b_breakdown"))
+    libs = build_variants(os.path.join(ROOT, "build", "k1b_breakdown"),
+                          {**VARIANTS, **F32_VARIANTS})
     B, S, H, KV, D = 16, 128, 12, 4, 64
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    q, do = (torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
-             for _ in range(2))
-    kv = torch.randn(B, S, 2, KV, D, generator=g, device="cuda").bfloat16()
-    k, v = kv[:, :, 0], kv[:, :, 1]
-    o, lse = fa._forward(q, k, v, True, None, True)
+    inputs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, do = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        kv = torch.randn(B, S, 2, KV, D, generator=g, device="cuda").to(dt)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        if dt == torch.float32:
+            k, v = k.contiguous(), v.contiguous()
+        o, lse = fa._forward(q, k, v, True, None, True)
+        inputs[dt] = (q, k, v, o, lse, do)
     us = {}
     try:
         for _ in range(2):
             for name, lib in libs.items():
+                q, k, v, o, lse, do = inputs[torch.float32 if name in
+                                             F32_VARIANTS else torch.bfloat16]
                 build._loaded["flash_attention"] = lib
                 _, delta = fa.flash_bwd_dq(q, k, v, o, lse, do)
                 us.setdefault(name, []).append([
