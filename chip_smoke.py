@@ -16,7 +16,11 @@ Phases, each printing one JSON line and raising on failure:
    gives them), with its time, the plain version's, one PyTorch library
    call's where there is one, and its bound on this card; flash attention
    also at its edges (a row with no valid key, a ragged tile at a batch
-   boundary, head dim 128), the norms at theirs (one row, a ragged last
+   boundary, head dim 128; in f32 S = 33, 65 and 129 with lengths around
+   the tile edges, with and without its key split, and a base 4 bytes off,
+   which must be copied), its o bit-equal over two calls and its strided
+   k/v read without a copy, and ptxas's spills of the D = 64 f32 forward
+   kernels 0; the norms at theirs (one row, a ragged last
    block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384),
    each with the variant the wrapper launched; and the launch floor, an
    empty kernel's time; K1, K2 and K3 also at the training shapes
@@ -46,7 +50,8 @@ Phases, each printing one JSON line and raising on failure:
    torch.profiler window over 3 steps.
 
 Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
-(forward kernels) or phase 9 (backward kernels), and the last line
+(forward kernels) or phase 9 (backward kernels), K1's row with its f32
+numbers at both timed shapes (no path launches it), and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -78,6 +83,7 @@ from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
 from repro_torch.kernels.flash_attention import _plain_forward
 from repro_torch.kernels.flash_attention import _bwd_inputs as bwd_inputs
 from repro_torch.kernels.flash_attention import _forward as flash_forward
+from repro_torch.kernels.flash_attention import _in_place as flash_in_place
 from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
                                          launch_empty, pick_variant)
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
@@ -177,14 +183,19 @@ def phase_device() -> dict:
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel: the flash kernels as
-    ``flash_fwd_wgmma<bf16, 64>`` or ``flash_bwd_dq_f32<float, 64>``, the
-    norm kernels as ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``,
-    others by their mangled name."""
-    m = re.search(r"(flash_fwd_[a-z]+|flash_bwd_[a-z]+_(?:wgmma|f32))"
-                  r"I(f?|\d+__nv_bfloat16)Li(\d+)E", mangled)
+    ``flash_fwd_wgmma<bf16, 64>``, ``flash_fwd_f32<float, 64>`` (with its
+    keys split over blocks: ``flash_fwd_f32<float, 64, split>``),
+    ``flash_fwd_f32_merge<float, 64>`` or ``flash_bwd_dq_f32<float, 64>``,
+    the norm kernels as
+    ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, others by their
+    mangled name."""
+    m = re.search(r"(flash_(?:fwd|bwd_[a-z]+)_(?:wgmma|f32)(?:_merge)?)"
+                  r"I(f?|\d+__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?", mangled)
     if m:
-        f32 = m.group(2) == "f" or m.group(1).endswith("_f32")
-        return f"{m.group(1)}<{'float' if f32 else 'bf16'}, {m.group(3)}>"
+        f32 = m.group(2) == "f" or "_f32" in m.group(1)
+        split = ", split" if m.group(4) == "1" else ""
+        return (f"{m.group(1)}<{'float' if f32 else 'bf16'}, {m.group(3)}"
+                f"{split}>")
     m = re.search(r"(rmsnorm(?:_bwd)?_kernel)I(f|\d+__nv_bfloat16)Lb([01])E"
                   r"Li(\d+)ELi(\d+)ELb([01])E", mangled)
     if m:
@@ -278,27 +289,42 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_case(dtype, lengths_list, *, causal=True, S=MAX_SEQ, D=None,
-               timed=True):
+               timed=True, offset=0):
+    """K1 against its plain version; o must be bit-equal over two calls.
+    k/v are strided views of one fused tensor, which the wrapper must pass
+    to the kernel uncopied; ``offset`` (elements) puts the bases of q and
+    of the fused k/v tensor off 16 bytes, so the wrapper must copy them."""
     cfg = get_config("tacc-100m")
     B, H, KV = len(lengths_list), cfg.n_heads, cfg.n_kv_heads
     D = D or cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    q = torch.randn(offset + B * S * H * D, generator=g,
+                    device="cuda").to(dtype)[offset:].view(B, S, H, D)
     # k/v as project_qkv gives them: strided views of one (B,S,2,KV,D) tensor
-    kv = torch.randn(B, S, 2, KV, D, generator=g, device="cuda").to(dtype)
+    kv = torch.randn(offset + B * S * 2 * KV * D, generator=g,
+                     device="cuda").to(dtype)[offset:].view(B, S, 2, KV, D)
     k, v = kv[:, :, 0], kv[:, :, 1]
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     o = flash_attention(q, k, v, causal=causal, lengths=lengths)
+    again = flash_attention(q, k, v, causal=causal, lengths=lengths)
     ref = flash_attention_plain(q, k, v, causal=causal, lengths=lengths)
     torch.cuda.synchronize()
     tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
     err = max_err(o, ref)
+    taken = {n: flash_in_place(t)[0] is t for n, t in (("q", q), ("k", k),
+                                                       ("v", v))}
     case = {"dtype": str(dtype).split(".")[-1], "q": list(q.shape),
             "kv": list(k.shape), "lengths": lengths_list, "causal": causal,
-            "max_abs_err": err, "tol": tol}
-    if not (torch.isfinite(o.float()).all() and err <= tol):
+            "max_abs_err": err, "tol": tol,
+            "bit_equal_over_two_calls": bool(torch.equal(o, again)),
+            "read_in_place": taken, "offset_bytes": offset * q.element_size()}
+    if not (torch.isfinite(o.float()).all() and err <= tol
+            and case["bit_equal_over_two_calls"]):
         raise AssertionError(f"flash_attention disagrees with its plain "
-                             f"version: {case}")
+                             f"version or itself: {case}")
+    if any(taken.values()) if offset else not all(taken.values()):
+        raise AssertionError(f"flash_attention copied a view it can read in "
+                             f"place, or read one it cannot: {case}")
     if not timed:
         return case
     # operations this data needs: QK^T and PV over the keys each row attends
@@ -424,7 +450,31 @@ KERNELS = [
 ]
 
 
-def phase_kernels() -> dict:
+def spill_bytes(lines) -> "int | None":
+    """Spill stores plus loads in ptxas's report of one kernel (None when
+    there is no report)."""
+    found = [int(n) for ln in lines or ()
+             for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+    return sum(found) if found else None
+
+
+def require_no_spills(ptxas: dict, names, phase: str) -> dict:
+    """ptxas's spill bytes of each named kernel, emitted; fails unless each
+    is reported and 0."""
+    spills = {n: spill_bytes(ptxas.get(n)) for n in names}
+    emit({"phase": phase, "spill_bytes": spills})
+    if any(v != 0 for v in spills.values()):
+        raise AssertionError(f"kernels spill (or ptxas did not report "
+                             f"them): {spills}")
+    return spills
+
+
+def phase_kernels(ptxas: dict) -> dict:
+    """Phase 3. The D = 64 f32 forward kernels (the model's head dim),
+    whole or split, must not spill."""
+    require_no_spills(ptxas, ("flash_fwd_f32<float, 64>",
+                              "flash_fwd_f32<float, 64, split>"),
+                      "kernels_spills")
     bf16, f32 = torch.bfloat16, torch.float32
     floor = time_ms(launch_empty)
     cases = {
@@ -449,6 +499,17 @@ def phase_kernels() -> dict:
             flash_case(bf16, [200, 512], D=128, timed=False),
             flash_case(f32, [77], S=300, D=128, timed=False),
             flash_case(bf16, [77], S=300, D=128, timed=False),
+            # f32 at the edges of its tiles and of its strides; a case with
+            # fewer (batch, head, q tile) blocks than SMs (132 on the H100)
+            # splits its keys over two blocks: 36, 96, 108, 120 below
+            # split, 192 do not
+            flash_case(f32, [33, 32, 31], S=33, timed=False),
+            flash_case(f32, [65, 64, 63, 1], S=65, timed=False),
+            flash_case(f32, [129, 128, 0], S=129, timed=False),
+            flash_case(f32, [0, 77], timed=False),
+            flash_case(f32, [0, 77], causal=False, timed=False),
+            flash_case(f32, [200, 512], D=128, timed=False),
+            flash_case(f32, [300, 77], S=300, offset=1, timed=False),
         ],
         "rmsnorm": rms_cases(False, floor),
         "rmsnorm_residual": rms_cases(True, floor),
@@ -797,28 +858,16 @@ def rms_bwd_case(dtype, rows, residual: bool, *, D=None, offset=0,
     return case
 
 
-def spill_bytes(lines) -> "int | None":
-    """Spill stores plus loads in ptxas's report of one kernel (None when
-    there is no report)."""
-    found = [int(n) for ln in lines or ()
-             for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
-    return sum(found) if found else None
-
-
 def phase_kernels_bwd(ptxas: dict) -> dict:
     """Phase 7: every backward kernel against its plain backward, and
     ptxas's registers and spills for each backward kernel; the D = 64 K1b
     kernels (the training shape's head dim), bf16 and f32, must not
     spill."""
-    spills = {n: spill_bytes(ptxas.get(n)) for n in
-              ("flash_bwd_dq_wgmma<bf16, 64>",
-               "flash_bwd_dkdv_wgmma<bf16, 64>",
-               "flash_bwd_dq_f32<float, 64>",
-               "flash_bwd_dkdv_f32<float, 64>")}
-    emit({"phase": "kernels_bwd_spills", "spill_bytes": spills})
-    if any(v != 0 for v in spills.values()):
-        raise AssertionError(f"the D = 64 K1b kernels spill (or ptxas did "
-                             f"not report them): {spills}")
+    require_no_spills(ptxas, ("flash_bwd_dq_wgmma<bf16, 64>",
+                              "flash_bwd_dkdv_wgmma<bf16, 64>",
+                              "flash_bwd_dq_f32<float, 64>",
+                              "flash_bwd_dkdv_f32<float, 64>"),
+                      "kernels_bwd_spills")
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("tacc-100m")
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1058,6 +1107,11 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict) -> dict:
                        or cases[fn.__name__][0]["x"]),
              "dtype": cases[fn.__name__][0]["dtype"]}
             for fn, src, tpu in KERNELS]
+    # K1 f32 launches on neither path: its phase 3 numbers at both shapes
+    fwd = cases["flash_attention"]
+    rows[0].update({f"f32_{n}": {k: fwd[i][k] for k in keys
+                                 if k in fwd[i] and k != "floor_ms"}
+                    for n, i in (("serve", 2), ("train", 5))})
     fl, f32, k2, k3 = (bwd["flash"][0], bwd["flash"][1], bwd["K2b"][0],
                        bwd["K3b"][0])
 
@@ -1088,7 +1142,7 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict) -> dict:
 def main() -> None:
     dev = phase_device()
     ptxas = phase_build()
-    cases = phase_kernels()
+    cases = phase_kernels(ptxas)
     cfg = get_config("tacc-100m")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                          "cuda")

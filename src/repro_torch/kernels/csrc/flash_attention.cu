@@ -4,8 +4,9 @@
 //
 // - bfloat16: flash_fwd_wgmma, on the tensor cores (wgmma) with its K/V
 //   tiles brought in by TMA;
-// - float32: flash_fwd_kernel, on the f32 FMA units. TF32 tensor cores keep
-//   about three decimal digits and cannot meet the f32 bar (3e-5).
+// - float32: flash_fwd_f32, on the f32 FMA units (its design is with its
+//   code, after the f32 backward). TF32 tensor cores keep about three
+//   decimal digits and cannot meet the f32 bar (3e-5).
 //
 // Replaces the Pallas TPU kernel flash_attention_tpu
 // (src/repro/kernels/flash_attention.py). At the serving shapes
@@ -16,7 +17,7 @@
 // gives 96 blocks for 132 SMs, so in practice the latency of the longest
 // block, the last q tile with 8 k tiles, sets the time.
 //
-// What the bf16 kernel does about what held the first (FMA) version back:
+// What the bf16 kernel does about what held the first, FMA version back:
 // - Products on the FMA pipe: S = Q K^T and O += P V are wgmma m64nNk16
 //   products, bf16 in, f32 accumulators in registers.
 // - f32 tiles in shared memory, loaded element by element: tiles stay bf16
@@ -39,18 +40,22 @@
 // Semantics shared by both kernels:
 // - The TPU walks the k blocks as a sequential grid axis with the running
 //   max / denominator / accumulator in VMEM scratch. Here one block owns one
-//   (batch, head, 64-row q tile) and loops over the k tiles itself, keeping
-//   the running max and denominator and its share of the accumulator in
-//   registers.
+//   (batch, head, 64-row q tile), or in f32, where that would leave SMs
+//   idle, a run of its k tiles, and loops over the 64-key tiles itself,
+//   keeping the running max and denominator and its share of the
+//   accumulator in registers.
 // - K/V stay at KV heads: head h reads KV head h / (H / KV), so the
 //   repeated K/V are never materialised.
 // - Keys are masked by causality and by kpos < lengths[b] with -1e30 (not
 //   -inf), so a row without a valid key averages V as the full softmax
 //   does. k tiles past the diagonal or past lengths[b] are skipped. The
-//   ragged edge (S not a multiple of 64) is masked in the kernel.
+//   ragged edge (S not a multiple of the tile) is masked in the kernel, and
+//   keys past S take no share of the softmax.
 // - p is rounded to the input type before the PV product, as the model's
-//   XLA path does; the denominator sums the unrounded p and is floored at
-//   1e-30.
+//   XLA path does (in f32 a no-op); the denominator sums the unrounded p
+//   and is floored at 1e-30.
+// - Both read q, k and v by their strides and write o contiguous, masked by
+//   row < S; the row log-sum-exp (row_lse) only when asked for.
 //
 // Plain C interface, loaded with ctypes. The entry returns the value of
 // cudaGetLastError() after its launch (0 = success). cuTensorMapEncodeTiled
@@ -67,8 +72,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kTX = 16;                 // threads along keys / head dim
-constexpr int kTY = kThreads / kTX;     // threads along query rows
 constexpr float kNegInf = -1e30f;       // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
@@ -80,184 +83,6 @@ constexpr int kMaxDevices = 64;
 __device__ __forceinline__ float row_lse(float m, float l) {
   return (m <= kNegInf ? 0.f : m) + logf(l);
 }
-
-// ---------------------------------------------------------------------------
-// float32: f32 FMA from shared memory
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-
-template <int D>
-constexpr int smem_floats() {
-  // Q and K tiles padded to D + 1 columns and P to kBlockK + 1 so the
-  // column-wise reads of 16 threads hit 16 different banks.
-  return kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D +
-         kBlockQ * (kBlockK + 1);
-}
-
-// q, o: (B, S, H, D); k, v: (B, S, KV, D); lengths: (B,) or null.
-// grid = (ceil(S / 64), H, B), block = 128 threads.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ lengths,
-                 int S, int H, int KV, int causal, float scale) {
-  constexpr int RQ = kBlockQ / kTY;     // query rows per thread
-  constexpr int CK = kBlockK / kTX;     // key columns per thread
-  constexpr int CD = D / kTX;           // output columns per thread
-  constexpr int DP = D + 1;
-  constexpr int KP = kBlockK + 1;
-
-  extern __shared__ float smem[];
-  float* Qs = smem;                     // kBlockQ x DP
-  float* Ks = Qs + kBlockQ * DP;        // kBlockK x DP
-  float* Vs = Ks + kBlockK * DP;        // kBlockK x D
-  float* Ps = Vs + kBlockK * D;         // kBlockQ x KP
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int len = lengths ? lengths[b] : S;
-
-  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, s = q0 + r;
-    Qs[r * DP + c] = s < S ? to_f32(q[(((int64_t)b * S + s) * H + h) * D + c]) : 0.f;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int a = 0; a < RQ; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[a][c] = 0.f;
-  }
-
-  // Keys at or past kend are masked for every row of this tile, except when
-  // lengths[b] == 0: then no key is valid and every row averages all S.
-  int kend = causal ? min(S, q0 + kBlockQ) : S;
-  if (len > 0) kend = min(kend, len);
-  else kend = S;
-
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();                    // the last tile's readers are done
-    for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      const int64_t g = (((int64_t)b * S + s) * KV + kvh) * D + c;
-      Ks[r * DP + c] = s < S ? to_f32(k[g]) : 0.f;
-      Vs[r * D + c] = s < S ? to_f32(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[RQ][CK];
-#pragma unroll
-    for (int a = 0; a < RQ; ++a)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) sc[a][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RQ], kv[CK];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a) qv[a] = Qs[(ty + a * kTY) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) kv[j] = Ks[(tx + j * kTX) * DP + d];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) sc[a][j] = fmaf(qv[a], kv[j], sc[a][j]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < RQ; ++a) {
-      const int qpos = q0 + ty + a * kTY;
-      float mx = m[a];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kpos = k0 + tx + j * kTX;
-        const bool ok = kpos < len && (!causal || kpos <= qpos);
-        // keys past S do not exist: they take no share of the softmax
-        const float s = kpos >= S ? -INFINITY : (ok ? sc[a][j] * scale : kNegInf);
-        sc[a][j] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float corr = expf(m[a] - mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = expf(sc[a][j] - mx);
-        sum += p;
-        Ps[(ty + a * kTY) * KP + tx + j * kTX] = to_f32(from_f32<T>(p));
-      }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[a] = l[a] * corr + sum;
-      m[a] = mx;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[a][c] *= corr;
-    }
-    __syncthreads();                    // P is written
-
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[CD];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = Vs[j * D + tx + c * kTX];
-#pragma unroll
-      for (int a = 0; a < RQ; ++a) {
-        const float p = Ps[(ty + a * kTY) * KP + j];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[a][c] = fmaf(p, vv[c], acc[a][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < RQ; ++a) {
-    const int row = q0 + ty + a * kTY;
-    if (row >= S) continue;
-    const float den = fmaxf(l[a], 1e-30f);
-    T* out = o + (((int64_t)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) out[tx + c * kTX] = from_f32<T>(acc[a][c] / den);
-    if (lse && tx == 0) lse[((int64_t)b * H + h) * S + row] = row_lse(m[a], l[a]);
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* lengths, int B, int S, int H, int KV, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  // once per instantiation and device, so that launches inside a CUDA graph
-  // capture make no attribute call
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, lengths, S, H, KV,
-      causal, scale);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // Backward (K1b): the FlashAttention-2 form; float32 on the f32 FMA units
@@ -361,80 +186,95 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0 + R - 1 of head h of a contiguous (B, S, heads, D) f32
-// tensor into dst (rows of D + kPad floats) by 16-byte cp.async; rows past
-// S are zero-filled.
+struct RowStrides { long long b, s, h; };   // element strides; head dim 1
+
+// Rows row0 .. row0 + R - 1 of head h of a (B, S, heads, D) f32 tensor with
+// the given strides (16-byte aligned base, strides multiples of 4) into dst
+// (rows of D + kPad floats) by 16-byte cp.async; rows past S are
+// zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int b, int row0, int h, int S,
+                                              RowStrides st) {
+  constexpr int kChunks = D / 4;
+  const float* head = src + b * st.b + h * st.h;
+  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks), s = row0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + r * (D + kPad) + c, ok ? head + s * st.s + c : src, ok);
+  }
+}
+
+// The same from a contiguous tensor with `heads` heads.
 template <int R, int D>
 __device__ __forceinline__ void load_rows_f32(float* dst,
                                               const float* __restrict__ src,
                                               int b, int row0, int h, int S,
                                               int heads) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
-    const int r = i / kChunks, c = 4 * (i % kChunks), s = row0 + r;
-    const bool ok = s < S;
-    cp_async16(dst + r * (D + kPad) + c,
-               ok ? src + (((int64_t)b * S + s) * heads + h) * D + c : src, ok);
-  }
+  load_rows_f32<R, D>(dst, src, b, row0, h, S,
+                      RowStrides{(long long)S * heads * D,
+                                 (long long)heads * D, D});
 }
 
 __device__ __forceinline__ float lane4(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// out[i][j] = sum over d < DIN, in order, of A[(ty + 8 i) lda + d]
-// B[(tx + 16 j) ldb + d]: A and B row-major in shared memory, read four
-// values of d at a time.
-template <int NR, int DIN>
-__device__ __forceinline__ void abt_f32(float (&out)[NR][4], const float* A,
+// out[i][j] = sum over d < DIN, in order, of A[(ty + RS i) lda + d]
+// B[(tx + CS j) ldb + d]: A and B row-major in shared memory, read four
+// values of d at a time. The defaults are f32_lane's layout.
+template <int NR, int DIN, int NC = 4, int RS = 8, int CS = 16>
+__device__ __forceinline__ void abt_f32(float (&out)[NR][NC], const float* A,
                                         int lda, const float* B, int ldb,
                                         int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < NR; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+    for (int j = 0; j < NC; ++j) out[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < DIN; d += 4) {
-    float4 a[NR], bv[4];
+    float4 a[NR], bv[NC];
 #pragma unroll
     for (int i = 0; i < NR; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 8 * i) * lda + d);
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + RS * i) * lda + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * ldb + d);
+    for (int j = 0; j < NC; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(B + (tx + CS * j) * ldb + d);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
 #pragma unroll
       for (int i = 0; i < NR; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < NC; ++j)
           out[i][j] = fmaf(lane4(a[i], e), lane4(bv[j], e), out[i][j]);
   }
 }
 
-// acc[i][4 j + e] += sum over k < 64, in order, of P[(ty + 8 i) ldp + k]
-// M[k ldm + 4 tx + 64 j + e]: P (rows of 64) and M (64 rows of DOUT)
+// acc[i][4 j + e] += sum over k < 64, in order, of P[(ty + RS i) ldp + k]
+// M[k ldm + 4 tx + 4 CL j + e]: P (rows of 64) and M (64 rows of DOUT)
 // row-major in shared memory, P read four values of k at a time, M four
-// columns at a time.
-template <int NR, int DOUT>
-__device__ __forceinline__ void pm_f32(float (&acc)[NR][DOUT / 16],
+// columns at a time; CL threads along the columns. The defaults are
+// f32_lane's layout.
+template <int NR, int DOUT, int RS = 8, int CL = 16>
+__device__ __forceinline__ void pm_f32(float (&acc)[NR][DOUT / CL],
                                        const float* P, int ldp,
                                        const float* M, int ldm, int tx,
                                        int ty) {
-  constexpr int NJ = DOUT / 64;
+  constexpr int NJ = DOUT / (4 * CL);
 #pragma unroll 2
   for (int k = 0; k < 64; k += 4) {
     float4 p[NR];
 #pragma unroll
     for (int i = 0; i < NR; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ty + 8 * i) * ldp + k);
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + RS * i) * ldp + k);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float4 m[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         m[j] = *reinterpret_cast<const float4*>(M + (k + e) * ldm + 4 * tx +
-                                                64 * j);
+                                                4 * CL * j);
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
         const float pv = lane4(p[i], e);
@@ -765,6 +605,258 @@ int launch_bwd_dkdv_f32(const void* q, const void* k, const void* v,
   flash_bwd_dkdv_f32<D><<<grid, kF32Threads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dO,
       lse, delta, (float*)dk, (float*)dv, lengths, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Forward, float32 (K1 f32): f32 FMA from shared memory
+// ---------------------------------------------------------------------------
+//
+// Bound, at the training shape q (16, 128, 12, 64), k/v (16, 128, 4, 64)
+// f32, causal: 16.8 MB (5.0 us at 3.35 TB/s) against 0.41 GFLOP of QK^T and
+// PV over the pairs the mask keeps (6.1 us at the 67 TFLOP/s f32 peak), so
+// by operations; at the serving shape (1, 512, 12, 64) by operations too.
+// The design keeps the FMA units fed with the backward's tools:
+//
+// - Thread layout: thread t holds rows ty + 16 i of a 64-row q tile (ty =
+//   t / 8), keys tx + 8 j of a 64-key tile (tx = t % 8) and output columns
+//   4 tx + 32 j .. + 3. A row's keys lie in one warp, so its running max
+//   takes three shuffles and no shared memory. Both products read 16 bytes
+//   at a time along their reduction, 12 loads per 128 FMAs, with no bank
+//   conflict.
+// - Loads in flight during the products: Q, K and V arrive by 16-byte
+//   cp.async into row-major tiles padded by kPad, zero-filled past S, read
+//   by their strides, so the strided k/v views of the fused kv projection
+//   need no copy. One K and one V buffer, loaded in turns: K of tile j + 1
+//   arrives while P V of tile j runs, V of tile j + 1 while Q K^T of tile
+//   j + 1 runs. Half the shared memory of a two-stage ring: at D = 64 three
+//   blocks fit an SM.
+// - The softmax in base 2: scores times scale log2(e) in one multiply,
+//   p = exp2(s - m). Each thread keeps its own share of the denominator
+//   (its 8 keys of each tile, rescaled as the max moves); the 8 shares of a
+//   row are summed once, at the end, by a fixed butterfly. P stays f32 (in
+//   f32, rounding p to the input type changes nothing).
+// - Heavy blocks first: grid (H, B, q tiles) with the q tile slowest and,
+//   under the causal mask, the longest tiles dispatched first.
+// - Enough blocks: where one block per q tile would leave SMs idle (the
+//   serving shape: 96 blocks for 132 SMs), each q tile's k tiles are split
+//   over `splits` blocks (SPLIT; the wrapper asks for 4), in runs of
+//   consecutive tiles. Each writes its rows' unnormalised o, max and
+//   denominator to a scratch buffer, and flash_fwd_f32_merge combines them
+//   in a fixed order. The last q tile's walk, which sets the time there,
+//   is that many times shorter.
+//
+// Every sum runs in an order fixed by the code: o is the same bit for bit
+// from call to call.
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr int fwd_f32_smem_floats() {
+  return (kBlockQ + 2 * kBlockK) * (D + kPad) + kBlockQ * kSP;
+}
+
+// q: (B, S, H, D), k, v: (B, S, KV, D) f32 with the given strides (16-byte
+// aligned base, strides multiples of 4); o: (B, S, H, D) contiguous; lse:
+// (B, H, S) or null; lengths: (B,) or null. grid = (H, B, ceil(S / 64)),
+// block = 128 threads. SPLIT: grid (H, B, splits ceil(S / 64)); run p of a
+// q tile's k tiles writes its rows to part: unnormalised o at
+// part[(p R + row) D ..], the row max (base 2) at part[n R D + p R + row],
+// the denominator at part[n R D + (n + p) R + row], n = splits, R = B H S
+// rows by (b, head, s); o and lse are left to flash_fwd_f32_merge.
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32(const float* __restrict__ q, RowStrides qs,
+              const float* __restrict__ k, RowStrides ks,
+              const float* __restrict__ v, RowStrides vs,
+              float* __restrict__ o, float* __restrict__ lse,
+              float* __restrict__ part, int splits,
+              const int* __restrict__ lengths, int S, int H, int KV,
+              int causal, float scale) {
+  constexpr int NR = kBlockQ / 16, DP = D + kPad;
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // 64 x DP
+  float* Ks = Qs + kBlockQ * DP;        // 64 x DP
+  float* Vs = Ks + kBlockK * DP;        // 64 x DP
+  float* Ps = Vs + kBlockK * DP;        // 64 x kSP
+
+  const int z = causal ? (int)(gridDim.z - 1 - blockIdx.z) : (int)blockIdx.z;
+  const int qt = SPLIT ? z / splits : z, run = SPLIT ? z % splits : 0;
+  const int q0 = qt * kBlockQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (H / KV);
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const int len = lengths ? lengths[b] : S;
+  // Keys at or past kend are masked for every row of this tile, except when
+  // lengths[b] == 0: then no key is valid and every row averages all S.
+  int kend = causal ? min(S, q0 + kBlockQ) : S;
+  kend = len > 0 ? min(kend, len) : S;
+  const int nk = (kend + kBlockK - 1) / kBlockK;
+  // this block's k tiles: all, or under SPLIT its run of them
+  const int j0 = SPLIT ? run * nk / splits : 0;
+  const int j1 = SPLIT ? (run + 1) * nk / splits : nk;
+
+  if (j0 < j1) {                        // an empty run loads nothing
+    load_rows_f32<kBlockQ, D>(Qs, q, b, q0, h, S, qs);
+    load_rows_f32<kBlockK, D>(Ks, k, b, j0 * kBlockK, kvh, S, ks);
+  }
+  cp_async_commit();
+  if (j0 < j1) load_rows_f32<kBlockK, D>(Vs, v, b, j0 * kBlockK, kvh, S, vs);
+  cp_async_commit();
+
+  float m[NR], l[NR], acc[NR][D / 8];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  for (int j = j0; j < j1; ++j) {
+    const int k0 = j * kBlockK;
+    const bool more = j + 1 < j1;
+    if (j == j0) cp_async_wait<1>();    // Q and K; V may still be on its way
+    else cp_async_wait<0>();
+    __syncthreads();                    // K is in; every warp is done with V and P
+    if (j > j0) {
+      load_rows_f32<kBlockK, D>(Vs, v, b, k0, kvh, S, vs);
+      cp_async_commit();
+    }
+    float sc[NR][8];
+    abt_f32<NR, D, 8, 16, 8>(sc, Qs, DP, Ks, DP, tx, ty);     // S = Q K^T
+    __syncthreads();                    // every warp is done with K
+    if (more) {
+      load_rows_f32<kBlockK, D>(Ks, k, b, k0 + kBlockK, kvh, S, ks);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int r = ty + 16 * i, qpos = q0 + r;
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int kpos = k0 + tx + 8 * c;
+        const bool ok = kpos < len && (!causal || kpos <= qpos);
+        // keys past S do not exist: they take no share of the softmax
+        sc[i][c] = kpos >= S ? -INFINITY : ok ? sc[i][c] * scale2 : kNegInf;
+        mx = fmaxf(mx, sc[i][c]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float corr = exp2f(m[i] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float p = exp2f(sc[i][c] - mx);
+        sum += p;
+        Ps[r * kSP + tx + 8 * c] = p;
+      }
+      l[i] = fmaf(l[i], corr, sum);
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) acc[i][c] *= corr;
+    }
+    if (more) cp_async_wait<1>();       // V; the next K may still be on its way
+    else cp_async_wait<0>();
+    __syncthreads();                    // V and P are in
+    pm_f32<NR, D, 16, 8>(acc, Ps, kSP, Vs, DP, tx, ty);       // O += P V
+  }
+
+  const int64_t R = (int64_t)gridDim.y * H * S;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const int64_t rid = ((int64_t)b * H + h) * S + row;
+    if (SPLIT) {
+      float* out = part + (run * R + rid) * D + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+        *reinterpret_cast<float4*>(out + 32 * c) =
+            make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                        acc[i][4 * c + 3]);
+      if (tx == 0) {
+        part[splits * R * D + run * R + rid] = m[i];
+        part[splits * R * D + (splits + run) * R + rid] = lt;
+      }
+      continue;
+    }
+    const float den = fmaxf(lt, 1e-30f);
+    float* out = o + (((int64_t)b * S + row) * H + h) * D + 4 * tx;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+      *reinterpret_cast<float4*>(out + 32 * c) =
+          make_float4(acc[i][4 * c] / den, acc[i][4 * c + 1] / den,
+                      acc[i][4 * c + 2] / den, acc[i][4 * c + 3] / den);
+    if (lse && tx == 0)
+      lse[rid] = row_lse(m[i] <= kNegInf ? kNegInf : m[i] * kLn2, lt);
+  }
+}
+
+// o and lse from the runs flash_fwd_f32<D, true> wrote to part: with M the
+// largest max and c_p = exp2(m_p - M) for run p, o = sum of o_p c_p over
+// max(sum of l_p c_p, 1e-30), the sums in run order. One thread per 4
+// columns of a row; rows by (b, head, s).
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_fwd_f32_merge(const float* __restrict__ part, int splits,
+                    float* __restrict__ o, float* __restrict__ lse, int B,
+                    int S, int H) {
+  const int64_t R = (int64_t)B * H * S;
+  const int64_t t = (int64_t)blockIdx.x * kF32Threads + threadIdx.x;
+  if (t >= R * (D / 4)) return;
+  const int64_t rid = t / (D / 4);
+  const int c = 4 * (int)(t % (D / 4));
+  const float* ml = part + splits * R * D;
+  float mx = kNegInf;
+  for (int p = 0; p < splits; ++p) mx = fmaxf(mx, ml[p * R + rid]);
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p = 0; p < splits; ++p) {
+    const float cp = exp2f(ml[p * R + rid] - mx);
+    const float4 ap = *reinterpret_cast<const float4*>(part + (p * R + rid) * D + c);
+    l = fmaf(ml[(splits + p) * R + rid], cp, l);
+    a = make_float4(fmaf(ap.x, cp, a.x), fmaf(ap.y, cp, a.y),
+                    fmaf(ap.z, cp, a.z), fmaf(ap.w, cp, a.w));
+  }
+  const float den = fmaxf(l, 1e-30f);
+  const int s = (int)(rid % S), bh = (int)(rid / S);
+  *reinterpret_cast<float4*>(o + (((int64_t)(bh / H) * S + s) * H + bh % H) * D +
+                             c) =
+      make_float4(a.x / den, a.y / den, a.z / den, a.w / den);
+  if (lse && c == 0) lse[rid] = row_lse(mx <= kNegInf ? kNegInf : mx * kLn2, l);
+}
+
+template <int D, bool SPLIT>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                   float* lse, float* part, int splits, const int* lengths,
+                   int B, int S, int H, int KV, const long long* st,
+                   int causal, float scale, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * fwd_f32_smem_floats<D>();
+  static bool configured[kMaxDevices] = {};
+  const int err = allow_smem(flash_fwd_f32<D, SPLIT>, smem, configured);
+  if (err) return err;
+  const int tiles = (S + kBlockQ - 1) / kBlockQ;
+  const dim3 grid(H, B, SPLIT ? splits * tiles : tiles);
+  flash_fwd_f32<D, SPLIT><<<grid, kF32Threads, smem, stream>>>(
+      (const float*)q, RowStrides{st[0], st[1], st[2]}, (const float*)k,
+      RowStrides{st[3], st[4], st[5]}, (const float*)v,
+      RowStrides{st[6], st[7], st[8]}, (float*)o, lse, part, splits, lengths,
+      S, H, KV, causal, scale);
+  const int launched = (int)cudaGetLastError();
+  if (launched || !SPLIT) return launched;
+  const long long threads = (long long)B * H * S * (D / 4);
+  flash_fwd_f32_merge<D><<<(unsigned)((threads + kF32Threads - 1) /
+                                      kF32Threads),
+                           kF32Threads, 0, stream>>>(part, splits, (float*)o,
+                                                     lse, B, S, H);
   return (int)cudaGetLastError();
 }
 
@@ -1183,8 +1275,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 // six (head, q tile) pairs one after another, each a chain of wgmma waits
 // and exp/split work with one warp of each warpgroup per scheduler. The
 // numbers are in PERF.md (tools/k1b_breakdown.py times the parts).
-
-struct RowStrides { long long b, s, h; };   // element strides; head dim 1
 
 // Shared memory of K1b-dq, in bytes from a 1024-byte aligned base: Q, dO,
 // two K stages, two V stages, Delta (64 f32), then the mbarriers (Q + dO,
@@ -1721,11 +1811,14 @@ int launch_bwd_dkdv_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Strides fit TMA: 16-byte aligned base and 16-byte multiples.
-bool tma_ok(const void* p, const long long* strides) {
+// Strides fit 16-byte accesses (TMA for bf16, cp.async for f32): a 16-byte
+// aligned base and strides that are positive multiples of 16 bytes; dtype
+// as the entries take it (0 = float32, 1 = bfloat16).
+bool aligned16(const void* p, const long long* strides, int dtype) {
+  const int elem = dtype == 0 ? 4 : 2;
   if ((uintptr_t)p % 16) return false;
   for (int i = 0; i < 3; ++i)
-    if (strides[i] <= 0 || (strides[i] * 2) % 16) return false;
+    if (strides[i] <= 0 || (strides[i] * elem) % 16) return false;
   return true;
 }
 
@@ -1747,30 +1840,42 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 (the wrapper checks).
 // strides: element strides (batch, seq, head) of q, then k, then v; the
-// head dim has stride 1. float32 takes contiguous tensors only. lse_out:
-// (B, H, S) float32 for the row log-sum-exp, or null.
+// head dim has stride 1; the bases and strides must be 16-byte aligned
+// (TMA reads bf16, cp.async f32). lse_out: (B, H, S) float32 for the row
+// log-sum-exp, or null. float32 only: with splits > 1, each q tile's keys
+// are split over that many blocks (flash_fwd_f32's SPLIT) and scratch holds
+// splits B H S (D + 2) floats; else scratch is null.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        void* lse_out, const void* lengths, int B, int S,
-                        int H, int KV, int D, const long long* strides,
-                        int causal, float scale, int dtype, void* stream) {
+                        void* lse_out, void* scratch, int splits,
+                        const void* lengths, int B, int S, int H, int KV,
+                        int D, const long long* strides, int causal,
+                        float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   const int* len = (const int*)lengths;
   float* lse = (float*)lse_out;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const int heads[3] = {H, KV, KV};
-    if (!dense(strides, heads, 3, S, D)) return (int)cudaErrorInvalidValue;
-    if (D == 64)
-      return launch<float, 64>(q, k, v, o, lse, len, B, S, H, KV, causal, scale,
-                               st);
-    if (D == 128)
-      return launch<float, 128>(q, k, v, o, lse, len, B, S, H, KV, causal,
-                                scale, st);
-  }
+  if (!aligned16(q, strides, dtype) || !aligned16(k, strides + 3, dtype) ||
+      !aligned16(v, strides + 6, dtype))
+    return (int)cudaErrorInvalidValue;
+  float* part = (float*)scratch;
+  const bool split = splits > 1;
+  if (split && (part == nullptr || splits > 64))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64)
+    return split ? launch_fwd_f32<64, true>(q, k, v, o, lse, part, splits,
+                                            len, B, S, H, KV, strides, causal,
+                                            scale, st)
+                 : launch_fwd_f32<64, false>(q, k, v, o, lse, part, 1, len, B,
+                                             S, H, KV, strides, causal, scale,
+                                             st);
+  if (dtype == 0 && D == 128)
+    return split ? launch_fwd_f32<128, true>(q, k, v, o, lse, part, splits,
+                                             len, B, S, H, KV, strides,
+                                             causal, scale, st)
+                 : launch_fwd_f32<128, false>(q, k, v, o, lse, part, 1, len,
+                                              B, S, H, KV, strides, causal,
+                                              scale, st);
   if (dtype == 1) {
-    if (!tma_ok(q, strides) || !tma_ok(k, strides + 3) ||
-        !tma_ok(v, strides + 6))
-      return (int)cudaErrorInvalidValue;
     if (D == 64)
       return launch_wgmma<64>(q, k, v, o, lse, len, B, S, H, KV, strides,
                               causal, scale, st);
@@ -1808,7 +1913,8 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   }
   const void* ptrs[5] = {q, k, v, o, dO};
   for (int i = 0; i < 5; ++i)
-    if (!tma_ok(ptrs[i], strides + 3 * i)) return (int)cudaErrorInvalidValue;
+    if (!aligned16(ptrs[i], strides + 3 * i, 1))
+      return (int)cudaErrorInvalidValue;
   if (D == 64)
     return launch_bwd_dq_wgmma<64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
                                    KV, strides, causal, scale, st);
@@ -1841,7 +1947,8 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   }
   const void* ptrs[4] = {q, k, v, dO};
   for (int i = 0; i < 4; ++i)
-    if (!tma_ok(ptrs[i], strides + 3 * i)) return (int)cudaErrorInvalidValue;
+    if (!aligned16(ptrs[i], strides + 3 * i, 1))
+      return (int)cudaErrorInvalidValue;
   if (D == 64)
     return launch_bwd_dkdv_wgmma<64>(q, k, v, dO, l, dl, dk, dv, len, B, S, H,
                                      KV, strides, causal, scale, st);

@@ -5,10 +5,12 @@ Replaces ``repro/kernels/flash_attention.py`` (``flash_attention_tpu``) and
 takes over the ``lengths`` masking that ``repro/kernels/ops.py`` left to the
 XLA path. Kernels: ``csrc/flash_attention.cu``, two of them, picked by
 dtype: bfloat16 runs on the tensor cores (wgmma) with K/V tiles brought
-in by TMA and reads strided q/k/v in place; float32 runs on the f32 FMA
-units from contiguous tensors. At the serving shapes the work is bound by
-device-memory bytes on the H100 (about 190 operations per byte, below the
-bf16 ridge). The source's header says how each is laid out.
+in by TMA, float32 on the f32 FMA units with tiles brought in by 16-byte
+cp.async. Both read strided q/k/v in place where the base and strides are
+16-byte aligned (:func:`_in_place`). At the serving shapes the bf16 work is
+bound by device-memory bytes on the H100 (about 190 operations per byte,
+below the bf16 ridge), the f32 work by f32 operations. The source says how
+each is laid out.
 
 Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
 with H a multiple of KV; head h reads KV head h // (H // KV). ``lengths``
@@ -137,8 +139,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_fwd": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # q, k, v, o, lse, scratch, splits, lengths, B, S, H, KV, D, strides,
+    # causal, scale, dtype, stream
+    "flash_attention_fwd": [_P] * 6 + [_I, _P] + [_I] * 5 + [
         ctypes.POINTER(ctypes.c_longlong), _I, ctypes.c_float, _I, _P],
     # q, k, v, o or dk, do, lse, delta, dq or dv, lengths, B, S, H, KV, D,
     # strides, causal, scale, dtype, stream
@@ -159,17 +162,19 @@ def _strides(t: torch.Tensor) -> tuple:
     return (sb if B > 1 else S * ss), ss, sh
 
 
-def _tma_readable(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels' TMA can read ``t`` in place: head dim
-    contiguous, 16-byte aligned base and strides (8 bf16 elements)."""
+def _readable(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t`` in place: head dim contiguous,
+    16-byte aligned base and strides (8 bf16 or 4 f32 elements), as TMA
+    (bf16) and 16-byte cp.async (f32) need."""
+    per16 = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and not any(s % 8 for s in _strides(t)))
+            and not any(s % per16 for s in _strides(t)))
 
 
 def _in_place(t: torch.Tensor) -> tuple:
-    """``t`` and its strides where the bf16 kernels' TMA can read it in
-    place, else a contiguous copy and its strides."""
-    if not _tma_readable(t):
+    """``t`` and its strides where the kernels can read it in place, else a
+    contiguous copy and its strides."""
+    if not _readable(t):
         t = t.clone(memory_format=torch.contiguous_format)
     return t, _strides(t)
 
@@ -179,6 +184,20 @@ def _stride_array(*ts: torch.Tensor):
     entries take them."""
     st = [s for t in ts for s in _strides(t)]
     return (ctypes.c_longlong * len(st))(*st)
+
+
+# blocks that share a q tile's keys where one block per 64-row q tile would
+# leave SMs idle; tools/k1_f32_breakdown.py times other counts
+KEY_SPLITS = 4
+
+
+def key_splits(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> int:
+    """How many blocks share each 64-row q tile's keys in the f32 kernel on
+    a card with ``sms`` SMs: :data:`KEY_SPLITS` where one block per q tile
+    would leave SMs idle, else 1 (and always 1 in bf16)."""
+    if dtype != torch.float32 or B * H * -(-S // 64) >= sms:
+        return 1
+    return KEY_SPLITS
 
 
 def _check(q, k, v, lengths) -> None:
@@ -216,21 +235,24 @@ def _forward(q, k, v, causal, lengths, want_lse):
     _check(q, k, v, lengths)
     lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
-    # project_qkv's k/v are strided views of the fused kv projection: the
-    # bf16 kernel reads them in place, the f32 one takes contiguous copies
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_in_place(t)[0] for t in (q, k, v))
-    else:
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # project_qkv's k/v are strided views of the fused kv projection: both
+    # kernels read them in place
+    q, k, v = (_in_place(t)[0] for t in (q, k, v))
     if lengths is not None:
         lengths = lengths.contiguous()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)   # contiguous
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if want_lse else None)
+    # each run of keys' unnormalised o, row max and denominator
+    splits = key_splits(B, S, H, q.dtype, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    scratch = (torch.empty(splits * B * H * S * (D + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), splits,
             None if lengths is None else lengths.data_ptr(),
             B, S, H, k.shape[2], D, _stride_array(q, k, v), int(causal),
             1.0 / math.sqrt(D), _DTYPES[q.dtype],
@@ -253,7 +275,7 @@ def _check_bwd(q, k, v, lengths, same_as_q, rows) -> None:
         if not t.is_contiguous():
             raise ValueError("lse and delta must be contiguous")
     for t in (q, k, v, *same_as_q):
-        if q.dtype == torch.bfloat16 and not _tma_readable(t):
+        if q.dtype == torch.bfloat16 and not _readable(t):
             raise ValueError("the bf16 backward kernels take tensors with a "
                              "contiguous head dim and 16-byte aligned base "
                              "and strides")

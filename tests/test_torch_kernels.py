@@ -736,3 +736,180 @@ def test_flash_bwd_f32_kernel_order_vs_jax_grad(S, H, KV, D, causal,
         bar = 2e-5 * max(float(np.abs(jg).max()), 1.0)
         np.testing.assert_allclose(got[name], jg, rtol=0, atol=bar,
                                    err_msg=f"d{name}")
+
+
+# -- K1 f32 forward ----------------------------------------------------------
+
+def test_flash_f32_reads_strided_views_in_place():
+    """The f32 forward, like the bf16 one, takes project_qkv's k/v views of
+    the fused projection as they are, with their strides: 16-byte cp.async
+    needs a 16-byte aligned base and strides of 4 floats. A base 4 bytes
+    off, a head dim of stride 2 and a head stride of 66 floats are copied
+    first."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    kv = torch.zeros(2, 16, 2, 4, 64)
+    for t in (kv[:, :, 0], kv[:, :, 1]):
+        same, strides = fa._in_place(t)
+        assert same is t and strides == (16 * 2 * 4 * 64, 2 * 4 * 64, 64)
+    assert list(fa._stride_array(kv[:, :, 0], kv[:, :, 1])) == [
+        16 * 2 * 4 * 64, 2 * 4 * 64, 64] * 2
+    flat = torch.arange(1 + 16 * 4 * 64, dtype=torch.float32)
+    wide = torch.zeros(1, 16, 4, 66)
+    for bad in (flat[1:].view(1, 16, 4, 64),                 # base 4 bytes off
+                kv.view(2, 16, 4, 128)[..., ::2],            # head dim stride 2
+                wide[..., :64]):                             # head stride 66
+        copy, strides = fa._in_place(bad)
+        assert copy is not bad and copy.is_contiguous()
+        assert copy.data_ptr() % 16 == 0 and torch.equal(copy, bad)
+        assert strides == fa._strides(copy)
+
+
+@pytest.mark.parametrize("B,S,H,dtype,splits", [
+    (1, 512, 12, torch.float32, 4),       # serving: 96 q tiles < 132 SMs
+    (16, 128, 12, torch.float32, 1),      # training: 384 q tiles
+    (1, 512, 12, torch.bfloat16, 1),      # bf16 never splits
+    (2, 33, 12, torch.float32, 4)])
+def test_flash_f32_key_splits_fill_the_card(B, S, H, dtype, splits):
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert fa.key_splits(B, S, H, dtype, 132) == splits
+
+
+def _f32_fwd_in_kernel_order(q, k, v, lengths, causal, splits):
+    """(o, lse) of flash_fwd_f32 in its order of sums, in float32 with fused
+    multiply-adds: per 64-row q tile, its k tiles in ``splits`` runs of
+    consecutive tiles; per run, per 64-key tile, the scores (a fused
+    multiply-add chain over d, times scale log2(e)), the running max, p =
+    exp2(s - m), each of the 8 key lanes' share of the denominator
+    (l = l corr + its 8 p in order), acc = acc corr, then P V over the
+    tile's keys in order; the 8 shares summed by a butterfly; with several
+    runs, their o and denominators merged in run order."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kh = np.repeat(k, G, axis=2).transpose(0, 2, 1, 3)       # (B, H, S, D)
+    vh = np.repeat(v, G, axis=2).transpose(0, 2, 1, 3)
+    qh = q.transpose(0, 2, 1, 3)
+    dot = np.zeros((B, H, S, S), np.float32)
+    for d in range(D):
+        dot = _fma_f32(qh[..., :, None, d], kh[..., None, :, d], dot)
+    scale2 = np.float32(np.float32(1.0 / np.sqrt(D)) * np.float32(np.log2(np.e)))
+    o = np.zeros((B, H, S, D), np.float32)
+    lse = np.zeros((B, H, S), np.float32)
+    kpos = np.arange(S)
+    for b in range(B):
+        n = S if lengths is None else int(lengths[b])
+        for q0 in range(0, S, 64):
+            rows = np.arange(q0, min(q0 + 64, S))
+            kend = min(S, q0 + 64) if causal else S
+            kend = min(kend, n) if n > 0 else S
+            nk = -(-kend // 64)
+            runs = []
+            for p in range(splits):
+                m = np.full((H, len(rows)), -1e30, np.float32)
+                lane = np.zeros((H, len(rows), 8), np.float32)
+                acc = np.zeros((H, len(rows), D), np.float32)
+                for j in range(p * nk // splits, (p + 1) * nk // splits):
+                    keys = np.arange(j * 64, j * 64 + 64)
+                    ok = (keys[None, :] < n) & ((not causal) | (
+                        keys[None, :] <= rows[:, None]))
+                    kk = np.minimum(keys, S - 1)
+                    s = np.where(ok, dot[b][:, rows][:, :, kk] * scale2,
+                                 np.float32(-1e30)).astype(np.float32)
+                    s = np.where(keys >= S, np.float32(-np.inf), s)
+                    mx = np.maximum(m, s.max(-1))
+                    corr = np.exp2(m - mx)
+                    pr = np.exp2(s - mx[..., None]).astype(np.float32)
+                    share = np.zeros_like(lane)
+                    for c in range(8):
+                        share = share + pr[..., c::8]
+                    lane = _fma_f32(lane, corr[..., None], share)
+                    m = mx
+                    acc = acc * corr[..., None]
+                    vt = np.where((keys < S)[:, None], vh[b][:, kk], 0)
+                    for t in range(64):
+                        acc = _fma_f32(pr[..., t:t + 1], vt[:, None, t], acc)
+                l = ((lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+                     ) + ((lane[..., 4] + lane[..., 5]) + (lane[..., 6]
+                                                          + lane[..., 7]))
+                runs.append((m, l, acc))
+            if splits == 1:
+                m, l, acc = runs[0]
+            else:
+                m = np.max([r[0] for r in runs], axis=0)
+                l = np.zeros_like(runs[0][1])
+                acc = np.zeros_like(runs[0][2])
+                for mp, lp, ap in runs:
+                    cp = np.exp2(mp - m)
+                    l = _fma_f32(lp, cp, l)
+                    acc = _fma_f32(ap, cp[..., None], acc)
+            o[b][:, rows] = acc / np.maximum(l, np.float32(1e-30))[..., None]
+            lse[b][:, rows] = (np.where(m <= -1e30, np.float32(0),
+                                        m * np.float32(np.log(2)))
+                               + np.log(l)).astype(np.float32)
+    return o.transpose(0, 2, 1, 3), lse
+
+
+@jax.jit
+def _xla_gqa_full(q, k, v, lengths):
+    g = q.shape[2] // k.shape[2]
+    return flash_attention_xla(q, repeat_kv(k, g), repeat_kv(v, g),
+                               causal=False, lengths=lengths)
+
+
+# (S, H, KV, D, causal, lengths): ragged tiles past 64 and 128, a row with
+# no valid key, G = 1 and 3, causal and full, D = 64 and 128
+FWD_CASES = [(65, 6, 2, 64, True, [65, 0]), (200, 6, 2, 64, True, [0, 137]),
+             (129, 4, 4, 128, False, [0, 100]), (128, 3, 3, 64, True, None)]
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("S,H,KV,D,causal,lengths", FWD_CASES,
+                         ids=[f"S{c[0]}-G{c[1] // c[2]}-D{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}"
+                              for c in FWD_CASES])
+def test_flash_fwd_f32_kernel_order_vs_jax(S, H, KV, D, causal, lengths,
+                                           splits):
+    """K1 f32's order of sums (:func:`_f32_fwd_in_kernel_order`), whole and
+    with each q tile's keys split over 4 blocks, against the XLA path on
+    repeated K/V at the f32 bar (3e-5), and against the Pallas kernel in
+    interpret mode where it applies (no lengths, H = KV); its lse against
+    the plain forward's at phase 7's bar (1e-4 of max(|lse|, 1))."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rng = np.random.default_rng(S + H + D + 7)
+    B = 2
+    q = rng.standard_normal((B, S, H, D), np.float32)
+    k, v = (rng.standard_normal((B, S, KV, D), np.float32) for _ in range(2))
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    o, lse = _f32_fwd_in_kernel_order(q, k, v, lens, causal, splits)
+    jl = jnp.asarray(lens if lens is not None else np.full(B, S, np.int32))
+    xla = _xla_gqa if causal else _xla_gqa_full
+    ref_o = np.asarray(xla(*(jnp.asarray(a) for a in (q, k, v)), jl))
+    np.testing.assert_allclose(o, ref_o, rtol=0, atol=3e-5)
+    if lens is None and H == KV:
+        bhsd = (0, 2, 1, 3)
+        tpu = flash_attention_tpu(*(jnp.asarray(a.transpose(bhsd))
+                                    for a in (q, k, v)), causal=causal,
+                                  interpret=True)
+        np.testing.assert_allclose(o, np.asarray(tpu).transpose(bhsd),
+                                   rtol=0, atol=3e-5)
+    _, ref_lse = fa._plain_forward(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal,
+        None if lens is None else torch.from_numpy(lens))
+    bar = 1e-4 * max(float(ref_lse.abs().max()), 1.0)
+    np.testing.assert_allclose(lse, ref_lse.numpy(), rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32ILi64ELb0EEEvPKfNS_10RowStridesE",
+     "flash_fwd_f32<float, 64>"),
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32ILi64ELb1EEEvPKfNS_10RowStridesE",
+     "flash_fwd_f32<float, 64, split>"),
+    ("_ZN12_GLOBAL__N_119flash_fwd_f32_mergeILi128EEEvPKfiPfS3_iii",
+     "flash_fwd_f32_merge<float, 128>"),
+    ("_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64EEEv14CUtensorMap_st",
+     "flash_fwd_wgmma<bf16, 64>"),
+    ("_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi128EEEvPKfS2_",
+     "flash_bwd_dq_f32<float, 128>")])
+def test_chip_smoke_names_every_flash_kernel(mangled, name):
+    """chip_smoke.py reads ptxas's report and the SASS by these names; its
+    spill checks look for the f32 forward's."""
+    assert _chip_smoke().kernel_name(mangled) == name
