@@ -21,7 +21,8 @@ Phases, each printing one JSON line and raising on failure:
    which must be copied), its o bit-equal over two calls and its strided
    k/v read without a copy, and ptxas's spills of the D = 64 f32 forward
    kernels 0; the norms at theirs (one row, a ragged last
-   block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384),
+   block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384,
+   and the serving job's rows of 64 in phase 10),
    each with the variant the wrapper launched; and the launch floor, an
    empty kernel's time; K1, K2 and K3 also at the training shapes
    (q (16, 128, 12, 64), rows (2048, 768));
@@ -47,30 +48,51 @@ Phases, each printing one JSON line and raising on failure:
    a batch never trained on, taken without a gradient before the first
    step and after the last, must fall by stated margins, and every
    forward and backward kernel must launch as often as the code says; a
-   torch.profiler window over 3 steps.
+   torch.profiler window over 3 steps;
+10. cluster: the scenario of examples/train_cluster_torch.py at full
+   width through the port's TACC on the card: tacc-100m trained 60 steps
+   (global batch 16, seq 128, lr 3e-4, checkpoints every 15 steps to a
+   temporary directory, quanta of 10), failed once at step 20 and
+   preempted by a smoke torch_serve job submitted at step 30. The job must
+   complete with exactly 1 restart and at least 1 preemption, the serving
+   job too; its final checkpoint, read back from disk, is held against a
+   straight 60-step loop: the same optimizer step, every leaf bit-equal
+   (the path is deterministic), and, printed beside them, the last loss's
+   difference (bar rel 1e-4) and every parameter's (bar: phase 9's share
+   of the summed lr); the card's allocated memory must come back
+   within 100 MB; every kernel must have launched (the backward kernels
+   exactly as often as the steps run say); K1 is also held against its
+   plain version at the serving job's shape (head dim 16, run padded).
 
 Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
-(forward kernels) or phase 9 (backward kernels), K1's row with its f32
+(forward kernels) or phase 9 (backward kernels), and in phase 10
+(``cluster_launches``), K1's row with its f32
 numbers at both timed shapes (no path launches it), and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
+import gc
+import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.data import SyntheticLM
+from repro_torch.core.executor import TorchTrainRuntime
+from repro_torch.data import SyntheticLM, to_torch
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  flash_attention_bwd_plain,
                                  flash_attention_plain, flash_bwd_dkdv,
@@ -87,7 +109,8 @@ from repro_torch.kernels.flash_attention import _in_place as flash_in_place
 from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
                                          launch_empty, pick_variant)
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
-                                init_params, prefill, train_logits)
+                                init_params, prefill, state_from_jax,
+                                train_logits)
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -434,7 +457,10 @@ def rms_cases(residual: bool, floor: float) -> list:
              # every warp-layout width kept (1536, 2048), then the wide one
              (MAX_BATCH, {"D": 1536}), (MAX_BATCH, {"D": 2048}),
              (MAX_BATCH, {"D": 8192}), (MAX_BATCH, {"D": 16384}),
-             (100, {"D": 384}), (8, {"D": 128})]      # tests/test_kernels.py
+             (100, {"D": 384}), (8, {"D": 128}),      # tests/test_kernels.py
+             # the serving job's prefill and decode rows in phase 10 (the
+             # smoke config's d_model)
+             (64, {"D": 64}), (2, {"D": 64})]
     return timed + [rms_case(dt, rows, residual, timed=False, **kw)
                     for dt in (bf16, f32) for rows, kw in edges]
 
@@ -1091,16 +1117,254 @@ def phase_train(cfg) -> dict:
     return out
 
 
-def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict) -> dict:
+# -- phase 10 --------------------------------------------------------------
+
+# examples/train_cluster_torch.py's scenario at full width: 60 steps in
+# the example's quanta of 10, checkpoints every 15 (the failure at step 20
+# goes back to 15, so steps 16-20 run twice; the preemption at 30-something
+# saves where it stands), and what the service may leave allocated on the
+# card
+CLUSTER_STEPS, CLUSTER_CKPT_EVERY = 60, 15
+MEMORY_SLACK_BYTES = 100e6
+
+
+def _load_example():
+    path = os.path.join(ROOT, "examples", "train_cluster_torch.py")
+    spec = importlib.util.spec_from_file_location("train_cluster_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _error_blocks(log: str) -> list:
+    """Each ``runtime error`` entry of a job log with its traceback."""
+    blocks, cur = [], None
+    for line in log.splitlines():
+        if "runtime error" in line:
+            cur = [line]
+            blocks.append(cur)
+        elif re.match(r"\[\d\d:\d\d:\d\d\]", line):
+            cur = None
+        elif cur is not None:
+            cur.append(line)
+    return ["\n".join(b) for b in blocks]
+
+
+def serve_job_flash_case(cfg) -> dict:
+    """K1 at the serving job's prefill shape: the smoke config's head dim
+    16, which the wrapper runs zero-padded to 64 with the scale of 16,
+    one row of max_seq 64 with an 8-token prompt, bf16."""
+    S, H, KV, D = 64, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dtype = getattr(torch, cfg.dtype)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(1, S, H, D, generator=g, device="cuda").to(dtype)
+    kv = torch.randn(1, S, 2, KV, D, generator=g, device="cuda").to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    lengths = torch.tensor([8], dtype=torch.int32, device="cuda")
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=True, lengths=lengths)
+    ref = flash_attention_plain(q, k, v, causal=True, lengths=lengths)
+    torch.cuda.synchronize()
+    case = {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
+            "max_abs_err": max_err(o, ref), "tol": 3e-2,
+            "launched": flash_attention.launches - before}
+    if not (torch.isfinite(o.float()).all() and case["launched"] == 1
+            and case["max_abs_err"] <= case["tol"]):
+        raise AssertionError(f"K1 at head dim {D} (padded) disagrees with "
+                             f"its plain version: {case}")
+    return case
+
+
+def _straight_run(spec, steps: int):
+    """The job's training without the service: the config, OptConfig and
+    TrainConfig its runtime builds, the same seed and batches, one loop,
+    no checkpoints. Returns (cfg, state, losses, lrs)."""
+    cfg, ocfg, tcfg = TorchTrainRuntime.configs(spec)
+    e = spec.entry
+    seed = int(e.get("seed", 0))
+    data = SyntheticLM(cfg, int(e["global_batch"]), int(e["seq_len"]),
+                       seed=seed)
+    step_fn = build_train_step(cfg, ocfg, tcfg)
+    state = init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    losses, lrs = [], []
+    for i in range(steps):
+        state, m = step_fn(state, to_torch(data.batch(i), "cuda"))
+        losses.append(m["loss"])
+        lrs.append(m["lr"])
+    return (cfg, state, [float(x) for x in losses],
+            [float(x) for x in lrs])
+
+
+def _compare_states(cfg, tree, straight) -> dict:
+    """The final checkpoint (JAX layout, CPU) against the straight run's
+    state: whether every leaf is bit-equal, both optimizer steps, and every
+    param's difference."""
+    restored = state_from_jax(cfg, tree, "cpu")
+    pairs = [(f"params.{k}", restored["params"][k], straight["params"][k])
+             for k in straight["params"]]
+    for part in ("m", "v"):
+        pairs += [(f"opt.{part}.{k}", restored["opt"][part][k],
+                   straight["opt"][part][k]) for k in straight["opt"][part]]
+    pairs.append(("opt.step", restored["opt"]["step"],
+                  straight["opt"]["step"]))
+    unequal = [n for n, a, b in pairs
+               if a.dtype != b.dtype or not torch.equal(a, b.cpu())]
+    d = torch.cat([(restored["params"][k] - straight["params"][k].cpu())
+                   .abs().flatten() for k in straight["params"]])
+    return {"bit_equal": not unequal, "unequal_leaves": unequal[:8],
+            "n_unequal": len(unequal),
+            "opt_step": int(restored["opt"]["step"]),
+            "straight_opt_step": int(straight["opt"]["step"]),
+            "param_max_abs_diff": float(d.max()), "diffs": d}
+
+
+def phase_cluster() -> dict:
+    """Phase 10: the cluster path. The service's runtimes build their
+    kernels' inputs from the spec; every kernel's count is zeroed just
+    before the service starts and read when it has ended."""
+    ex = _load_example()
+    serve_k1 = serve_job_flash_case(get_config("tacc-100m", smoke=True))
+    wrappers = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
+                                               BWD_KERNELS]
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        disk_free = shutil.disk_usage(root).free
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        svc = ex.run_scenario(root, smoke=False, steps=CLUSTER_STEPS,
+                              device="cuda", ckpt_every=CLUSTER_CKPT_EVERY,
+                              verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        peak = torch.cuda.max_memory_allocated()
+        gc.collect()
+        allocated_after = torch.cuda.memory_allocated()
+
+        train = ex.job_named(svc, ex.TRAIN_NAME)
+        urgent = ex.job_named(svc, ex.URGENT_NAME)
+        with open(os.path.join(train.plan.workdir, "job.log")) as f:
+            log = f.read()
+        stats = svc.executor.stats.get(train.id, {})
+        quanta, saves = stats.get("quanta", []), stats.get("saves", [])
+        restores = stats.get("restores", [])
+        steps_run = sum(q["steps"] for q in quanta)
+        step_ms = [q["step_ms"] for q in quanta]
+        out = {"phase": "cluster", "steps": CLUSTER_STEPS,
+               "ckpt_every": CLUSTER_CKPT_EVERY,
+               "quantum": svc.executor.quantum,
+               "status": svc.status(), "wall_s": wall,
+               "ticks": svc.ticks, "steps_run": steps_run,
+               "step_ms_mean": float(np.mean(step_ms)) if step_ms else None,
+               "step_ms_p50": float(np.median(step_ms)) if step_ms else None,
+               "quanta": quanta, "saves": len(saves), "save_detail": saves,
+               "save_s_total": sum(x["snapshot_s"] + x["write_s"]
+                                   for x in saves),
+               "restores": restores,
+               "restore_s_total": sum(x["seconds"] for x in restores),
+               "max_memory_allocated_gb": peak / 1e9,
+               "memory_allocated_before_gb": allocated_before / 1e9,
+               "memory_allocated_after_gb": allocated_after / 1e9,
+               "disk_free_gb_before": disk_free / 1e9,
+               "launches": launches}
+        out["save_share_of_wall"] = out["save_s_total"] / wall
+        out["restore_share_of_wall"] = out["restore_s_total"] / wall
+
+        failures = []
+        if train.state.value != "COMPLETED" or train.restarts != 1 \
+                or train.preemptions < 1:
+            failures.append(f"training job {train.state.value} with "
+                            f"{train.restarts} restarts and "
+                            f"{train.preemptions} preemptions; wanted "
+                            f"COMPLETED, 1 and >= 1")
+            for block in _error_blocks(log):
+                print(block, file=sys.stderr, flush=True)
+        if urgent.state.value != "COMPLETED":
+            failures.append(f"serving job {urgent.state.value}")
+        if abs(allocated_after - allocated_before) > MEMORY_SLACK_BYTES:
+            failures.append(f"allocated memory {allocated_before} -> "
+                            f"{allocated_after} bytes across the service")
+        # the backward kernels run in training only, the forward ones in
+        # the serving job's prefills and decode steps too
+        expected = expected_train_launches(get_config("tacc-100m"),
+                                           steps_run)
+        out["expected_train_launches"] = expected
+        backward = {name for name, _, _, _ in BWD_KERNELS}
+        for name, n in launches.items():
+            if n == 0 or (n != expected[name] if name in backward
+                          else n < expected[name]):
+                failures.append(f"{name} launched {n} times in "
+                                f"{steps_run} train steps and the serving "
+                                f"job; training alone launches it "
+                                f"{expected[name]} times")
+
+        if train.state.value == "COMPLETED":
+            tree, man = restore_checkpoint(os.path.join(train.plan.workdir,
+                                                        "ckpt"))
+            cfg, straight, losses, lrs = _straight_run(train.spec,
+                                                       CLUSTER_STEPS)
+            cmp = _compare_states(cfg, tree, straight)
+            d = cmp.pop("diffs")
+            del straight
+            lr_sum = float(sum(lrs))
+            last = quanta[-1]["loss"]
+            out.update(
+                final_step=man["step"], final_checkpoint_bytes=man["nbytes"],
+                straight_losses=losses, last_loss=last,
+                straight_last_loss=losses[-1],
+                last_loss_rel=abs(last - losses[-1]) / abs(losses[-1]),
+                lr_sum=lr_sum,
+                param_share_beyond_1pct=float((d > 1e-2 * lr_sum)
+                                              .float().mean()),
+                **cmp)
+            if man["step"] != CLUSTER_STEPS:
+                failures.append(f"final checkpoint at step {man['step']}")
+            if out["opt_step"] != out["straight_opt_step"]:
+                failures.append(f"optimizer step {out['opt_step']} in the "
+                                f"final checkpoint, "
+                                f"{out['straight_opt_step']} in the straight "
+                                f"run")
+            # the path is deterministic (K1b and K2b/K3b bit-equal over
+            # calls), so a resume that restores every leaf ends bit-equal
+            if not out["bit_equal"]:
+                failures.append(f"{out['n_unequal']} leaves differ from the "
+                                f"straight run's: {out['unequal_leaves']}")
+            if not out["last_loss_rel"] <= 1e-4:
+                failures.append(f"last loss {last} against the straight "
+                                f"run's {losses[-1]}")
+            if not (out["param_max_abs_diff"] <= 0.25 * lr_sum
+                    and out["param_share_beyond_1pct"] <= 5e-3):
+                failures.append("the final params differ from the straight "
+                                "run's beyond phase 9's share of the lr")
+        out["serve_job_k1"] = serve_k1
+        out["failures"] = failures
+        emit(out)
+        if failures:
+            raise AssertionError(f"cluster phase failed: {failures}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
+                cluster: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
-    launches and phase 7 numbers (bf16 at the training shapes)."""
+    launches and phase 7 numbers (bf16 at the training shapes); every
+    kernel also with its launches in the cluster run (phase 10)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
              "replaces": tpu, "launches": served["launches"][fn.__name__],
              "launches_in": "serve (phase 5)",
              "train_launches": trained["launches"][fn.__name__],
+             "cluster_launches": cluster["launches"][fn.__name__],
              **{k: cases[fn.__name__][0][k] for k in keys
                 if k in cases[fn.__name__][0]},
              "shape": (cases[fn.__name__][0].get("q")
@@ -1133,6 +1397,7 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict) -> dict:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": what, "launches": trained["launches"][name],
                      "launches_in": "train (phase 9)",
+                     "cluster_launches": cluster["launches"][name],
                      **{k: c.get(k) for k in keys if k != "floor_ms"},
                      "shape": c["shape"], "dtype": fl["dtype"],
                      **{k: c[k] for k in ("f32", "dw") if k in c}})
@@ -1152,7 +1417,9 @@ def main() -> None:
     bwd = phase_kernels_bwd(ptxas)
     phase_train_consistency(cfg, params)
     trained = phase_train(cfg)
-    emit(kernel_line(served, cases, bwd, trained))
+    del params
+    cluster = phase_cluster()
+    emit(kernel_line(served, cases, bwd, trained, cluster))
     emit({"ok": True, "device": dev})
 
 

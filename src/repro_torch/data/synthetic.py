@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.train.loss import IGNORE
@@ -73,3 +74,13 @@ class SyntheticLM:
             return {"tokens": tokens[:, :self.seq_len - vt],
                     "vision_embeds": vis, "labels": lab}
         return {"tokens": tokens, "labels": labels}
+
+
+def to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A :meth:`SyntheticLM.batch` as tensors on ``device``: tokens and
+    labels as int64, what the model's embedding and the loss index with."""
+    out = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    for k in ("tokens", "labels"):
+        if k in out:
+            out[k] = out[k].long()
+    return out

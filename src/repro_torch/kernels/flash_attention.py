@@ -13,7 +13,11 @@ below the bf16 ridge), the f32 work by f32 operations. The source says how
 each is laid out.
 
 Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
-with H a multiple of KV; head h reads KV head h // (H // KV). ``lengths``
+with H a multiple of KV; head h reads KV head h // (H // KV). The kernels
+are built for head dims 64 and 128; :func:`flash_attention` and
+:func:`flash_attention_bwd` run a smaller head dim (the smoke configs' 16)
+zero-padded to the next of them, with the softmax scale of the true one:
+the padded terms add exact zeros, so the result is the unpadded function. ``lengths``
 (B,) int32 masks keys at or past lengths[b]. Masked scores are -1e30, so a
 row with no valid key averages V. ``p`` is rounded to v.dtype before the PV
 product. ``flash_attention.launches`` counts the forward kernel's launches.
@@ -229,9 +233,31 @@ def _check(q, k, v, lengths) -> None:
                          f"{lengths.dtype} {tuple(lengths.shape)}")
 
 
+def _kernel_head_dim(D: int) -> int:
+    """The head dim a kernel runs ``D`` at: the least of :data:`HEAD_DIMS`
+    that holds it (``D`` itself where it is one); ``D`` beyond them all is
+    returned as it is, for :func:`_check` to refuse."""
+    return next((h for h in HEAD_DIMS if h >= D), D)
+
+
+def _pad_head_dim(D: int, *ts: torch.Tensor) -> tuple:
+    return tuple(torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+                 for t in ts)
+
+
 def _forward(q, k, v, causal, lengths, want_lse):
     """The kernel's output, and its row log-sum-exp (B, H, S) f32 when
     ``want_lse`` (else None)."""
+    D = q.shape[-1]
+    if q.dim() == 4 and _kernel_head_dim(D) != D:
+        o, lse = _forward_at(*_pad_head_dim(_kernel_head_dim(D), q, k, v),
+                             causal, lengths, want_lse, 1.0 / math.sqrt(D))
+        return o[..., :D].contiguous(), lse
+    return _forward_at(q, k, v, causal, lengths, want_lse,
+                       1.0 / math.sqrt(D))
+
+
+def _forward_at(q, k, v, causal, lengths, want_lse, scale):
     _check(q, k, v, lengths)
     lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
@@ -255,7 +281,7 @@ def _forward(q, k, v, causal, lengths, want_lse):
             None if scratch is None else scratch.data_ptr(), splits,
             None if lengths is None else lengths.data_ptr(),
             B, S, H, k.shape[2], D, _stride_array(q, k, v), int(causal),
-            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            scale, _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -300,11 +326,13 @@ def _bwd_args(q, k, lengths, *strided) -> tuple:
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
-                 lengths: Optional[torch.Tensor] = None
+                 lengths: Optional[torch.Tensor] = None,
+                 scale: Optional[float] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1b-dq on CUDA tensors (bf16 ones as TMA reads them, f32 ones
     contiguous): (dq, delta), dq contiguous, delta = rowsum(dO o) (B, H, S)
-    f32 for :func:`flash_bwd_dkdv`."""
+    f32 for :func:`flash_bwd_dkdv`. ``scale`` is the softmax scale, by
+    default 1/sqrt(head dim)."""
     lengths = None if lengths is None else lengths.contiguous()
     _check_bwd(q, k, v, lengths, (o, do), (lse,))
     lib = build.load("flash_attention", _SIGNATURES)
@@ -316,7 +344,8 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_bwd_args(q, k, lengths, q, k, v, o, do), int(causal),
-            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            1.0 / math.sqrt(D) if scale is None else scale,
+            _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
@@ -327,7 +356,8 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
-                   lengths: Optional[torch.Tensor] = None
+                   lengths: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K1b-dkdv on CUDA tensors taken as :func:`flash_bwd_dq` takes
     them: (dk, dv) at KV heads, contiguous, each summed over its query
@@ -343,7 +373,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dk.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dv.data_ptr(),
             *_bwd_args(q, k, lengths, q, k, v, do), int(causal),
-            1.0 / math.sqrt(D), _DTYPES[q.dtype],
+            1.0 / math.sqrt(D) if scale is None else scale,
+            _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
@@ -371,15 +402,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lengths: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): :func:`flash_attention_bwd_plain` for CPU tensors,
-    else K1b-dq then K1b-dkdv on the inputs :func:`_bwd_inputs` gives."""
+    else K1b-dq then K1b-dkdv on the inputs :func:`_bwd_inputs` gives (a
+    small head dim zero-padded, as the forward runs it)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          lengths=lengths)
+    return _kernel_bwd(q, k, v, o, lse, do, causal, lengths)
+
+
+def _kernel_bwd(q, k, v, o, lse, do, causal, lengths):
+    D = q.shape[-1]
+    Dk = _kernel_head_dim(D)
+    if q.dim() == 4 and Dk != D:
+        q, k, v, o, do = _pad_head_dim(Dk, q, k, v, o, do)
     q, k, v, o, do, lse = _bwd_inputs(q, k, v, o, do, lse)
+    scale = 1.0 / math.sqrt(D)
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal=causal,
-                             lengths=lengths)
+                             lengths=lengths, scale=scale)
     dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
-                            lengths=lengths)
+                            lengths=lengths, scale=scale)
+    if Dk != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

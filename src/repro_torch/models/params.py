@@ -1,15 +1,19 @@
-"""Parameter definitions, initialisation and the bridge from JAX params.
+"""Parameter definitions, initialisation and the bridges to and from JAX's
+tree layout.
 
 The port names parameters by dotted paths that equal the JAX pytree's leaf
 paths with the stacked period unstacked: ``embed.tok``, ``out_norm.scale``
 and, per layer, ``layers.<i>.mixer.wq`` and so on. Weights keep JAX's
-``(in, out)`` layout, so the bridge is a plain copy.
+``(in, out)`` layout, so each bridge is a plain copy: ``params_from_jax``
+unstacks, ``params_to_jax`` stacks again, and ``state_to_jax`` /
+``state_from_jax`` carry a whole train state, which is how checkpoints are
+written (a torch-saved state restores into JAX).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,12 +145,12 @@ def _as_tensor(a: Any) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
-    if not a.flags.writeable:        # device_get views are read-only
-        a = a.copy()
+    # device_get views are read-only; copy(order="C") keeps a 0-d leaf 0-d
+    if not a.flags.writeable or not a.flags.c_contiguous:
+        a = a.copy(order="C")
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
-                                ).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _as_tensors(tree: Any) -> Any:
@@ -194,3 +198,85 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{name}: shape {tuple(out[name].shape)} != "
                              f"{d.shape}")
     return {name: out[name] for name in expected}
+
+
+def params_to_jax(cfg: ModelConfig, params: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Any]:
+    """Port state dict -> JAX params pytree; the inverse of
+    :func:`params_from_jax`.
+
+    Layer ``len(prelayers) + i * len(period) + j`` becomes
+    ``tree["period"][j][...][i]`` (stacked along a new axis 0), the
+    prelayers a tuple of dicts, and every dict has its keys in sorted order,
+    as ``jax.tree`` rebuilds them, so the checkpoint skeleton equals one
+    JAX writes. Stacked leaves are new tensors on the params' device; the
+    others are the given tensors.
+    """
+    expected = model_defs(cfg)
+    if set(params) != set(expected):
+        raise ValueError(
+            f"params do not match {cfg.name}: missing "
+            f"{sorted(set(expected) - set(params))}, unexpected "
+            f"{sorted(set(params) - set(expected))}")
+
+    def nest(prefix: str, stack: Optional[list] = None) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for name in expected:
+            if not name.startswith(prefix + "."):
+                continue
+            node = out
+            *path, leaf = name[len(prefix) + 1:].split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = (params[name] if stack is None else torch.stack(
+                [params[f"{p}.{name[len(prefix) + 1:]}"] for p in stack]))
+        return _sorted(out)
+
+    n_pre, period = len(cfg.prelayers), len(cfg.period)
+    tree = {"embed": nest("embed"), "out_norm": nest("out_norm"),
+            "prelayers": tuple(nest(f"layers.{i}") for i in range(n_pre)),
+            "period": tuple(
+                nest(f"layers.{n_pre + j}",
+                     [f"layers.{n_pre + i * period + j}"
+                      for i in range(cfg.n_periods)])
+                for j in range(period))}
+    return _sorted(tree)
+
+
+def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def state_to_jax(cfg: ModelConfig, state: Mapping) -> Dict[str, Any]:
+    """The port's train state ``{"params", "opt": {"m", "v", "step"}}`` in
+    JAX's layout, as a JAX train step returns it: params, m and v through
+    :func:`params_to_jax`, ``step`` the int32 scalar as it is, every dict's
+    keys sorted."""
+    opt = state["opt"]
+    return {"opt": {"m": params_to_jax(cfg, opt["m"]),
+                    "step": opt["step"],
+                    "v": params_to_jax(cfg, opt["v"])},
+            "params": params_to_jax(cfg, state["params"])}
+
+
+def state_from_jax(cfg: ModelConfig, tree: Mapping,
+                   device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """A train state in JAX's layout (numpy or torch leaves, e.g. a restored
+    checkpoint) -> the port's train state on ``device``. Every leaf is a
+    tensor of its own (no view into a stacked leaf); dtypes are kept and
+    ``step`` is an int32 scalar."""
+    dev = resolve_device(device)
+
+    def own(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: v.to(dev, copy=True) for k, v in flat.items()}
+
+    opt = tree["opt"]
+    step = _as_tensor(opt["step"])
+    if step.dim() != 0 or step.dtype != torch.int32:
+        raise ValueError(f"opt.step must be an int32 scalar, got "
+                         f"{step.dtype} of shape {tuple(step.shape)}")
+    return {"params": own(params_from_jax(cfg, tree["params"])),
+            "opt": {"m": own(params_from_jax(cfg, opt["m"])),
+                    "v": own(params_from_jax(cfg, opt["v"])),
+                    "step": step.to(dev, copy=True)}}

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, its
-entry points refuse to fall back to the CPU, and chip_smoke.py refuses to
-run without a CUDA card."""
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+do chip_smoke.py and the port's cluster example), its entry points refuse
+to fall back to the CPU, and chip_smoke.py refuses to run without a CUDA
+card."""
 import ast
 import os
 import pkgutil
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLE = ROOT / "examples" / "train_cluster_torch.py"
 
 
 def _port_modules():
@@ -26,13 +28,18 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert {"repro_torch.serve.engine", "repro_torch.train.step",
             "repro_torch.train.loss", "repro_torch.train.optimizer",
-            "repro_torch.data.synthetic", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.data.synthetic", "repro_torch.launch.train",
+            "repro_torch.core.service", "repro_torch.core.executor",
+            "repro_torch.ckpt.checkpoint"} <= set(mods)
     assert len(mods) > 20
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        f"    'train_cluster_torch', {str(EXAMPLE)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -51,17 +58,19 @@ def _imported(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py", EXAMPLE],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     top = {name.split(".")[0] for name in _imported(path)}
     assert not top & {"jax", "jaxlib", "repro", "ml_dtypes"}, top
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal needs its absence")
+    import importlib.util
     from repro_torch.configs import get_config
+    from repro_torch.core import TACC, RuntimeEnv, TaskSpec
     from repro_torch.models import Transformer, init_params
     from repro_torch.models.transformer import init_cache
     from repro_torch.launch.train import main as train_main
@@ -69,13 +78,26 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.train import OptConfig, init_train_state
     cfg = get_config("tacc-100m", smoke=True)
     params = init_params(cfg, torch.Generator(), device="cpu")
+    spec = importlib.util.spec_from_file_location("train_cluster_torch",
+                                                  EXAMPLE)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    def provision_on_the_card():
+        svc = TACC(str(tmp_path / "svc"))
+        svc.submit(TaskSpec(name="t", runtime=RuntimeEnv(backend="torch_train"),
+                            entry={"arch": "tacc-100m", "smoke": True}))
+        svc.tick()
+
     for call in (lambda: ServeEngine(cfg, params),
                  lambda: Transformer(cfg, params),
                  lambda: Transformer(cfg, params, trainable=True),
                  lambda: init_params(cfg, torch.Generator()),
                  lambda: init_cache(cfg, 1, 8),
                  lambda: init_train_state(cfg, OptConfig(), torch.Generator()),
-                 lambda: train_main(["--smoke", "--steps", "1"])):
+                 lambda: train_main(["--smoke", "--steps", "1"]),
+                 provision_on_the_card,
+                 lambda: example.main(["--smoke", "--steps", "3"])):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

@@ -473,6 +473,61 @@ def test_flash_bwd_bf16_reads_strided_views_in_place():
     assert all(torch.equal(t, u) for t, u in zip(taken, f32))
 
 
+@pytest.mark.parametrize("D", [16, 40, 96])
+def test_flash_small_head_dims_run_padded_with_their_own_scale(monkeypatch,
+                                                               D):
+    """A head dim the kernels are not built for (the smoke configs' 16)
+    reaches them zero-padded to the next built one, with the softmax scale
+    of the true head dim, and comes back sliced: the kernels, emulated here
+    by the plain functions at the scale they are given, must see 64 or 128
+    and the result must be the plain function of the unpadded inputs (f32,
+    rel 1e-6)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    seen = []
+
+    def scaled(q, scale):            # the plain path's 1/sqrt(D) -> scale
+        seen.append(q.shape[-1])
+        return q * (scale * np.sqrt(q.shape[-1]))
+
+    def forward_at(q, k, v, causal, lengths, want_lse, scale):
+        return fa._plain_forward(scaled(q, scale), k, v, causal, lengths)
+
+    def bwd_dq(q, k, v, o, lse, do, *, causal, lengths, scale):
+        dq = fa.flash_attention_bwd_plain(scaled(q, scale), k, v, o, lse, do,
+                                          causal=causal, lengths=lengths)[0]
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2)
+        return dq * (scale * np.sqrt(q.shape[-1])), delta
+
+    def bwd_dkdv(q, k, v, do, lse, delta, *, causal, lengths, scale):
+        o = forward_at(q, k, v, causal, lengths, True, scale)[0]
+        return fa.flash_attention_bwd_plain(scaled(q, scale), k, v, o, lse,
+                                            do, causal=causal,
+                                            lengths=lengths)[1:]
+
+    monkeypatch.setattr(fa, "_forward_at", forward_at)
+    monkeypatch.setattr(fa, "flash_bwd_dq", bwd_dq)
+    monkeypatch.setattr(fa, "flash_bwd_dkdv", bwd_dkdv)
+    rng = np.random.default_rng(D)
+    B, S, H, KV = 2, 24, 4, 2
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, H, D), np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, KV, D), np.float32))
+            for _ in range(2))
+    lengths = torch.tensor([S, 17], dtype=torch.int32)
+    o, lse = fa._forward(q, k, v, True, lengths, True)
+    ref_o, ref_lse = fa._plain_forward(q, k, v, True, lengths)
+    assert o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o, ref_o, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=1e-6)
+    got = fa._kernel_bwd(q, k, v, o, lse, do, True, lengths)
+    want = fa.flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do,
+                                        causal=True, lengths=lengths)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.is_contiguous(), name
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+    assert set(seen) == {64 if D <= 64 else 128}
+
+
 @pytest.mark.parametrize("entry", ["flash_attention_fwd",
                                    "flash_attention_bwd_dq",
                                    "flash_attention_bwd_dkdv"])
