@@ -62,15 +62,34 @@ Phases, each printing one JSON line and raising on failure:
    of the summed lr); the card's allocated memory must come back
    within 100 MB; every kernel must have launched (the backward kernels
    exactly as often as the steps run say); K1 is also held against its
-   plain version at the serving job's shape (head dim 16, run padded).
+   plain version at the serving job's shape (head dim 16, run padded);
+11. moe_serve: qwen2-moe-a2.7b at full width and depth (15,146,403,840
+   parameters), seed 0, its bf16 weights drawn leaf by leaf with the
+   router in f32 (the card never holds the f32 model): K1 on layer 0's q,
+   k, v from a 512-token prefill and K2/K3 at rows (512, 2048) and (8,
+   2048), each against its plain version with its times and bound; the
+   MoE dispatch against the dense oracle on layer 0's FFN input (routes
+   equal to the CPU's, aux terms, the routed experts' f32 sums within
+   ``MOE_ROUTED_BAR``, and a planted fault, the dispatch's outputs sent
+   to the next token, beyond it), both timed at 512 and 8 rows; a 2048-
+   and a 4096-token prefill through each path (``moe_apply`` takes the
+   dispatch from ``DISPATCH_MIN_ROWS`` rows on); prefill + 4 decode steps
+   against the full forward, and the first 2 layers at full width against
+   the CPU's plain path; phase 5's traffic served, every kernel launched
+   as often as the code says and the dispatch never (no call reaches its
+   rows); a profile; every registered config at smoke
+   size, prefill + decode against its full forward; the peak under 40 GB
+   above what earlier phases left and the memory given back.
 
 Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
 (forward kernels) or phase 9 (backward kernels), and in phase 10
-(``cluster_launches``), K1's row with its f32
+(``cluster_launches``) and in phase 11 (``moe_launches``, with the
+numbers at qwen2-moe's shapes), K1's row with its f32
 numbers at both timed shapes (no path launches it), and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -90,7 +109,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.ckpt import restore_checkpoint
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.executor import TorchTrainRuntime
 from repro_torch.data import SyntheticLM, to_torch
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
@@ -109,8 +128,11 @@ from repro_torch.kernels.flash_attention import _in_place as flash_in_place
 from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
                                          launch_empty, pick_variant)
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
-                                init_params, prefill, state_from_jax,
-                                train_logits)
+                                init_params, init_serving_params, model_defs,
+                                prefill, state_from_jax, train_logits)
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -327,6 +349,15 @@ def flash_case(dtype, lengths_list, *, causal=True, S=MAX_SEQ, D=None,
     kv = torch.randn(offset + B * S * 2 * KV * D, generator=g,
                      device="cuda").to(dtype)[offset:].view(B, S, 2, KV, D)
     k, v = kv[:, :, 0], kv[:, :, 1]
+    return flash_check(q, k, v, lengths_list, causal=causal, timed=timed,
+                       offset=offset)
+
+
+def flash_check(q, k, v, lengths_list, *, causal=True, timed=True, offset=0):
+    """K1 on these q, k, v against its plain version (``flash_case``): o
+    bit-equal over two calls, every view the kernel can read taken in place
+    (none when ``offset`` is set), and, ``timed``, its times and bound."""
+    dtype, (B, S, H, D) = q.dtype, q.shape
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     o = flash_attention(q, k, v, causal=causal, lengths=lengths)
     again = flash_attention(q, k, v, causal=causal, lengths=lengths)
@@ -559,7 +590,7 @@ def phase_consistency(cfg, params) -> dict:
     toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
     out = {"phase": "consistency", "batch": B, "seq": S}
     with torch.inference_mode():
-        full = train_logits(model, {"tokens": toks})
+        full, _ = train_logits(model, {"tokens": toks})
         if not (torch.isfinite(full).all()
                 and full.shape == (B, S, cfg.vocab_size)):
             raise AssertionError(f"full forward: shape {tuple(full.shape)}, "
@@ -651,7 +682,11 @@ def _trace(fn) -> dict:
             "device_busy_ms": sum(per.values()) / 1e3 / n if per else None,
             "top_device_us": [[k[:80], v / n] for k, v in top],
             "top_host_us": [[a.key[:60], a.self_cpu_time_total / n]
-                            for a in host[:8]]}
+                            for a in host[:8]],
+            # host time in each CUDA runtime call (cudaLaunchKernel, the
+            # copies and synchronisations), per call of ``fn``'s unit
+            "cuda_api_host_us": {a.key: a.self_cpu_time_total / n
+                                 for a in host if a.key.startswith("cuda")}}
 
 
 def phase_profile(cfg, params, served: dict) -> dict:
@@ -940,7 +975,7 @@ TRAIN_CONSISTENCY_BARS = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3,
 
 
 def _loss_and_grads(model: Transformer, batch: dict):
-    logits = train_logits(model, batch, remat="full")
+    logits, _ = train_logits(model, batch, remat="full")
     loss, _ = cross_entropy(logits, batch["labels"])
     names, params = zip(*model.named_parameters())
     grads = torch.autograd.grad(loss, params)
@@ -1035,7 +1070,7 @@ def _eval_loss(cfg, params, batch: dict) -> float:
     ``batch``, without a gradient."""
     model = Transformer(cfg, params, device="cuda", trainable=True)
     with torch.no_grad():
-        logits = train_logits(model, batch, remat="none")
+        logits, _ = train_logits(model, batch, remat="none")
         loss, _ = cross_entropy(logits, batch["labels"],
                                 z_loss=TrainConfig().z_loss)
     return float(loss)
@@ -1351,13 +1386,397 @@ def phase_cluster() -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+# -- phase 11 --------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# qwen2-moe-a2.7b at full width and depth: 24 layers of 16,783,360
+# attention, 588,382,208 MoE (64 routed experts after pad_to, the shared
+# block) and 4,096 norm parameters, the embedding and unembedding
+MOE_PARAMS = 15_146_403_840
+# the dispatch against the dense oracle on the card: the routed experts'
+# f32 sums from one route, before the shared block is added and before
+# the final rounding, max |dispatch - oracle| over max |oracle|. Each
+# expert's products run at another row count in the two (the dispatch's
+# rows are the expert's own, the oracle's all of them), so cuBLAS may sum
+# in another order and flip a bf16 rounding of an expert's output; the
+# combine's f32 sum of k terms runs in another order. The CPU test's bf16
+# bar is rel 0.03; this one is a third of it. A planted fault, the
+# dispatch's sums rolled by one row (each token given its neighbour's
+# experts), must read above it
+MOE_ROUTED_BAR = 0.01
+# the long prefills that bracket ``DISPATCH_MIN_ROWS``, one token row each
+MOE_LONG_PREFILLS = (2048, 4096)
+MOE_PEAK_ABOVE_START_BYTES = 40e9
+MOE_CPU_LAYERS = 2
+
+
+def moe_layer_case(cfg, model, tokens: torch.Tensor) -> dict:
+    """K1 on layer 0's q, k, v from a real prefill (v a strided view of the
+    fused, biased wkv product), then the dispatch against the dense
+    oracle on layer 0's FFN input: the routes equal over two calls and to
+    the CPU's on the same f32 router and input, the aux terms equal, the
+    routed sums within ``MOE_ROUTED_BAR`` and a planted fault beyond it;
+    both paths timed at the prefill's rows and a decode step's."""
+    layer = model.layers[0]
+    S = tokens.shape[1]
+    lengths = [S]
+    with torch.inference_mode():
+        x = L.embed_tokens(cfg, model.embed, tokens)
+        positions = torch.arange(S, device="cuda")[None, :]
+        h = L.apply_norm(cfg, layer.mixer_norm, x)
+        q, k, v = A.project_qkv(cfg, layer.mixer, h, positions)
+        k1 = flash_check(q, k, v, lengths)
+        k1_prompt = flash_check(q, k, v, [136], timed=False)
+        y_mix, _ = A.self_attention(
+            cfg, layer.mixer, h, positions,
+            lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+        hf, _ = rmsnorm_residual(x, y_mix, layer.ffn_norm["scale"],
+                                 cfg.norm_eps)
+        p = layer.ffn
+        flat = hf.reshape(-1, cfg.d_model)
+        idx, w, _ = MOE.route(cfg, flat, p["router"])
+        idx2, _, _ = MOE.route(cfg, flat, p["router"])
+        idx_cpu, _, _ = MOE.route(cfg, flat.cpu(), p["router"].cpu())
+        routed = MOE.dispatch_routed(cfg, p, flat, idx, w)
+        routed_ref = MOE.dense_routed(cfg, p, flat, idx, w)
+        y, aux = MOE.moe_dispatch(cfg, p, hf)
+        _, aux_ref = MOE.moe_dense_oracle(cfg, p, hf)
+        torch.cuda.synchronize()
+        scale = float(routed_ref.abs().max())
+        rel = max_err(routed, routed_ref) / scale
+        fault = max_err(routed.roll(1, 0), routed_ref) / scale
+        aux_rel = {k_: abs(float(aux[k_]) - float(aux_ref[k_]))
+                   / abs(float(aux_ref[k_])) for k_ in aux}
+        counts = torch.bincount(idx.flatten(), minlength=cfg.moe.n_experts)
+        out = {"x": list(hf.shape), "route_equal_over_two_calls":
+               bool(torch.equal(idx, idx2)),
+               "route_rows_equal_to_cpu": float(
+                   (idx.cpu() == idx_cpu).all(-1).float().mean()),
+               "experts_used": int((counts > 0).sum()),
+               "rows_per_expert_max": int(counts.max()),
+               "aux": {k_: float(v_) for k_, v_ in aux.items()},
+               "aux_rel": aux_rel, "routed_max_abs": scale,
+               "routed_rel_err": rel, "routed_bar": MOE_ROUTED_BAR,
+               "planted_fault_rel_err": fault,
+               "y_finite": bool(torch.isfinite(y.float()).all()),
+               "dispatch_ms": call_ms(lambda: MOE.moe_dispatch(cfg, p, hf),
+                                      iters=10),
+               "oracle_ms": call_ms(lambda: MOE.moe_dense_oracle(cfg, p, hf),
+                                    iters=10)}
+        # a decode step's rows: the first MAX_BATCH rows of the prefill
+        rows = hf[:, :MAX_BATCH].reshape(MAX_BATCH, 1, -1)
+        out["dispatch_ms_decode_rows"] = call_ms(
+            lambda: MOE.moe_dispatch(cfg, p, rows), iters=10)
+        out["oracle_ms_decode_rows"] = call_ms(
+            lambda: MOE.moe_dense_oracle(cfg, p, rows), iters=10)
+    if not (out["route_equal_over_two_calls"]
+            and out["route_rows_equal_to_cpu"] == 1.0 and out["y_finite"]
+            and rel <= MOE_ROUTED_BAR < fault
+            and max(aux_rel.values()) <= 1e-6):
+        raise AssertionError(f"the MoE dispatch disagrees with the dense "
+                             f"oracle on the card: {out}")
+    return {"flash_attention": k1, "flash_attention_prompt": k1_prompt,
+            "moe": out}
+
+
+def moe_long_prefills(cfg, model) -> dict:
+    """One prompt of each of ``MOE_LONG_PREFILLS`` tokens prefilled through
+    the model with ``moe_apply`` on each path (forced through
+    ``DISPATCH_MIN_ROWS``): the ms of each, the dispatch's host reads, and
+    the last position's logits of the two paths against each other
+    (rel 0.03, the 2-layer cut's bar). A row count on each side of the
+    threshold, so the choice is measured end to end."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    keep, out = MOE.DISPATCH_MIN_ROWS, {"dispatch_min_rows":
+                                        MOE.DISPATCH_MIN_ROWS}
+    try:
+        with torch.inference_mode():
+            for S in MOE_LONG_PREFILLS:
+                toks = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
+                                     device="cuda")
+                lengths = torch.tensor([S - 7], dtype=torch.int32,
+                                       device="cuda")
+                case, logits = {"rows": S, "path_taken": (
+                    "dispatch" if S >= keep else "oracle")}, {}
+                for path, min_rows in (("oracle", S + 1), ("dispatch", S)):
+                    MOE.DISPATCH_MIN_ROWS = min_rows
+                    fn = lambda: prefill(  # noqa: E731
+                        model, {"tokens": toks}, lengths)
+                    syncs = MOE.dispatch_routed.host_syncs
+                    logits[path] = fn()[0]
+                    case[f"{path}_host_syncs"] = (
+                        MOE.dispatch_routed.host_syncs - syncs)
+                    case[f"{path}_ms"] = call_ms(fn, iters=3)
+                case["logits_rel_err"] = rel_err(logits["dispatch"],
+                                                 logits["oracle"])
+                out[str(S)] = case
+                del logits
+    finally:
+        MOE.DISPATCH_MIN_ROWS = keep
+    bad = [c for c in out.values() if isinstance(c, dict) and not (
+        c["logits_rel_err"] < 0.03 and c["oracle_host_syncs"] == 0
+        and c["dispatch_host_syncs"] == cfg.n_layers)]
+    if bad:
+        raise AssertionError(f"{cfg.name} long prefills: {out}")
+    return out
+
+
+def moe_consistency(cfg, params, model) -> dict:
+    """Prefill at B = 2, S = 128 and 4 decode steps against the full
+    forward; then the model cut to its first ``MOE_CPU_LAYERS`` layers at
+    full width, a prefill on the card against the same layers on the CPU
+    through the plain path."""
+    B, S, NDEC = 2, 128, 4
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    out = {"batch": B, "seq": S}
+    with torch.inference_mode():
+        full, _ = train_logits(model, {"tokens": toks})
+        Sp = S - NDEC
+        lengths = torch.full((B,), Sp, dtype=torch.int32, device="cuda")
+        lg, cache = prefill(model, {"tokens": F.pad(toks[:, :Sp], (0, NDEC))},
+                            lengths)
+        out["prefill_vs_full"] = rel_err(lg, full[:, Sp - 1])
+        out["decode_vs_full"] = []
+        for i in range(NDEC):
+            lg, cache = decode_step(model, cache, toks[:, Sp + i])
+            out["decode_vs_full"].append(rel_err(lg, full[:, Sp + i]))
+        del full, cache, lg
+        cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
+        names = list(model_defs(cut))
+        lens1 = torch.tensor([Sp - 21], dtype=torch.int32)
+        lg_gpu, _ = prefill(
+            Transformer(cut, {n: params[n] for n in names}, device="cuda"),
+            {"tokens": toks[:1]}, lens1.cuda())
+        t0 = time.perf_counter()
+        lg_cpu, _ = prefill(
+            Transformer(cut, {n: params[n].cpu() for n in names},
+                        device="cpu"), {"tokens": toks[:1].cpu()}, lens1)
+        out["cpu_seconds"] = time.perf_counter() - t0
+        out["prefill_vs_cpu_plain"] = rel_err(lg_gpu, lg_cpu)
+    out["cpu_cut"] = (f"the first {MOE_CPU_LAYERS} of {cfg.n_layers} layers "
+                      f"at full width: the host's time and memory force the "
+                      f"cut, not the card")
+    out["bars"] = {"prefill_vs_full": 0.05, "decode_vs_full": 0.08,
+                   "prefill_vs_cpu_plain": 0.03}
+    if not (out["prefill_vs_full"] < 0.05
+            and max(out["decode_vs_full"]) < 0.08
+            and out["prefill_vs_cpu_plain"] < 0.03):
+        raise AssertionError(f"{cfg.name} consistency failed: {out}")
+    return out
+
+
+def moe_serve(cfg, params):
+    """Phase 5's traffic through ServeEngine on this model; every count set
+    to 0 just before and read just after. Each prefill launches K1 once a
+    layer, K2 once a layer and for out_norm, K3 once a layer; each decode
+    step K2 and K3 as often, and K1 never; no call reaches
+    ``DISPATCH_MIN_ROWS`` rows (a prefill has ``MAX_SEQ``, a decode step
+    ``MAX_BATCH``), so the dispatch never runs and never reads to the host.
+    Returns (the numbers, the engine, which the profile goes on serving)."""
+    engine = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                         seed=SEED, device="cuda")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(16, 257)).tolist()
+               for _ in range(N_REQUESTS)]
+    for fn, _, _ in KERNELS:
+        fn.launches = 0
+    MOE.dispatch_routed.host_syncs = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run(prompts, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn, _, _ in KERNELS}
+    syncs = MOE.dispatch_routed.host_syncs
+    pf, dc = engine.timings["prefill"], engine.timings["decode"]
+    n = cfg.n_layers
+    expected = {"flash_attention": n * len(pf),
+                "rmsnorm": (n + 1) * (len(pf) + len(dc)),
+                "rmsnorm_residual": n * (len(pf) + len(dc))}
+    tokens = sum(len(r.tokens) for r in results)
+    out = {"requests": len(results), "tokens": tokens,
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "prefills": len(pf), "prefill_ms_mean": 1e3 * float(np.mean(pf)),
+           "prefill_ms_p50": 1e3 * float(np.median(pf)),
+           "decode_steps": len(dc),
+           "decode_step_ms_mean": 1e3 * float(np.mean(dc)),
+           "decode_step_ms_p50": 1e3 * float(np.median(dc)),
+           "launches": launches, "expected_launches": expected,
+           "moe_path": ("dispatch" if MAX_SEQ >= MOE.DISPATCH_MIN_ROWS
+                        else "oracle"),
+           "host_syncs": syncs}
+    ok = (len(results) == N_REQUESTS and all(r.done for r in results)
+          and all(len(r.tokens) == MAX_NEW for r in results)
+          and all(0 <= t < cfg.vocab_size for r in results for t in r.tokens))
+    if not ok:
+        raise AssertionError(f"{cfg.name} serve returned an unexpected result")
+    if launches != expected or syncs != 0:
+        raise AssertionError(f"{cfg.name} serve launched {launches} (expected "
+                             f"{expected}) with {syncs} host syncs")
+    return out, engine
+
+
+def moe_profile(engine, served: dict) -> dict:
+    """4 prefills and 16 decode steps of the served engine under
+    torch.profiler; idle shares against the untraced means."""
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(1, engine.cfg.vocab_size, 136).tolist()
+               for _ in range(4)]
+    out = {"prefill": _trace(lambda: len([engine.add_request(p, max_new=64)
+                                          for p in prompts])),
+           "decode": _trace(lambda: len([engine.step() for _ in range(16)]))}
+    for name, untraced in (("prefill", served["prefill_ms_mean"]),
+                           ("decode", served["decode_step_ms_mean"])):
+        busy = out[name]["device_busy_ms"]
+        out[name]["device_idle_share"] = (
+            None if busy is None else max(0.0, 1.0 - busy / untraced))
+    return out
+
+
+def smoke_arch_case(arch: str) -> dict:
+    """``arch`` at its smoke size on the card: prefill + 4 decode steps
+    against the full forward, with the JAX suite's inputs for its input
+    mode (bf16 frame or patch embeddings)."""
+    B, S, NDEC = 2, 32, 4
+    cfg = get_config(arch, smoke=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = cast_for_compute(cfg, init_params(cfg, g, "cuda"), "cuda")
+    model = Transformer(cfg, params, device="cuda")
+    vt, Sp = cfg.vision_tokens, S - NDEC
+    bf16 = lambda *shape: torch.randn(*shape, generator=g,  # noqa: E731
+                                      device="cuda").bfloat16()
+    if cfg.input_mode == "embeds":
+        batch = {"frame_embeds": bf16(B, S, cfg.d_model)}
+        pb = {"frame_embeds": F.pad(batch["frame_embeds"][:, :Sp],
+                                    (0, 0, 0, NDEC))}
+        step = lambda pos: batch["frame_embeds"][:, pos][:, None]  # noqa: E731
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (B, S - vt), generator=g,
+                             device="cuda")
+        batch = {"tokens": toks}
+        pb = {"tokens": F.pad(toks[:, :Sp - vt], (0, NDEC))}
+        if vt:
+            batch["vision_embeds"] = pb["vision_embeds"] = bf16(
+                B, vt, cfg.d_model)
+        step = lambda pos: toks[:, pos - vt]  # noqa: E731
+    before = {fn.__name__: fn.launches for fn, _, _ in KERNELS}
+    with torch.inference_mode():
+        full, _ = train_logits(model, batch)
+        lg, cache = prefill(model, pb, torch.full(
+            (B,), Sp, dtype=torch.int32, device="cuda"))
+        out = {"arch": arch, "prefill_vs_full": rel_err(lg, full[:, Sp - 1]),
+               "decode_vs_full": []}
+        for i in range(NDEC):
+            lg, cache = decode_step(model, cache, step(Sp + i))
+            out["decode_vs_full"].append(rel_err(lg, full[:, Sp + i]))
+    out["launches"] = {fn.__name__: fn.launches - before[fn.__name__]
+                       for fn, _, _ in KERNELS}
+    if not (out["prefill_vs_full"] < 0.05
+            and max(out["decode_vs_full"]) < 0.08):
+        raise AssertionError(f"{arch} smoke consistency on the card: {out}")
+    return out
+
+
+def allocated_bytes() -> int:
+    """Bytes held by live tensors, after a collection, less cuBLAS's
+    workspaces: PyTorch keeps one in its allocator for every stream that
+    ran a product (32 MiB each on this card), and the timers run products
+    on side streams, so a phase that times them leaves a few behind
+    without holding any tensor."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def phase_moe_serve(floor: float) -> dict:
+    """Phase 11: qwen2-moe-a2.7b at full width and depth, seed 0, bf16
+    weights drawn leaf by leaf with the router in f32, so the card never
+    holds the f32 model; its kernels at its shapes, the MoE layer against
+    the dense oracle, consistency, serving, a profile; every registered
+    config at smoke size; and the memory given back."""
+    before = allocated_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = init_serving_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "moe_serve", "arch": MOE_ARCH,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in params.values()),
+           "param_bytes": nbytes(*params.values()),
+           "router_dtypes": sorted({str(t.dtype) for k, t in params.items()
+                                    if k.endswith(".router")}),
+           "memory_allocated_at_start_gb": before / 1e9,
+           "memory_after_weights_gb": torch.cuda.memory_allocated() / 1e9}
+    if out["params"] != MOE_PARAMS or out["router_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{MOE_ARCH} weights: {out}")
+    model = Transformer(cfg, params, device="cuda")
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    seconds = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(1, cfg.vocab_size, (1, MAX_SEQ), generator=g,
+                           device="cuda")
+    layer = moe_layer_case(cfg, model, tokens)
+    bf16 = torch.bfloat16
+    out["kernels"] = {
+        "flash_attention": [layer.pop("flash_attention"),
+                            layer.pop("flash_attention_prompt")],
+        "rmsnorm": [rms_case(bf16, n, False, D=cfg.d_model)
+                    for n in (MAX_SEQ, MAX_BATCH)],
+        "rmsnorm_residual": [rms_case(bf16, n, True, D=cfg.d_model)
+                             for n in (MAX_SEQ, MAX_BATCH)]}
+    for c in out["kernels"]["rmsnorm"] + out["kernels"]["rmsnorm_residual"]:
+        c["floor_ms"] = floor
+    out["moe_layer"] = layer["moe"]
+    seconds["kernels_and_moe_layer"] = lap()
+    out["long_prefills"] = moe_long_prefills(cfg, model)
+    seconds["long_prefills"] = lap()
+    out["consistency"] = moe_consistency(cfg, params, model)
+    seconds["consistency"] = lap()
+    del model
+    served, engine = moe_serve(cfg, params)
+    out["serve"] = served
+    seconds["serve"] = lap()
+    out["profile"] = moe_profile(engine, served)
+    seconds["profile"] = lap()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_above_start_gb"] = (torch.cuda.max_memory_allocated()
+                                  - before) / 1e9
+    del engine, params
+    out["smoke_archs"] = [smoke_arch_case(a) for a in sorted(list_archs())]
+    seconds["smoke_archs"] = lap()
+    out["seconds"] = seconds
+    after = allocated_bytes()
+    out["memory_allocated_after_gb"] = after / 1e9
+    emit(out)
+    if out["peak_above_start_gb"] * 1e9 > MOE_PEAK_ABOVE_START_BYTES:
+        raise AssertionError(f"{MOE_ARCH} peaked {out['peak_above_start_gb']}"
+                             f" GB above the phase's start")
+    if abs(after - before) > MEMORY_SLACK_BYTES:
+        raise AssertionError(f"allocated memory {before} -> {after} bytes "
+                             f"across phase 11")
+    return out
+
 
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
-                cluster: dict) -> dict:
+                cluster: dict, moe: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
-    kernel also with its launches in the cluster run (phase 10)."""
+    kernel also with its launches in the cluster run (phase 10); the
+    forward kernels also with their launches serving qwen2-moe-a2.7b and
+    their numbers at its shapes (phase 11: K1 on a 512-token prefill's q,
+    K2/K3 at rows (512, 2048))."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -1369,7 +1788,12 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 if k in cases[fn.__name__][0]},
              "shape": (cases[fn.__name__][0].get("q")
                        or cases[fn.__name__][0]["x"]),
-             "dtype": cases[fn.__name__][0]["dtype"]}
+             "dtype": cases[fn.__name__][0]["dtype"],
+             "moe_launches": moe["serve"]["launches"][fn.__name__],
+             "moe_launches_in": f"serve {MOE_ARCH} (phase 11)",
+             "moe_shape": {k: moe["kernels"][fn.__name__][0].get(k)
+                           for k in ("q", "x") + keys
+                           if k in moe["kernels"][fn.__name__][0]}}
             for fn, src, tpu in KERNELS]
     # K1 f32 launches on neither path: its phase 3 numbers at both shapes
     fwd = cases["flash_attention"]
@@ -1419,7 +1843,8 @@ def main() -> None:
     trained = phase_train(cfg)
     del params
     cluster = phase_cluster()
-    emit(kernel_line(served, cases, bwd, trained, cluster))
+    moe = phase_moe_serve(cases["rmsnorm"][0]["floor_ms"])
+    emit(kernel_line(served, cases, bwd, trained, cluster, moe))
     emit({"ok": True, "device": dev})
 
 

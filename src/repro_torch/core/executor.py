@@ -41,7 +41,8 @@ from repro_torch.core.compiler import ExecutionPlan
 from repro_torch.core.scheduler import Job, JobState
 from repro_torch.data import SyntheticLM, to_torch
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import init_params, state_from_jax, state_to_jax
+from repro_torch.models import (init_serving_params, state_from_jax,
+                                state_to_jax)
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                init_train_state)
@@ -175,7 +176,7 @@ class TorchServeRuntime(Runtime):
         self.cfg = get_config(e["arch"], smoke=e.get("smoke", True))
         seed = int(e.get("seed", 0))
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = init_params(self.cfg, gen, self.device)
+        params = init_serving_params(self.cfg, gen, self.device)
         self.engine = ServeEngine(self.cfg, params,
                                   max_batch=int(e.get("max_batch", 4)),
                                   max_seq=int(e.get("max_seq", 64)),

@@ -3,6 +3,11 @@ stream through the continuous-batching engine, on the card by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+
+Random weights are drawn leaf by leaf and cast at once
+(``init_serving_params``), so a full-width model whose f32 copy would not
+fit on the card (qwen2-moe-a2.7b: 60.6 GB in f32, 30.3 GB in bf16) serves.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params, params_from_jax
+from repro_torch.models import init_serving_params, params_from_jax
 from repro_torch.serve import ServeEngine
 
 
@@ -41,7 +46,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         params = params_from_jax(cfg, state["params"])
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = init_params(cfg, gen, device)
+        params = init_serving_params(cfg, gen, device)
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,
                          max_seq=args.max_seq, device=device)
     rng = np.random.RandomState(args.seed)

@@ -13,12 +13,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -54,13 +54,35 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-def ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    width = 2 * cfg.d_ff if cfg.ffn_gated else cfg.d_ff
+def ffn_defs(cfg: ModelConfig, d_ff: Optional[int] = None
+             ) -> Dict[str, ParamDef]:
+    d_ff = d_ff or cfg.d_ff
+    width = 2 * d_ff if cfg.ffn_gated else d_ff
     out = {"w_in": ParamDef((cfg.d_model, width)),
-           "w_out": ParamDef((cfg.d_ff, cfg.d_model))}
+           "w_out": ParamDef((d_ff, cfg.d_model))}
     if cfg.use_bias:
         out["b_in"] = ParamDef((width,), init="zeros")
         out["b_out"] = ParamDef((cfg.d_model,), init="zeros")
+    return out
+
+
+def padded_experts(moe: MoEConfig) -> int:
+    """Routed experts after padding (``pad_to``); the padded ones are never
+    routed to (their logits are -1e30)."""
+    return max(moe.pad_to, moe.n_experts)
+
+
+def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The router (f32 in every compute copy), the routed experts' stacked
+    SwiGLU weights and the shared block (``repro/models/moe.py``)."""
+    moe = cfg.moe
+    E, D, F = padded_experts(moe), cfg.d_model, moe.d_ff_expert
+    out = {"router": ParamDef((D, E), scale=1.0),
+           "w_in": ParamDef((E, D, 2 * F)),
+           "w_out": ParamDef((E, F, D))}
+    if moe.n_shared:
+        out.update({f"shared_{k}": d for k, d in
+                    ffn_defs(cfg, d_ff=moe.d_ff_shared).items()})
     return out
 
 
@@ -77,26 +99,21 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def check_spec(spec: LayerSpec) -> None:
-    """The port runs dense attention + dense FFN layers only, for now."""
+    """The port runs attention layers, with a dense, MoE or no FFN, in
+    sequence or in parallel; the other mixers wait."""
     if spec.mixer != "attn":
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (ROADMAP Queue 1, "
             f"items 13-14: MLA, Mamba, xLSTM)")
-    if spec.ffn == "moe":
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP Queue 1, item 12)")
-    if spec.parallel:
-        raise NotImplementedError(
-            "parallel attention + FFN is not ported yet (ROADMAP Queue 1, "
-            "item 14)")
 
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Dict[str, ParamDef]]:
     check_spec(spec)
     out = {"mixer_norm": norm_defs(cfg), "mixer": attn_defs(cfg)}
     if spec.ffn != "none":
-        out["ffn_norm"] = norm_defs(cfg)
-        out["ffn"] = ffn_defs(cfg)
+        if not spec.parallel:          # a parallel block shares one norm
+            out["ffn_norm"] = norm_defs(cfg)
+        out["ffn"] = moe_defs(cfg) if spec.ffn == "moe" else ffn_defs(cfg)
     return out
 
 
@@ -119,15 +136,9 @@ def _fan_in(d: ParamDef) -> int:
     return max(math.prod(d.shape[:-1]), 1)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """Random f32 params with ``repro.models.params.init_one``'s scales.
-
-    The values differ from ``jax.random``'s; the shapes and distributions
-    are the same. ``generator`` must live on ``device``.
-    """
-    dev = resolve_device(device)
-    out: Dict[str, torch.Tensor] = {}
+def _draw(cfg: ModelConfig, generator: torch.Generator,
+          dev: torch.device) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Each f32 leaf in turn, drawn from ``generator``."""
     for name, d in model_defs(cfg).items():
         if d.init == "zeros":
             t = torch.zeros(d.shape, device=dev)
@@ -136,8 +147,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         else:
             std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
             t = torch.randn(d.shape, generator=generator, device=dev) * std
-        out[name] = t
-    return out
+        yield name, t
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """Random f32 params with ``repro.models.params.init_one``'s scales.
+
+    The values differ from ``jax.random``'s; the shapes and distributions
+    are the same. ``generator`` must live on ``device``.
+    """
+    return dict(_draw(cfg, generator, resolve_device(device)))
+
+
+# leaves that keep f32 in the compute copy: the MoE router, as the
+# reference's early cast leaves it (``_PRECAST_EXCLUDE``,
+# repro/models/transformer.py), since top-k on bf16 logits can pick other
+# experts than on f32 ones
+KEEP_F32 = ("router",)
+
+
+def compute_dtype(cfg: ModelConfig, name: str, t: torch.Tensor
+                  ) -> torch.dtype:
+    """The dtype leaf ``name`` takes in the compute copy: ``cfg.dtype`` for a
+    matrix, its own for a vector (norm scales, biases) and the router."""
+    if t.dim() >= 2 and name.rsplit(".", 1)[-1] not in KEEP_F32:
+        return getattr(torch, cfg.dtype)
+    return t.dtype
+
+
+def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
+                        device: DeviceLike = "cuda"
+                        ) -> Dict[str, torch.Tensor]:
+    """The compute copy of :func:`init_params`'s draw, equal to
+    ``cast_for_compute(cfg, init_params(cfg, generator, device))`` from a
+    generator in the same state, but each leaf cast as soon as it is
+    drawn: the f32 model is never held whole (qwen2-moe-a2.7b's is 60.6 GB,
+    its bf16 copy 30.3 GB)."""
+    return {name: t.to(compute_dtype(cfg, name, t))
+            for name, t in _draw(cfg, generator, resolve_device(device))}
 
 
 def _as_tensor(a: Any) -> torch.Tensor:

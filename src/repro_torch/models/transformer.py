@@ -1,12 +1,16 @@
 """Model assembly: ``Block``, ``Transformer``, train/prefill/decode.
 
-Port of ``repro/models/transformer.py`` for dense attention + dense FFN
-layers. The JAX stack scans over period parameters stacked on a leading
-axis; here every layer is its own :class:`Block` in an ``nn.ModuleList``.
-The mixer norms and ``out_norm`` go through the rmsnorm kernel, and the
-residual add before each FFN norm goes through the fused
-rmsnorm_residual kernel (the sum is rounded to the activation dtype first,
-so the fused path equals the unfused reference).
+Port of ``repro/models/transformer.py`` for attention layers with a dense,
+MoE or no FFN, in sequence or in parallel (Cohere-style: attention and FFN
+on one norm, both added to the residual). The JAX stack scans over period
+parameters stacked on a leading axis; here every layer is its own
+:class:`Block` in an ``nn.ModuleList``. The RMSNorm mixer norms and
+``out_norm`` go through the rmsnorm kernel, and the residual add before
+each FFN norm goes through the fused rmsnorm_residual kernel (the sum is
+rounded to the activation dtype first, so the fused path equals the
+unfused reference). A full-sequence forward also returns the MoE layers'
+aux losses summed over layers under ``AUX_KEYS`` (None without a MoE
+layer), as the reference's ``_add_aux`` does.
 
 For training, ``Transformer(..., trainable=True)`` holds f32 master
 parameters that need gradients (matrices are cast to ``cfg.dtype`` at each
@@ -29,9 +33,13 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.rmsnorm import rmsnorm_residual
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.params import check_spec, model_defs
+from repro_torch.models import moe as MOE
+from repro_torch.models.params import check_spec, compute_dtype, model_defs
 
 Cache = Dict[str, torch.Tensor]
+Aux = Dict[str, torch.Tensor]
+
+AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 
 REMAT = ("full", "none")
@@ -51,7 +59,9 @@ def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
 
 
 class Block(nn.Module):
-    """One dense layer: mixer norm, attention, FFN norm, FFN."""
+    """One attention layer: mixer norm, attention, then a dense or MoE FFN on
+    its own norm after the residual add, or (``spec.parallel``) on the
+    mixer norm's output beside attention."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  params: Mapping[str, torch.Tensor], prefix: str,
@@ -64,23 +74,36 @@ class Block(nn.Module):
             if len(pd):
                 setattr(self, sub, pd)
 
-    def _ffn(self, x: torch.Tensor, y_mix: torch.Tensor) -> torch.Tensor:
-        """x + y_mix, then the FFN on its norm, added back."""
+    def _apply_ffn(self, h: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[Aux]]:
+        if self.spec.ffn == "moe":
+            return MOE.moe_apply(self.cfg, self.ffn, h)
+        return L.apply_ffn(self.cfg, self.ffn, h), None
+
+    def _ffn(self, x: torch.Tensor, h: torch.Tensor, y_mix: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[Aux]]:
+        """The residual adds and the FFN after the mixer, whose input was
+        ``h`` and output ``y_mix``. Returns (x, the MoE aux or None)."""
         cfg = self.cfg
         if self.spec.ffn == "none":
-            return x + y_mix
+            return x + y_mix, None
+        if self.spec.parallel:
+            y_ffn, aux = self._apply_ffn(h)
+            return x + y_mix + y_ffn, aux
         if cfg.norm == "rmsnorm":
             h, x = rmsnorm_residual(x, y_mix, self.ffn_norm["scale"],
                                     cfg.norm_eps)
         else:
             x = x + y_mix
             h = L.apply_norm(cfg, self.ffn_norm, x)
-        return x + L.apply_ffn(cfg, self.ffn, h)
+        y_ffn, aux = self._apply_ffn(h)
+        return x + y_ffn, aux
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 lengths: Optional[torch.Tensor], want_cache: bool
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """One layer over a whole sequence. Returns (x, cache or None)."""
+                ) -> Tuple[torch.Tensor, Optional[Cache], Optional[Aux]]:
+        """One layer over a whole sequence. Returns (x, cache or None, the
+        MoE aux or None)."""
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
         y_mix, (k, v) = A.self_attention(self.cfg, self.mixer, h, positions,
                                          lengths=lengths)
@@ -88,7 +111,8 @@ class Block(nn.Module):
         if want_cache:
             cache = {"k": k.to(torch.bfloat16).contiguous(),
                      "v": v.to(torch.bfloat16).contiguous()}
-        return self._ffn(x, y_mix), cache
+        x, aux = self._ffn(x, h, y_mix)
+        return x, cache, aux
 
     def decode(self, x: torch.Tensor, cache: Cache, lengths: torch.Tensor
                ) -> Tuple[torch.Tensor, Cache]:
@@ -96,7 +120,7 @@ class Block(nn.Module):
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
         y_mix, cache = A.decode_self_attention(self.cfg, self.mixer, h, cache,
                                                lengths)
-        return self._ffn(x, y_mix), cache
+        return self._ffn(x, h, y_mix)[0], cache
 
 
 class Transformer(nn.Module):
@@ -125,10 +149,12 @@ class Transformer(nn.Module):
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 lengths: Optional[torch.Tensor] = None,
                 want_cache: bool = False, remat: str = "none"
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """Full-sequence forward. Returns (hidden (B,S,D), caches or None).
-        ``remat="full"`` checkpoints each block when a graph is being
-        built (``torch.utils.checkpoint``, non-reentrant)."""
+                ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Aux]]:
+        """Full-sequence forward. Returns (hidden (B,S,D), caches or None,
+        the aux losses summed over the MoE layers or None without one).
+        ``remat="full"`` checkpoints
+        each block when a graph is being built (``torch.utils.checkpoint``,
+        non-reentrant)."""
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         cfg = self.cfg
@@ -137,27 +163,31 @@ class Transformer(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         remat = remat == "full" and torch.is_grad_enabled() and not want_cache
         caches: List[Optional[Cache]] = []
+        aux: Optional[Aux] = None
         for block in self.layers:
             if remat:
-                x = checkpoint(lambda x, block=block: block(
-                    x, positions, lengths, False)[0], x, use_reentrant=False)
+                x, a = checkpoint(lambda x, block=block: block(
+                    x, positions, lengths, False)[::2], x, use_reentrant=False)
                 c = None
             else:
-                x, c = block(x, positions, lengths, want_cache)
+                x, c, a = block(x, positions, lengths, want_cache)
             caches.append(c)
+            if a is not None:
+                aux = a if aux is None else {k: aux[k] + a[k]
+                                             for k in AUX_KEYS}
         x = L.apply_norm(cfg, self.out_norm, x)
-        return x, ({"layers": caches} if want_cache else None)
+        return x, ({"layers": caches} if want_cache else None), aux
 
 
 def cast_for_compute(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """``params`` on ``device`` with every matrix in ``cfg.dtype``; vectors
-    (norm scales, biases) keep their dtype. Every use site casts matrices to
-    ``cfg.dtype`` first, so a model on these params computes the same."""
+    """``params`` on ``device`` with every matrix in ``cfg.dtype`` but the
+    MoE router; vectors (norm scales, biases) keep their dtype
+    (``params.compute_dtype``). Every use site casts matrices to
+    ``cfg.dtype`` first and the router to f32, so a model on these params
+    computes the same."""
     dev = resolve_device(device)
-    dt = L.dtype_of(cfg.dtype)
-    return {k: v.to(dev, dt if v.dim() >= 2 else v.dtype)
-            for k, v in params.items()}
+    return {k: v.to(dev, compute_dtype(cfg, k, v)) for k, v in params.items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -174,18 +204,20 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def train_logits(model: Transformer, batch: Mapping[str, torch.Tensor], *,
-                 remat: str = "full") -> torch.Tensor:
-    """f32 logits (B, S, V) of a full-sequence forward; differentiable when
-    the model is trainable. ``remat`` as JAX's ``RunFlags.remat``."""
-    x, _ = model(batch, remat=remat)
-    return L.unembed(model.cfg, model.embed, x)
+                 remat: str = "full") -> Tuple[torch.Tensor, Optional[Aux]]:
+    """f32 logits (B, S, V) of a full-sequence forward and the aux losses
+    under ``AUX_KEYS`` (None without a MoE layer); differentiable when the
+    model is trainable.
+    ``remat`` as JAX's ``RunFlags.remat``."""
+    x, _, aux = model(batch, remat=remat)
+    return L.unembed(model.cfg, model.embed, x), aux
 
 
 def prefill(model: Transformer, batch: Mapping[str, torch.Tensor],
             lengths: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """Prompt ingestion. lengths: (B,) int32. Returns (logits at position
     lengths - 1 (B, V), cache)."""
-    x, caches = model(batch, lengths=lengths, want_cache=True)
+    x, caches, _ = model(batch, lengths=lengths, want_cache=True)
     B, S = x.shape[:2]
     idx = torch.clamp(lengths - 1, 0, S - 1).long()
     last = x[torch.arange(B, device=x.device), idx]

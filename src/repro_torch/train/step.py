@@ -19,14 +19,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.params import init_params
-from repro_torch.models.transformer import Transformer, train_logits
+from repro_torch.models.transformer import AUX_KEYS, Transformer, train_logits
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt
 
-# MoE auxiliary losses: zero for the dense layers the port runs (MoE waits
-# for ROADMAP Queue 1 item 12); added to the loss times ``aux_scale`` and
-# reported under JAX's keys, as JAX does
-AUX_KEYS = ("moe_load_balance", "moe_router_z")
 STAT_KEYS = ("ce", "z_loss", "accuracy", "tokens", "loss") + AUX_KEYS
 
 State = Dict[str, Any]
@@ -84,12 +80,14 @@ def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
         return built["model"]
 
     def grad_fn(model: Transformer, micro: Mapping[str, torch.Tensor]):
-        logits = train_logits(model, micro, remat=remat)
+        logits, aux = train_logits(model, micro, remat=remat)
         loss, stats = cross_entropy(logits, micro["labels"],
                                     z_loss=tcfg.z_loss)
-        aux = {k: torch.zeros((), device=logits.device) for k in AUX_KEYS}
+        if aux is None:                     # no MoE layer
+            aux = {k: torch.zeros((), device=logits.device) for k in AUX_KEYS}
         loss = loss + tcfg.aux_scale * sum(aux.values())
-        stats = dict(stats, **aux, loss=loss.detach())
+        stats = dict(stats, **{k: v.detach() for k, v in aux.items()},
+                     loss=loss.detach())
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return grads, stats
 

@@ -15,7 +15,7 @@ from repro.models import attention as JA
 from repro.models import init_params as jax_init_params
 from repro.models import layers as JL
 from repro.models import model_defs as jax_model_defs
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models.params import params_from_jax
@@ -58,10 +58,15 @@ def _close(t, j, atol=ATOL):
 
 
 def test_configs_equal_field_for_field():
+    """Every registered config, full and smoke, and the f32 smoke
+    variant the layer tests use."""
     jcfg, tcfg = _configs()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert dataclasses.asdict(jax_get_config("tacc-100m")) == \
-        dataclasses.asdict(get_config("tacc-100m"))
+    assert len(list_archs()) == 8
+    for arch in list_archs():
+        for smoke in (False, True):
+            assert dataclasses.asdict(jax_get_config(arch, smoke=smoke)) == \
+                dataclasses.asdict(get_config(arch, smoke=smoke)), arch
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])

@@ -107,7 +107,8 @@ def test_train_logits_match_jax(model):
     toks = _tokens((B, S))
     lj, _ = jax.jit(lambda p, t: jax_train_logits(jcfg, p, {"tokens": t}))(
         jp, jnp.asarray(toks))
-    lt = train_logits(tm, {"tokens": torch.from_numpy(toks).long()})
+    lt, aux = train_logits(tm, {"tokens": torch.from_numpy(toks).long()})
+    assert aux is None                                   # no MoE layer
     assert lt.dtype == torch.float32 and lt.shape == lj.shape
     assert _rel_err(lt.numpy(), lj) < 0.03
 
@@ -159,10 +160,9 @@ def test_init_cache_layout():
 def test_other_mixers_raise_naming_the_roadmap():
     from repro_torch.configs.base import LayerSpec
     cfg = get_config("tacc-100m", smoke=True)
-    for spec, item in ((LayerSpec("mamba"), "13-14"),
-                       (LayerSpec("attn", "moe"), "item 12")):
-        bad = type(cfg)(**{**cfg.__dict__, "period": (spec,)})
-        with pytest.raises(NotImplementedError, match=item):
+    for mixer in ("mla", "mamba", "mlstm", "slstm"):
+        bad = type(cfg)(**{**cfg.__dict__, "period": (LayerSpec(mixer),)})
+        with pytest.raises(NotImplementedError, match="items 13-14"):
             model_defs(bad)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama3-405b")
+    with pytest.raises(KeyError, match="ROADMAP Queue 1, items 13-14"):
+        get_config("deepseek-v2-236b")

@@ -127,6 +127,9 @@ def test_long_workload_never_exceeds_max_seq(bf16_model):
 
 
 def test_engine_casts_matrices_once_and_keeps_norms_f32(bf16_model):
+    """Matrices in bf16, norm scales in f32; and the MoE router in f32, as
+    JAX's early cast leaves it: top-k on bf16 router logits can pick other
+    experts (here, in 5 of 512 rows: a 512-token prefill's worth)."""
     cfg, params = bf16_model
     eng = ServeEngine(cfg, params, max_batch=1, max_seq=8, device="cpu")
     sd = eng.model.state_dict()
@@ -134,6 +137,23 @@ def test_engine_casts_matrices_once_and_keeps_norms_f32(bf16_model):
     assert sd["embed.tok"].dtype == torch.bfloat16
     assert sd["layers.0.mixer_norm.scale"].dtype == torch.float32
     assert params["layers.0.mixer.wq"].dtype == torch.float32  # caller's
+
+    from repro_torch.models.moe import route
+    moe_cfg = get_config("qwen2-moe-a2.7b", smoke=True)
+    jp = jax_init_params(jax_model_defs(moe_cfg), jax.random.PRNGKey(0))
+    moe_params = params_from_jax(moe_cfg, jax.tree.map(np.asarray, jp))
+    eng = ServeEngine(moe_cfg, moe_params, max_batch=1, max_seq=8,
+                      device="cpu")
+    sd = eng.model.state_dict()
+    router = sd["layers.0.ffn.router"]
+    assert router.dtype == torch.float32 and sd["layers.0.ffn.w_in"].dtype \
+        == torch.bfloat16
+    assert torch.equal(router, moe_params["layers.0.ffn.router"])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (512, moe_cfg.d_model)).astype(np.float32)).bfloat16()
+    idx_f32, _, _ = route(moe_cfg, x, router)
+    idx_bf16, _, _ = route(moe_cfg, x, router.bfloat16())
+    assert not torch.equal(idx_f32, idx_bf16)
 
 
 def test_launcher_serves_on_cpu_and_from_a_checkpoint(f32_model, tmp_path,

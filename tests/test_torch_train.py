@@ -162,7 +162,7 @@ def _port_params(tcfg, jax_params):
 
 def _port_grads(tcfg, params, batch, remat="full"):
     model = Transformer(tcfg, params, device="cpu", trainable=True)
-    logits = train_logits(model, _torch_batch(batch), remat=remat)
+    logits, _ = train_logits(model, _torch_batch(batch), remat=remat)
     loss, _ = cross_entropy(logits, torch.from_numpy(batch["labels"]).long())
     names, ps = zip(*model.named_parameters())
     return loss, dict(zip(names, torch.autograd.grad(loss, ps)))
