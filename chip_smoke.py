@@ -8,9 +8,10 @@ Phases, each printing one JSON line and raising on failure:
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc,
    built anew so that ptxas reports on each; HGMMA (wgmma) in the SASS of
-   every bf16 flash-attention kernel (forward, K1b-dq and K1b-dkdv, at
-   D = 64 and 128), and 128-bit global loads and stores in every 16-byte
-   rmsnorm kernel;
+   every bf16 flash-attention kernel (forward at D = 64, 128 and 192,
+   K1b-dq and K1b-dkdv at D = 64 and 128), no spills in the D = 192 bf16
+   forward, and 128-bit global loads and stores in every 16-byte rmsnorm
+   kernel;
 3. kernels: each kernel against its plain PyTorch version at the serving
    shapes of tacc-100m (k/v as strided views of one tensor, as the model
    gives them), with its time, the plain version's, one PyTorch library
@@ -20,9 +21,12 @@ Phases, each printing one JSON line and raising on failure:
    the tile edges, with and without its key split, and a base 4 bytes off,
    which must be copied), its o bit-equal over two calls and its strided
    k/v read without a copy, and ptxas's spills of the D = 64 f32 forward
-   kernels 0; the norms at theirs (one row, a ragged last
-   block, a row or base off 16 bytes, rows of 1536, 2048, 8192 and 16384,
-   and the serving job's rows of 64 in phase 10),
+   kernels 0; K1 at D = 192 (MLA's q/k width) in both dtypes, timed at
+   deepseek-v2's prefill shape q (1, 512, 128, 192) and checked at
+   S = 33, 65, 129 and 512 with lengths around the tile edges and 0,
+   causal and full; the norms at theirs (one row, a ragged last
+   block, a row or base off 16 bytes, rows of 512, 1536, 2048, 5120, 8192
+   and 16384, and the serving job's rows of 64 in phase 10),
    each with the variant the wrapper launched; and the launch floor, an
    empty kernel's time; K1, K2 and K3 also at the training shapes
    (q (16, 128, 12, 64), rows (2048, 768));
@@ -63,6 +67,10 @@ Phases, each printing one JSON line and raising on failure:
    within 100 MB; every kernel must have launched (the backward kernels
    exactly as often as the steps run say); K1 is also held against its
    plain version at the serving job's shape (head dim 16, run padded);
+   before the service starts, the job's initial state, drawn on this
+   host's CPU, must have the leaf sums of tools/jax_loss_curve.json, and
+   after it the straight run's 60 losses must stay within that file's bar
+   of JAX's curve at every step (rel 1e-3 at step 0);
 11. moe_serve: qwen2-moe-a2.7b at full width and depth (15,146,403,840
    parameters), seed 0, its bf16 weights drawn leaf by leaf with the
    router in f32 (the card never holds the f32 model): K1 on layer 0's q,
@@ -79,13 +87,26 @@ Phases, each printing one JSON line and raising on failure:
    as often as the code says and the dispatch never (no call reaches its
    rows); a profile; every registered config at smoke
    size, prefill + decode against its full forward; the peak under 40 GB
-   above what earlier phases left and the memory given back.
+   above what earlier phases left and the memory given back;
+12. mla_serve: deepseek-v2-236b at full width, cut to its first 4 of 60
+   layers (the dense MLA prelayer and 3 MLA + MoE layers; 13,302,912,000
+   parameters), seed 0, bf16 weights drawn leaf by leaf with the router in
+   f32: K1 at D = 192 on layer 0's q, k, v from a 512-token prefill and
+   K2/K3 at MLA's widths (5120, 1536, 512), each against its plain
+   version with its times and bound; the absorbed decode against the
+   naive one at layers 0 and 3, in f32 and bf16; prefill + 4 decode steps
+   against the full forward, and the first 2 layers against the CPU on a
+   32-token prompt; phase 5's traffic served, every kernel launched as
+   often as the code says, no host sync; a profile; the peak under 40 GB
+   above the phase's start and the memory given back.
 
 Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
 (forward kernels) or phase 9 (backward kernels), and in phase 10
 (``cluster_launches``) and in phase 11 (``moe_launches``, with the
 numbers at qwen2-moe's shapes), K1's row with its f32
-numbers at both timed shapes (no path launches it), and the last line
+numbers at both timed shapes (no path launches it), a row for K1 at
+D = 192 with its launches in phase 12 and its numbers there (f32 from
+phase 3), and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -93,6 +114,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -132,6 +154,7 @@ from repro_torch.models import (Transformer, cast_for_compute, decode_step,
                                 prefill, state_from_jax, train_logits)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
@@ -263,7 +286,7 @@ def sass(library: str) -> dict:
 
 WGMMA_KERNELS = [f"{k}<bf16, {d}>" for k in (
     "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
-    for d in (64, 128)]
+    for d in (64, 128)] + ["flash_fwd_wgmma<bf16, 192>"]
 
 
 def hgmma_counts() -> dict:
@@ -315,14 +338,17 @@ def ptxas_report(report: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Returns ptxas's report by kernel name."""
+    """Returns ptxas's report by kernel name. The D = 192 bf16 forward (96
+    accumulator registers a thread) must not spill."""
     t0 = time.perf_counter()
     reports = build.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {name: ptxas_report(rep) for name, rep in reports.items()}
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
           "hgmma": hgmma_counts(), "ldst128": wide_access_counts()})
-    return {k: v for rep in ptxas.values() for k, v in rep.items()}
+    flat = {k: v for rep in ptxas.values() for k, v in rep.items()}
+    require_no_spills(flat, ("flash_fwd_wgmma<bf16, 192>",), "build_spills")
+    return flat
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -334,13 +360,14 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_case(dtype, lengths_list, *, causal=True, S=MAX_SEQ, D=None,
-               timed=True, offset=0):
+               timed=True, offset=0, H=None, KV=None):
     """K1 against its plain version; o must be bit-equal over two calls.
     k/v are strided views of one fused tensor, which the wrapper must pass
     to the kernel uncopied; ``offset`` (elements) puts the bases of q and
-    of the fused k/v tensor off 16 bytes, so the wrapper must copy them."""
+    of the fused k/v tensor off 16 bytes, so the wrapper must copy them.
+    Heads and head dim are tacc-100m's unless given."""
     cfg = get_config("tacc-100m")
-    B, H, KV = len(lengths_list), cfg.n_heads, cfg.n_kv_heads
+    B, H, KV = len(lengths_list), H or cfg.n_heads, KV or cfg.n_kv_heads
     D = D or cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(offset + B * S * H * D, generator=g,
@@ -488,6 +515,8 @@ def rms_cases(residual: bool, floor: float) -> list:
              # every warp-layout width kept (1536, 2048), then the wide one
              (MAX_BATCH, {"D": 1536}), (MAX_BATCH, {"D": 2048}),
              (MAX_BATCH, {"D": 8192}), (MAX_BATCH, {"D": 16384}),
+             # deepseek-v2's kv_norm and d_model (phase 12)
+             (MAX_BATCH, {"D": 512}), (MAX_BATCH, {"D": 5120}),
              (100, {"D": 384}), (8, {"D": 128}),      # tests/test_kernels.py
              # the serving job's prefill and decode rows in phase 10 (the
              # smoke config's d_model)
@@ -570,9 +599,27 @@ def phase_kernels(ptxas: dict) -> dict:
         ],
         "rmsnorm": rms_cases(False, floor),
         "rmsnorm_residual": rms_cases(True, floor),
+        "flash_attention_d192": flash_d192_cases(),
     }
     emit({"phase": "kernels", "floor_ms": floor, "cases": cases})
     return cases
+
+
+def flash_d192_cases() -> list:
+    """K1 at D = 192, MLA's q/k width: timed at deepseek-v2's prefill shape
+    in both dtypes, then at the tile edges (S = 33, 65, 129, 512, lengths
+    around them and 0), causal and full, with tacc-100m's GQA heads. The
+    f32 cases with fewer blocks than SMs split their keys."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    mla = get_config(MLA_ARCH)
+    timed = [flash_case(dt, [MAX_SEQ], D=192, H=mla.n_heads,
+                        KV=mla.n_kv_heads) for dt in (bf16, f32)]
+    edges = [([33, 32, 31], {"S": 33}), ([65, 64, 63, 1], {"S": 65}),
+             ([129, 128, 0], {"S": 129}),
+             ([1, 64, 65, 512, 0, 300, 511, 128], {}),
+             ([0, 77], {"causal": False}), ([MAX_SEQ], {"causal": False})]
+    return timed + [flash_case(dt, lens, D=192, timed=False, **kw)
+                    for dt in (bf16, f32) for lens, kw in edges]
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -1210,18 +1257,121 @@ def serve_job_flash_case(cfg) -> dict:
     return case
 
 
+# JAX's loss curve for this phase's job (tools/jax_loss_curve.py writes it)
+JAX_CURVE = os.path.join(ROOT, "tools", "jax_loss_curve.json")
+# step 0: the same state and batch, only the forward differs: phase 8's bar
+JAX_CURVE_STEP0_BAR = 1e-3
+# later steps: this many times the largest gap the port's CPU path showed
+# against JAX at that step or before (see jax_curve_bars)
+JAX_CURVE_GAP_FACTOR = 3.0
+
+
+def curve_spec(spec) -> dict:
+    """What fixes a training job's loss curve, as its runtime reads it from
+    the spec: the model, the optimizer and train configs, the data stream
+    and the seed."""
+    cfg, ocfg, tcfg = TorchTrainRuntime.configs(spec)
+    batch, seq, seed = TorchTrainRuntime.stream(spec)
+    return {"arch": cfg.name, "dtype": cfg.dtype, "global_batch": batch,
+            "seq_len": seq, "seed": seed,
+            **{f.name: getattr(ocfg, f.name)
+               for f in dataclasses.fields(ocfg)
+               if not isinstance(getattr(ocfg, f.name), torch.dtype)},
+            "m_dtype": str(ocfg.m_dtype), "v_dtype": str(ocfg.v_dtype),
+            "n_microbatches": tcfg.n_microbatches, "z_loss": tcfg.z_loss,
+            "aux_scale": tcfg.aux_scale}
+
+
+def leaf_sums(state) -> dict:
+    """Each leaf of a train state, by name: its float64 sum and sum of
+    squares (numpy's pairwise sums, whatever the device)."""
+    leaves = [(f"params.{k}", v) for k, v in state["params"].items()]
+    leaves += [(f"opt.{part}.{k}", v) for part in ("m", "v")
+               for k, v in state["opt"][part].items()]
+    leaves.append(("opt.step", state["opt"]["step"]))
+    out = {}
+    for name, t in leaves:
+        a = t.detach().cpu().double().numpy()
+        out[name] = [float(a.sum()), float(np.square(a).sum())]
+    return out
+
+
+def jax_curve_bars(jax_losses, cpu_losses) -> list:
+    """The bar on |loss - JAX's| / |JAX's| at each step: at step 0
+    ``JAX_CURVE_STEP0_BAR``; at step i > 0 ``JAX_CURVE_GAP_FACTOR`` times
+    the largest relative gap between the port's CPU path and JAX at steps
+    0..i, and never below ``JAX_CURVE_STEP0_BAR``. The card's kernels sum
+    in other orders than the CPU's plain path, as that path does against
+    XLA: a gap of the same kind, which training carries forward (the
+    running max)."""
+    bars, worst = [], 0.0
+    for i, (j, c) in enumerate(zip(jax_losses, cpu_losses)):
+        worst = max(worst, abs(c - j) / abs(j))
+        bars.append(JAX_CURVE_STEP0_BAR if i == 0 else
+                    max(JAX_CURVE_GAP_FACTOR * worst, JAX_CURVE_STEP0_BAR))
+    return bars
+
+
+def jax_curve_start(ex) -> dict:
+    """Phase 10's first check, before the service starts: JAX's curve in
+    ``JAX_CURVE`` is for this phase's job (the same spec fields), the job's
+    initial state, drawn here on the CPU as its runtime draws it, has the
+    file's leaf sums (rel 1e-9), and the file's bar is
+    :func:`jax_curve_bars` of its losses. Returns the file."""
+    with open(JAX_CURVE) as f:
+        ref = json.load(f)
+    spec = ex.train_spec(smoke=False, steps=CLUSTER_STEPS,
+                         ckpt_every=CLUSTER_CKPT_EVERY)
+    if curve_spec(spec) != ref["spec"]:
+        raise AssertionError(f"{JAX_CURVE} is for another job: "
+                             f"{ref['spec']} against {curve_spec(spec)}")
+    cfg, ocfg, _ = TorchTrainRuntime.configs(spec)
+    seed = TorchTrainRuntime.stream(spec)[2]
+    sums = leaf_sums(init_train_state(
+        cfg, ocfg, torch.Generator().manual_seed(seed), "cpu"))
+    off = [n for n, want in ref["leaf_sums"].items()
+           if n not in sums or not all(
+               math.isclose(a, b, rel_tol=1e-9, abs_tol=1e-9)
+               for a, b in zip(sums[n], want))]
+    if off or set(sums) != set(ref["leaf_sums"]):
+        raise AssertionError(
+            f"the job's initial state drawn on this host's CPU differs from "
+            f"the one JAX's curve starts from ({JAX_CURVE}): torch "
+            f"{torch.__version__} here, {ref['port_cpu']['torch']} there; "
+            f"rerun tools/jax_loss_curve.py with this torch. Leaves off: "
+            f"{off[:8]} of {len(ref['leaf_sums'])}")
+    if jax_curve_bars(ref["jax"]["loss"], ref["port_cpu"]["loss"]) \
+            != ref["bar"]:
+        raise AssertionError(f"{JAX_CURVE}'s bar is not jax_curve_bars of "
+                             f"its losses")
+    return ref
+
+
+def jax_curve_gaps(losses, ref: dict) -> dict:
+    """The straight run's losses against JAX's curve: each step's relative
+    gap, its bar, the largest gap and its step, and the steps over their
+    bar."""
+    jl, bars = ref["jax"]["loss"], ref["bar"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, jl)]
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    return {"jax_rel_gaps": gaps, "jax_bars": bars[:len(gaps)],
+            "jax_max_rel_gap": gaps[worst], "jax_max_rel_gap_step": worst,
+            "jax_steps_over_bar": [i for i, g in enumerate(gaps)
+                                   if not g <= bars[i]],
+            "jax_steps_compared": len(gaps)}
+
+
 def _straight_run(spec, steps: int):
     """The job's training without the service: the config, OptConfig and
     TrainConfig its runtime builds, the same seed and batches, one loop,
     no checkpoints. Returns (cfg, state, losses, lrs)."""
     cfg, ocfg, tcfg = TorchTrainRuntime.configs(spec)
-    e = spec.entry
-    seed = int(e.get("seed", 0))
-    data = SyntheticLM(cfg, int(e["global_batch"]), int(e["seq_len"]),
-                       seed=seed)
+    batch, seq, seed = TorchTrainRuntime.stream(spec)
+    data = SyntheticLM(cfg, batch, seq, seed=seed)
     step_fn = build_train_step(cfg, ocfg, tcfg)
-    state = init_train_state(
-        cfg, ocfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    # drawn on the CPU, as the runtime draws it
+    state = init_train_state(cfg, ocfg, torch.Generator().manual_seed(seed),
+                             "cuda")
     losses, lrs = [], []
     for i in range(steps):
         state, m = step_fn(state, to_torch(data.batch(i), "cuda"))
@@ -1259,6 +1409,7 @@ def phase_cluster() -> dict:
     kernels' inputs from the spec; every kernel's count is zeroed just
     before the service starts and read when it has ended."""
     ex = _load_example()
+    curve = jax_curve_start(ex)
     serve_k1 = serve_job_flash_case(get_config("tacc-100m", smoke=True))
     wrappers = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
                                                BWD_KERNELS]
@@ -1377,6 +1528,15 @@ def phase_cluster() -> dict:
                     and out["param_share_beyond_1pct"] <= 5e-3):
                 failures.append("the final params differ from the straight "
                                 "run's beyond phase 9's share of the lr")
+            out.update(jax_curve_gaps(losses, curve))
+            if out["jax_steps_compared"] != CLUSTER_STEPS \
+                    or out["jax_steps_over_bar"]:
+                failures.append(
+                    f"the loss left JAX's curve beyond its bar at steps "
+                    f"{out['jax_steps_over_bar']} of "
+                    f"{out['jax_steps_compared']} (largest gap "
+                    f"{out['jax_max_rel_gap']} at step "
+                    f"{out['jax_max_rel_gap_step']})")
         out["serve_job_k1"] = serve_k1
         out["failures"] = failures
         emit(out)
@@ -1521,11 +1681,13 @@ def moe_long_prefills(cfg, model) -> dict:
     return out
 
 
-def moe_consistency(cfg, params, model) -> dict:
+def full_width_consistency(cfg, params, model, cpu_seq: int = 128,
+                           cpu_len: int = 103) -> dict:
     """Prefill at B = 2, S = 128 and 4 decode steps against the full
     forward; then the model cut to its first ``MOE_CPU_LAYERS`` layers at
-    full width, a prefill on the card against the same layers on the CPU
-    through the plain path."""
+    full width, a prefill of one row's first ``cpu_seq`` tokens with
+    ``cpu_len`` of them valid on the card against the same layers on the
+    CPU through the plain path."""
     B, S, NDEC = 2, 128, 4
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
@@ -1545,19 +1707,20 @@ def moe_consistency(cfg, params, model) -> dict:
         del full, cache, lg
         cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
         names = list(model_defs(cut))
-        lens1 = torch.tensor([Sp - 21], dtype=torch.int32)
+        lens1 = torch.tensor([cpu_len], dtype=torch.int32)
+        row = toks[:1, :cpu_seq]
         lg_gpu, _ = prefill(
             Transformer(cut, {n: params[n] for n in names}, device="cuda"),
-            {"tokens": toks[:1]}, lens1.cuda())
+            {"tokens": row}, lens1.cuda())
         t0 = time.perf_counter()
         lg_cpu, _ = prefill(
             Transformer(cut, {n: params[n].cpu() for n in names},
-                        device="cpu"), {"tokens": toks[:1].cpu()}, lens1)
+                        device="cpu"), {"tokens": row.cpu()}, lens1)
         out["cpu_seconds"] = time.perf_counter() - t0
         out["prefill_vs_cpu_plain"] = rel_err(lg_gpu, lg_cpu)
     out["cpu_cut"] = (f"the first {MOE_CPU_LAYERS} of {cfg.n_layers} layers "
-                      f"at full width: the host's time and memory force the "
-                      f"cut, not the card")
+                      f"at full width, {cpu_len} of {cpu_seq} tokens: the "
+                      f"host's time and memory force the cut, not the card")
     out["bars"] = {"prefill_vs_full": 0.05, "decode_vs_full": 0.08,
                    "prefill_vs_cpu_plain": 0.03}
     if not (out["prefill_vs_full"] < 0.05
@@ -1567,14 +1730,29 @@ def moe_consistency(cfg, params, model) -> dict:
     return out
 
 
-def moe_serve(cfg, params):
+def serve_launches(cfg, prefills: int, decodes: int) -> dict:
+    """Kernel launches of ``prefills`` prefills and ``decodes`` decode
+    steps of ``cfg`` (RMSNorm, no parallel layer): K1 once a layer a
+    prefill; K2 once a layer, once for out_norm, and for an MLA layer once
+    more for kv_norm and again for q_norm where the query is low-rank; K3
+    once a layer with an FFN; K2 and K3 as often in a decode step."""
+    n = cfg.n_layers
+    mla = sum(1 + bool(cfg.mla.q_lora_rank) for spec in cfg.layer_specs
+              if spec.mixer == "mla")
+    ffn = sum(spec.ffn != "none" for spec in cfg.layer_specs)
+    calls = prefills + decodes
+    return {"flash_attention": n * prefills,
+            "rmsnorm": (n + 1 + mla) * calls,
+            "rmsnorm_residual": ffn * calls}
+
+
+def serve_traffic(cfg, params):
     """Phase 5's traffic through ServeEngine on this model; every count set
-    to 0 just before and read just after. Each prefill launches K1 once a
-    layer, K2 once a layer and for out_norm, K3 once a layer; each decode
-    step K2 and K3 as often, and K1 never; no call reaches
-    ``DISPATCH_MIN_ROWS`` rows (a prefill has ``MAX_SEQ``, a decode step
-    ``MAX_BATCH``), so the dispatch never runs and never reads to the host.
-    Returns (the numbers, the engine, which the profile goes on serving)."""
+    to 0 just before and read just after, against :func:`serve_launches`.
+    No call reaches ``DISPATCH_MIN_ROWS`` rows (a prefill has ``MAX_SEQ``,
+    a decode step ``MAX_BATCH``), so the MoE dispatch never runs and never
+    reads to the host. Returns (the numbers, the engine, which the profile
+    goes on serving)."""
     engine = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                          seed=SEED, device="cuda")
     rng = np.random.RandomState(SEED)
@@ -1591,10 +1769,7 @@ def moe_serve(cfg, params):
     launches = {fn.__name__: fn.launches for fn, _, _ in KERNELS}
     syncs = MOE.dispatch_routed.host_syncs
     pf, dc = engine.timings["prefill"], engine.timings["decode"]
-    n = cfg.n_layers
-    expected = {"flash_attention": n * len(pf),
-                "rmsnorm": (n + 1) * (len(pf) + len(dc)),
-                "rmsnorm_residual": n * (len(pf) + len(dc))}
+    expected = serve_launches(cfg, len(pf), len(dc))
     tokens = sum(len(r.tokens) for r in results)
     out = {"requests": len(results), "tokens": tokens,
            "prompt_tokens": sum(len(p) for p in prompts),
@@ -1619,7 +1794,7 @@ def moe_serve(cfg, params):
     return out, engine
 
 
-def moe_profile(engine, served: dict) -> dict:
+def serve_profile(engine, served: dict) -> dict:
     """4 prefills and 16 decode steps of the served engine under
     torch.profiler; idle shares against the untraced means."""
     rng = np.random.RandomState(SEED + 1)
@@ -1741,13 +1916,13 @@ def phase_moe_serve(floor: float) -> dict:
     seconds["kernels_and_moe_layer"] = lap()
     out["long_prefills"] = moe_long_prefills(cfg, model)
     seconds["long_prefills"] = lap()
-    out["consistency"] = moe_consistency(cfg, params, model)
+    out["consistency"] = full_width_consistency(cfg, params, model)
     seconds["consistency"] = lap()
     del model
-    served, engine = moe_serve(cfg, params)
+    served, engine = serve_traffic(cfg, params)
     out["serve"] = served
     seconds["serve"] = lap()
-    out["profile"] = moe_profile(engine, served)
+    out["profile"] = serve_profile(engine, served)
     seconds["profile"] = lap()
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["peak_above_start_gb"] = (torch.cuda.max_memory_allocated()
@@ -1768,15 +1943,205 @@ def phase_moe_serve(floor: float) -> dict:
     return out
 
 
+# -- phase 12 --------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"
+# deepseek-v2 at full width cut to its first 4 of 60 layers, the dense MLA
+# prelayer and 3 MLA + MoE layers: 1,048,576,000 embedding and unembedding,
+# 149,227,520 a mixer, 188,743,680 the dense FFN, 3,823,206,400 a MoE FFN
+# and the norms; 26.6 GB in bf16. Five layers would take 36.5 GB, too close
+# to the 40 GB bar on the phase's peak
+MLA_LAYERS = 4
+MLA_PARAMS = 13_302_912_000
+MLA_DECODE_LAYERS = (0, 3)
+# the absorbed decode against the naive one on the same layer, input and
+# cache. f32: tests/test_attention.py's atol 1e-4 / rtol 1e-3, elementwise.
+# bf16: max |absorbed - naive| over max |naive| of the layer's output. The
+# two forms round different intermediates to bf16 (q_lat, ctx and o
+# against K, V and o, each to 2^-9 relative): about 1e-2 of the output's
+# largest entry at worst; 5.6e-3 read on the CPU at full width
+# (deepseek-v2's layer 0, seed 0, 64 cached tokens). The bar is twice the
+# estimate
+MLA_DECODE_BF16_BAR = 2e-2
+# phase 11's bar on the peak above the phase's start, and its CPU cut's
+# layers; the CPU's prompt is short, since its dense MoE oracle takes about
+# 4 TFLOP a layer at 512 rows
+MLA_CPU_SEQ, MLA_CPU_LEN = 32, 27
+
+
+def mla_k1_case(cfg, model, tokens: torch.Tensor) -> dict:
+    """K1 at D = 192 on layer 0's q, k and V zero-padded to 192 from a real
+    prefill, timed (``flash_check``), and again at a serve prompt's
+    expected length."""
+    layer = model.layers[0]
+    S = tokens.shape[1]
+    with torch.inference_mode():
+        x = L.embed_tokens(cfg, model.embed, tokens)
+        positions = torch.arange(S, device="cuda")[None, :]
+        h = L.apply_norm(cfg, layer.mixer_norm, x)
+        q, k, v, _, _ = MLA.mla_qkv(cfg, layer.mixer, h, positions)
+        case = flash_check(q, k, v, [S])
+        prompt = flash_check(q, k, v, [136], timed=False)
+    if q.shape[-1] != 192:
+        raise AssertionError(f"{cfg.name}'s q/k head dim is {q.shape[-1]}")
+    return {"full": case, "prompt": prompt}
+
+
+def mla_decode_cases(cfg, model) -> dict:
+    """The absorbed decode against the naive one at ``MLA_DECODE_LAYERS``,
+    in f32 (the layer's weights and the cache cast up) and bf16: each
+    layer's cache from a real prefill of 2 rows (64 and 41 tokens), one
+    new unit-RMS input row each. The caches the two forms write must be
+    bit-equal. Both forms timed in bf16."""
+    B, S, ROOM = 2, 64, 8
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    lengths = torch.tensor([S, 41], dtype=torch.int32, device="cuda")
+    out = {"rows": B, "cached": lengths.tolist(), "layers": {},
+           "bars": {"float32": "atol 1e-4, rtol 1e-3 elementwise",
+                    "bfloat16": MLA_DECODE_BF16_BAR}}
+    failures = []
+    with torch.inference_mode():
+        _, cache = prefill(model, {"tokens": toks}, lengths)
+        h0 = torch.randn(B, 1, cfg.d_model, generator=g, device="cuda")
+        for i in MLA_DECODE_LAYERS:
+            layer = model.layers[i]
+            res = {}
+            for dt in (torch.float32, torch.bfloat16):
+                p = {k: v.to(dt) if v.dim() > 1 else v
+                     for k, v in layer.mixer.items()}
+                base = {k: F.pad(v, (0, 0, 0, ROOM)).to(dt)
+                        for k, v in cache["layers"][i].items()}
+                h = h0.to(dt)
+
+                def run(absorbed, p=p, base=base, h=h):
+                    return MLA.mla_decode_attention(
+                        cfg, p, h, {k: v.clone() for k, v in base.items()},
+                        lengths, absorbed=absorbed)
+                (ya, ca), (yn, cn) = run(True), run(False)
+                d = (ya.float() - yn.float()).abs()
+                name = str(dt).split(".")[-1]
+                r = {"rel_err": float(d.max() / yn.float().abs().max()),
+                     "max_abs_err": float(d.max()),
+                     "caches_bit_equal": all(torch.equal(ca[k], cn[k])
+                                             for k in ca),
+                     "finite": bool(torch.isfinite(ya.float()).all())}
+                if dt == torch.float32:
+                    r["within"] = bool((d <= 1e-4 + 1e-3 * yn.float().abs())
+                                       .all())
+                else:
+                    r["within"] = r["rel_err"] <= MLA_DECODE_BF16_BAR
+                    r["absorbed_ms"] = call_ms(lambda: run(True), iters=10)
+                    r["naive_ms"] = call_ms(lambda: run(False), iters=10)
+                if not (r["within"] and r["caches_bit_equal"]
+                        and r["finite"]):
+                    failures.append((i, name))
+                res[name] = r
+            out["layers"][str(i)] = res
+        del cache
+    if failures:
+        raise AssertionError(f"the absorbed MLA decode disagrees with the "
+                             f"naive one at {failures}: {out}")
+    return out
+
+
+def phase_mla_serve(floor: float) -> dict:
+    """Phase 12: deepseek-v2-236b at full width, cut to ``MLA_LAYERS``
+    layers, seed 0, bf16 weights drawn leaf by leaf with the router in f32:
+    K1 at D = 192 and K2/K3 at its widths, the absorbed decode against the
+    naive one, consistency against the full forward and the CPU, phase 5's
+    traffic, a profile, and the memory given back."""
+    before = allocated_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    params = init_serving_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    out = {"phase": "mla_serve", "arch": MLA_ARCH,
+           "layers": f"{MLA_LAYERS} of {get_config(MLA_ARCH).n_layers}: "
+                     f"{[s.mixer + '+' + s.ffn for s in cfg.layer_specs]}",
+           "reduced": "depth only",
+           "init_s": time.perf_counter() - t0,
+           "params": sum(t.numel() for t in params.values()),
+           "param_bytes": nbytes(*params.values()),
+           "router_dtypes": sorted({str(t.dtype) for k, t in params.items()
+                                    if k.endswith(".router")}),
+           "memory_allocated_at_start_gb": before / 1e9,
+           "memory_after_weights_gb": torch.cuda.memory_allocated() / 1e9}
+    if (out["params"] != MLA_PARAMS
+            or out["router_dtypes"] != ["torch.float32"]):
+        raise AssertionError(f"{MLA_ARCH} weights: {out}")
+    model = Transformer(cfg, params, device="cuda")
+    clock = [time.perf_counter()]
+    peaks = {}
+
+    def lap(name: str) -> None:
+        """The seconds and the peak above the phase's start of the part
+        just run, then a fresh peak for the next one."""
+        clock.append(time.perf_counter())
+        seconds[name] = clock[-1] - clock[-2]
+        peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    seconds = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(1, cfg.vocab_size, (1, MAX_SEQ), generator=g,
+                           device="cuda")
+    k1 = mla_k1_case(cfg, model, tokens)
+    bf16, m = torch.bfloat16, cfg.mla
+    widths = (cfg.d_model, m.q_lora_rank, m.kv_lora_rank)
+    out["kernels"] = {
+        "flash_attention": [k1["full"], k1["prompt"]],
+        "rmsnorm": [rms_case(bf16, n, False, D=w) for w in widths
+                    for n in (MAX_SEQ, MAX_BATCH)],
+        "rmsnorm_residual": [rms_case(bf16, n, True, D=cfg.d_model)
+                             for n in (MAX_SEQ, MAX_BATCH)]}
+    for c in out["kernels"]["rmsnorm"] + out["kernels"]["rmsnorm_residual"]:
+        c["floor_ms"] = floor
+    lap("kernels")
+    out["decode_absorbed_vs_naive"] = mla_decode_cases(cfg, model)
+    lap("decode_absorbed_vs_naive")
+    out["consistency"] = full_width_consistency(cfg, params, model,
+                                                MLA_CPU_SEQ, MLA_CPU_LEN)
+    lap("consistency")
+    del model
+    served, engine = serve_traffic(cfg, params)
+    out["serve"] = served
+    out["cache_bytes"] = nbytes(*(t for c in engine.cache["layers"]
+                                  for t in c.values()))
+    lap("serve")
+    out["profile"] = serve_profile(engine, served)
+    lap("profile")
+    out["peak_above_start_gb_by_part"] = peaks
+    out["peak_above_start_gb"] = max(peaks.values())
+    del engine, params
+    out["seconds"] = seconds
+    after = allocated_bytes()
+    out["memory_allocated_after_gb"] = after / 1e9
+    emit(out)
+    if out["peak_above_start_gb"] * 1e9 > MOE_PEAK_ABOVE_START_BYTES:
+        raise AssertionError(f"{MLA_ARCH} peaked {out['peak_above_start_gb']}"
+                             f" GB above the phase's start")
+    if abs(after - before) > MEMORY_SLACK_BYTES:
+        raise AssertionError(f"allocated memory {before} -> {after} bytes "
+                             f"across phase 12")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
-                cluster: dict, moe: dict) -> dict:
+                cluster: dict, moe: dict, mla: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
     kernel also with its launches in the cluster run (phase 10); the
     forward kernels also with their launches serving qwen2-moe-a2.7b and
     their numbers at its shapes (phase 11: K1 on a 512-token prefill's q,
-    K2/K3 at rows (512, 2048))."""
+    K2/K3 at rows (512, 2048)); K2 and K3 also with their launches serving
+    deepseek-v2 and their numbers at its widths (phase 12); and a row for K1
+    at D = 192, launched serving deepseek-v2 (phase 12), with its numbers
+    there in bf16 and at the same shape in f32 (phase 3)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -1800,6 +2165,22 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     rows[0].update({f"f32_{n}": {k: fwd[i][k] for k in keys
                                  if k in fwd[i] and k != "floor_ms"}
                     for n, i in (("serve", 2), ("train", 5))})
+    for row in rows[1:]:
+        row.update(mla_launches=mla["serve"]["launches"][row["name"]],
+                   mla_launches_in=f"serve {MLA_ARCH} (phase 12)",
+                   mla_shapes=[{k: c.get(k) for k in ("x", "variant") + keys
+                                if k in c}
+                               for c in mla["kernels"][row["name"]]])
+    k1, k1_f32 = mla["kernels"]["flash_attention"][0], \
+        cases["flash_attention_d192"][1]
+    rows.append({"name": "flash_attention (D = 192)", "route": "cuda",
+                 "source": KERNELS[0][1], "replaces": KERNELS[0][2],
+                 "launches": mla["serve"]["launches"]["flash_attention"],
+                 "launches_in": f"serve {MLA_ARCH} (phase 12)",
+                 **{k: k1[k] for k in keys if k in k1 and k != "floor_ms"},
+                 "shape": k1["q"], "dtype": k1["dtype"],
+                 "f32": {k: k1_f32[k] for k in keys
+                         if k in k1_f32 and k != "floor_ms"}})
     fl, f32, k2, k3 = (bwd["flash"][0], bwd["flash"][1], bwd["K2b"][0],
                        bwd["K3b"][0])
 
@@ -1844,7 +2225,8 @@ def main() -> None:
     del params
     cluster = phase_cluster()
     moe = phase_moe_serve(cases["rmsnorm"][0]["floor_ms"])
-    emit(kernel_line(served, cases, bwd, trained, cluster, moe))
+    mla = phase_mla_serve(cases["rmsnorm"][0]["floor_ms"])
+    emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla))
     emit({"ok": True, "device": dev})
 
 

@@ -23,6 +23,20 @@ TRAIN_NAME = "train-main"
 URGENT_NAME = "urgent-eval"
 
 
+def train_spec(*, smoke: bool, steps: int, ckpt_every: int = 25) -> TaskSpec:
+    """The training job's spec; ``tools/jax_loss_curve.py`` takes JAX's
+    reference curve from it."""
+    return TaskSpec(
+        name=TRAIN_NAME, tenant="lab-a",
+        resources=ResourceSpec(chips=8, priority=0),
+        runtime=RuntimeEnv(backend="torch_train",
+                           checkpoint_interval_steps=ckpt_every),
+        entry={"arch": "tacc-100m", "smoke": smoke,
+               "global_batch": 8 if smoke else 16,
+               "seq_len": 64 if smoke else 128, "lr": 3e-4},
+        total_steps=steps, estimated_duration_s=1200)
+
+
 def run_scenario(root: str, *, smoke: bool, steps: int, device: str = "cuda",
                  ckpt_every: int = 25, verbose: bool = True) -> TACC:
     """Submits the training job, fails it once at progress >= steps // 3,
@@ -43,15 +57,7 @@ def run_scenario(root: str, *, smoke: bool, steps: int, device: str = "cuda",
 
     svc = TACC(root, policy="priority", quantum_steps=10,
                fail_injector=fail_injector, device=device)
-    train = TaskSpec(
-        name=TRAIN_NAME, tenant="lab-a",
-        resources=ResourceSpec(chips=8, priority=0),
-        runtime=RuntimeEnv(backend="torch_train",
-                           checkpoint_interval_steps=ckpt_every),
-        entry={"arch": "tacc-100m", "smoke": smoke,
-               "global_batch": 8 if smoke else 16,
-               "seq_len": 64 if smoke else 128, "lr": 3e-4},
-        total_steps=steps, estimated_duration_s=1200)
+    train = train_spec(smoke=smoke, steps=steps, ckpt_every=ckpt_every)
     jid = svc.submit(train)
     say(f"submitted {train.name} -> {jid} (spec hash {train.spec_hash()})")
 

@@ -1,17 +1,18 @@
 """Architecture registry of the port: ``get_config(name)``.
 
-Only the architectures the port runs are registered: eight of the JAX
-package's eleven. DeepSeek-V2 (MLA), Jamba (Mamba) and xLSTM wait for
-their mixers (ROADMAP Queue 1, items 13-14).
+Only the architectures the port runs are registered: nine of the JAX
+package's eleven. Jamba (Mamba) and xLSTM wait for their mixers (ROADMAP
+Queue 1, item 14).
 """
 from __future__ import annotations
 
 from typing import List
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.configs import (command_r_plus_104b, internlm2_1_8b,
-                                 internvl2_2b, llama3_405b, musicgen_medium,
-                                 qwen2_moe_a2_7b, starcoder2_15b, tacc_100m)
+from repro_torch.configs import (command_r_plus_104b, deepseek_v2_236b,
+                                 internlm2_1_8b, internvl2_2b, llama3_405b,
+                                 musicgen_medium, qwen2_moe_a2_7b,
+                                 starcoder2_15b, tacc_100m)
 
 _MODULES = {
     "starcoder2-15b": starcoder2_15b,
@@ -20,6 +21,7 @@ _MODULES = {
     "command-r-plus-104b": command_r_plus_104b,
     "internvl2-2b": internvl2_2b,
     "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
+    "deepseek-v2-236b": deepseek_v2_236b,
     "musicgen-medium": musicgen_medium,
     "tacc-100m": tacc_100m,
 }
@@ -32,8 +34,8 @@ def list_archs() -> List[str]:
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(
-            f"arch '{name}' is not ported yet (ROADMAP Queue 1, items 13-14: "
-            f"MLA, Mamba and xLSTM); ported: {list(_MODULES)}")
+            f"arch '{name}' is not ported yet (ROADMAP Queue 1, item 14: "
+            f"Mamba and xLSTM); ported: {list(_MODULES)}")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -101,14 +101,19 @@ class TorchTrainRuntime(Runtime):
         tcfg = TrainConfig(n_microbatches=int(e.get("n_microbatches", 1)))
         return cfg, ocfg, tcfg
 
+    @staticmethod
+    def stream(spec) -> Tuple[int, int, int]:
+        """(global batch, sequence length, seed) of a spec's data stream;
+        the seed also draws the initial state."""
+        e = spec.entry
+        return (int(e.get("global_batch", 8)), int(e.get("seq_len", 64)),
+                int(e.get("seed", 0)))
+
     def __init__(self, plan: ExecutionPlan, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         super().__init__(plan)
-        e = plan.spec.entry
         self.cfg, ocfg, tcfg = self.configs(plan.spec)
-        self.batch = int(e.get("global_batch", 8))
-        self.seq = int(e.get("seq_len", 64))
-        seed = int(e.get("seed", 0))
+        self.batch, self.seq, seed = self.stream(plan.spec)
         self.data = SyntheticLM(self.cfg, self.batch, self.seq, seed=seed)
         self._step_fn = build_train_step(self.cfg, ocfg, tcfg)
         root = os.path.join(plan.workdir, "ckpt")
@@ -124,8 +129,10 @@ class TorchTrainRuntime(Runtime):
             self._step = start
             self.log(f"restored checkpoint @ step {start}")
         else:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.state = init_train_state(self.cfg, ocfg, gen, self.device)
+            # drawn on the CPU: one seed gives one state on every device
+            self.state = init_train_state(
+                self.cfg, ocfg, torch.Generator().manual_seed(seed),
+                self.device)
             self._step = 0
         self.ckpt_interval = plan.spec.runtime.checkpoint_interval_steps
         self.last_metrics: Dict[str, float] = {}

@@ -31,6 +31,13 @@
 //   and never stored. One __syncthreads per k tile is left, to free a ring
 //   stage for its next load.
 //
+// Head dims 64, 128 and 192; 192 is MLA's q/k width (dn + dr), the caller
+// pads V to it. At D = 192 a bf16 tile row is three 64-column swizzle atoms
+// (one TMA box each), O is 96 f32 registers a thread and P V one
+// wgmma m64n192k16 per 16 keys; Q and the two K and V stages take 121 KB
+// of shared memory. The f32 kernel takes 165 KB there. The backward
+// kernels stay at 64 and 128.
+//
 // The tensor maps carry the real strides of q, k and v (innermost stride
 // 1), so the strided k/v views of the fused kv projection are read in
 // place. They keep a separate S dimension: rows past S read as zeros and
@@ -1030,6 +1037,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56), WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef WG_D8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1838,7 +1866,8 @@ bool dense(const long long* strides, const int* heads, int n, int S, int D) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 (the wrapper checks).
+// dtype: 0 = float32, 1 = bfloat16. D must be 64, 128 or 192 (the wrapper
+// checks); 192 is MLA's q/k width, with V zero-padded to it.
 // strides: element strides (batch, seq, head) of q, then k, then v; the
 // head dim has stride 1; the bases and strides must be 16-byte aligned
 // (TMA reads bf16, cp.async f32). lse_out: (B, H, S) float32 for the row
@@ -1875,12 +1904,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                  : launch_fwd_f32<128, false>(q, k, v, o, lse, part, 1, len,
                                               B, S, H, KV, strides, causal,
                                               scale, st);
+  if (dtype == 0 && D == 192)
+    return split ? launch_fwd_f32<192, true>(q, k, v, o, lse, part, splits,
+                                             len, B, S, H, KV, strides,
+                                             causal, scale, st)
+                 : launch_fwd_f32<192, false>(q, k, v, o, lse, part, 1, len,
+                                              B, S, H, KV, strides, causal,
+                                              scale, st);
   if (dtype == 1) {
     if (D == 64)
       return launch_wgmma<64>(q, k, v, o, lse, len, B, S, H, KV, strides,
                               causal, scale, st);
     if (D == 128)
       return launch_wgmma<128>(q, k, v, o, lse, len, B, S, H, KV, strides,
+                               causal, scale, st);
+    if (D == 192)
+      return launch_wgmma<192>(q, k, v, o, lse, len, B, S, H, KV, strides,
                                causal, scale, st);
   }
   return (int)cudaErrorInvalidValue;

@@ -13,11 +13,13 @@ below the bf16 ridge), the f32 work by f32 operations. The source says how
 each is laid out.
 
 Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
-with H a multiple of KV; head h reads KV head h // (H // KV). The kernels
-are built for head dims 64 and 128; :func:`flash_attention` and
-:func:`flash_attention_bwd` run a smaller head dim (the smoke configs' 16)
-zero-padded to the next of them, with the softmax scale of the true one:
-the padded terms add exact zeros, so the result is the unpadded function. ``lengths``
+with H a multiple of KV; head h reads KV head h // (H // KV). The forward
+kernels are built for head dims 64, 128 and 192 (MLA's q/k width, with V
+zero-padded to it by ``models/mla.py``), the backward kernels for 64 and
+128; :func:`flash_attention` and :func:`flash_attention_bwd` run a smaller
+head dim (the smoke configs' 16) zero-padded to the next of them, with the
+softmax scale of the true one: the padded terms add exact zeros, so the
+result is the unpadded function. ``lengths``
 (B,) int32 masks keys at or past lengths[b]. Masked scores are -1e30, so a
 row with no valid key averages V. ``p`` is rounded to v.dtype before the PV
 product. ``flash_attention.launches`` counts the forward kernel's launches.
@@ -46,7 +48,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192)
+# the backward kernels' head dims: no path trains an MLA model on one card
+# (deepseek-v2's AdamW state alone is far beyond 80 GB)
+BWD_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -413,6 +418,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel_bwd(q, k, v, o, lse, do, causal, lengths):
     D = q.shape[-1]
     Dk = _kernel_head_dim(D)
+    if Dk not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the backward kernels run head dims {BWD_HEAD_DIMS}, not {Dk} "
+            f"(ROADMAP Queue 2, R9: K1b at head dim 192)")
     if q.dim() == 4 and Dk != D:
         q, k, v, o, do = _pad_head_dim(Dk, q, k, v, o, do)
     q, k, v, o, do, lse = _bwd_inputs(q, k, v, o, do, lse)

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models.layers import apply_rope, rms_head_norm
+from repro_torch.parallel.decode_attn import write_rows
 
 
 def project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
@@ -86,12 +87,8 @@ def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     (the caches are returned for symmetry with the reference). k_new/v_new:
     (B, KV, HD); caches (B, S, KV, HD). A position past the end is clamped
     to the last slot, as ``dynamic_update_slice`` does."""
-    B, S = k_cache.shape[:2]
-    rows = torch.arange(B, device=k_cache.device)
-    pos = lengths.clamp(0, S - 1).long()
-    k_cache[rows, pos] = k_new.to(k_cache.dtype)
-    v_cache[rows, pos] = v_new.to(v_cache.dtype)
-    return k_cache, v_cache
+    return (write_rows(k_cache, k_new, lengths),
+            write_rows(v_cache, v_new, lengths))
 
 
 def decode_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,

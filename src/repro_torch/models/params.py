@@ -98,18 +98,45 @@ def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
+def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """Multi-head latent attention (``repro/models/mla.py``): the shared
+    down-projections to the KV latent and the rope key, the latent's
+    up-projection to every head's no-rope key and value, the output
+    projection, and the query's low-rank pair (or one ``w_q`` without
+    ``q_lora_rank``)."""
+    m = cfg.mla
+    H, D = cfg.n_heads, cfg.d_model
+    dn, dr, dv, R, QR = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                         m.v_head_dim, m.kv_lora_rank, m.q_lora_rank)
+    out = {"w_dkv": ParamDef((D, R)),
+           "w_kr": ParamDef((D, dr)),
+           "w_ukv": ParamDef((R, H, dn + dv)),
+           "kv_norm": ParamDef((R,), init="ones"),
+           "w_o": ParamDef((H, dv, D))}
+    if QR:
+        out["w_dq"] = ParamDef((D, QR))
+        out["q_norm"] = ParamDef((QR,), init="ones")
+        out["w_uq"] = ParamDef((QR, H, dn + dr))
+    else:
+        out["w_q"] = ParamDef((D, H, dn + dr))
+    return out
+
+
+MIXER_DEFS = {"attn": attn_defs, "mla": mla_defs}
+
+
 def check_spec(spec: LayerSpec) -> None:
-    """The port runs attention layers, with a dense, MoE or no FFN, in
-    sequence or in parallel; the other mixers wait."""
-    if spec.mixer != "attn":
+    """The port runs attention and MLA layers, with a dense, MoE or no FFN,
+    in sequence or in parallel; the recurrent mixers wait."""
+    if spec.mixer not in MIXER_DEFS:
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (ROADMAP Queue 1, "
-            f"items 13-14: MLA, Mamba, xLSTM)")
+            f"item 14: Mamba, xLSTM)")
 
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Dict[str, ParamDef]]:
     check_spec(spec)
-    out = {"mixer_norm": norm_defs(cfg), "mixer": attn_defs(cfg)}
+    out = {"mixer_norm": norm_defs(cfg), "mixer": MIXER_DEFS[spec.mixer](cfg)}
     if spec.ffn != "none":
         if not spec.parallel:          # a parallel block shares one norm
             out["ffn_norm"] = norm_defs(cfg)
@@ -130,24 +157,44 @@ def model_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _fan_in(d: ParamDef) -> int:
-    # last dim is fan-out; everything before it is fan-in
+    # last dim is fan-out; everything before it is fan-in (the reference's
+    # rule less its stacked "layers" axis, which the port does not have:
+    # w_ukv (R, H, dn + dv) takes R H)
     if len(d.shape) <= 1:
         return max(d.shape[0] if d.shape else 1, 1)
     return max(math.prod(d.shape[:-1]), 1)
 
 
-def _draw(cfg: ModelConfig, generator: torch.Generator,
-          dev: torch.device) -> Iterator[Tuple[str, torch.Tensor]]:
-    """Each f32 leaf in turn, drawn from ``generator``."""
+# a leaf of more elements is drawn in slices along its first axis, one
+# after the other from the generator, each scaled and cast into the leaf
+# before the next: a draw holds one slice in f32 beside the leaf (a
+# deepseek-v2 expert stack is 2.5e9 elements, 10 GB in f32)
+DRAW_SLICE = 1 << 27
+
+
+def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
+          cast: bool = False) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Each leaf in turn, drawn in f32 from ``generator``, in f32 or with
+    ``cast`` in its :func:`compute_dtype`."""
     for name, d in model_defs(cfg).items():
-        if d.init == "zeros":
-            t = torch.zeros(d.shape, device=dev)
-        elif d.init == "ones":
-            t = torch.ones(d.shape, device=dev)
-        else:
-            std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
-            t = torch.randn(d.shape, generator=generator, device=dev) * std
-        yield name, t
+        if d.init in ("zeros", "ones"):
+            t = torch.full(d.shape, float(d.init == "ones"), device=dev)
+            yield name, t.to(compute_dtype(cfg, name, t)) if cast else t
+            continue
+        std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
+        rows = max(1, DRAW_SLICE // max(math.prod(d.shape[1:]), 1))
+        out = None
+        for i in range(0, d.shape[0], rows):
+            part = torch.randn((min(rows, d.shape[0] - i),) + d.shape[1:],
+                               generator=generator, device=dev).mul_(std)
+            if rows >= d.shape[0]:                  # one slice: the leaf
+                out = part.to(compute_dtype(cfg, name, part)) if cast else part
+                break
+            if out is None:
+                out = torch.empty(d.shape, device=dev, dtype=compute_dtype(
+                    cfg, name, part) if cast else part.dtype)
+            out[i:i + len(part)] = part
+        yield name, out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -184,8 +231,7 @@ def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
     generator in the same state, but each leaf cast as soon as it is
     drawn: the f32 model is never held whole (qwen2-moe-a2.7b's is 60.6 GB,
     its bf16 copy 30.3 GB)."""
-    return {name: t.to(compute_dtype(cfg, name, t))
-            for name, t in _draw(cfg, generator, resolve_device(device))}
+    return dict(_draw(cfg, generator, resolve_device(device), cast=True))
 
 
 def _as_tensor(a: Any) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Model assembly: ``Block``, ``Transformer``, train/prefill/decode.
 
-Port of ``repro/models/transformer.py`` for attention layers with a dense,
-MoE or no FFN, in sequence or in parallel (Cohere-style: attention and FFN
-on one norm, both added to the residual). The JAX stack scans over period
-parameters stacked on a leading axis; here every layer is its own
-:class:`Block` in an ``nn.ModuleList``. The RMSNorm mixer norms and
-``out_norm`` go through the rmsnorm kernel, and the residual add before
-each FFN norm goes through the fused rmsnorm_residual kernel (the sum is
-rounded to the activation dtype first, so the fused path equals the
+Port of ``repro/models/transformer.py`` for attention and MLA layers with a
+dense, MoE or no FFN, in sequence or in parallel (Cohere-style: attention
+and FFN on one norm, both added to the residual). An attention layer caches
+K/V, an MLA layer its latent and rope key (``models/mla.py``). The JAX
+stack scans over period parameters stacked on a leading axis; here every
+layer is its own :class:`Block` in an ``nn.ModuleList``. The RMSNorm mixer
+norms and ``out_norm`` go through the rmsnorm kernel, and the residual add
+before each FFN norm goes through the fused rmsnorm_residual kernel (the
+sum is rounded to the activation dtype first, so the fused path equals the
 unfused reference). A full-sequence forward also returns the MoE layers'
 aux losses summed over layers under ``AUX_KEYS`` (None without a MoE
 layer), as the reference's ``_add_aux`` does.
@@ -33,6 +34,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.rmsnorm import rmsnorm_residual
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.params import check_spec, compute_dtype, model_defs
 
@@ -43,6 +45,12 @@ AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 
 REMAT = ("full", "none")
+
+# per mixer: its sequence pass, its decode step, and the cache entries the
+# sequence pass returns, in order
+MIXERS = {"attn": (A.self_attention, A.decode_self_attention, ("k", "v")),
+          "mla": (MLA.mla_self_attention, MLA.mla_decode_attention,
+                  ("ckv", "kr"))}
 
 
 def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
@@ -59,9 +67,9 @@ def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
 
 
 class Block(nn.Module):
-    """One attention layer: mixer norm, attention, then a dense or MoE FFN on
-    its own norm after the residual add, or (``spec.parallel``) on the
-    mixer norm's output beside attention."""
+    """One layer: mixer norm, attention or MLA (``spec.mixer``), then a
+    dense or MoE FFN on its own norm after the residual add, or
+    (``spec.parallel``) on the mixer norm's output beside the mixer."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  params: Mapping[str, torch.Tensor], prefix: str,
@@ -105,12 +113,12 @@ class Block(nn.Module):
         """One layer over a whole sequence. Returns (x, cache or None, the
         MoE aux or None)."""
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
-        y_mix, (k, v) = A.self_attention(self.cfg, self.mixer, h, positions,
-                                         lengths=lengths)
+        seq, _, keys = MIXERS[self.spec.mixer]
+        y_mix, kv = seq(self.cfg, self.mixer, h, positions, lengths=lengths)
         cache = None
         if want_cache:
-            cache = {"k": k.to(torch.bfloat16).contiguous(),
-                     "v": v.to(torch.bfloat16).contiguous()}
+            cache = {name: t.to(torch.bfloat16).contiguous()
+                     for name, t in zip(keys, kv)}
         x, aux = self._ffn(x, h, y_mix)
         return x, cache, aux
 
@@ -118,8 +126,8 @@ class Block(nn.Module):
                ) -> Tuple[torch.Tensor, Cache]:
         """One layer, one decode token. Updates ``cache`` in place."""
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
-        y_mix, cache = A.decode_self_attention(self.cfg, self.mixer, h, cache,
-                                               lengths)
+        decode = MIXERS[self.spec.mixer][1]
+        y_mix, cache = decode(self.cfg, self.mixer, h, cache, lengths)
         return self._ffn(x, h, y_mix)[0], cache
 
 
@@ -190,16 +198,31 @@ def cast_for_compute(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
     return {k: v.to(dev, compute_dtype(cfg, k, v)) for k, v in params.items()}
 
 
+def layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                       s_max: int) -> Dict[str, Tuple[int, ...]]:
+    """One layer's cache entries and shapes (``repro`` ``layer_cache``):
+    K/V (B, s_max, KV, HD) for attention, the latent (B, s_max, R) and the
+    rope key (B, s_max, dr) for MLA."""
+    check_spec(spec)
+    if spec.mixer == "mla":
+        m = cfg.mla
+        shapes = ((batch, s_max, m.kv_lora_rank),
+                  (batch, s_max, m.qk_rope_head_dim))
+    else:
+        shapes = ((batch, s_max, cfg.n_kv_heads, cfg.head_dim),) * 2
+    return dict(zip(MIXERS[spec.mixer][2], shapes))
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: DeviceLike = "cuda") -> Dict:
-    """bf16 K/V caches (B, s_max, KV, HD) per layer, and zero lengths."""
+    """bf16 caches per layer (:func:`layer_cache_shapes`), and zero
+    lengths."""
     dev = resolve_device(device)
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-    for spec in cfg.layer_specs:
-        check_spec(spec)
-    return {"layers": [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
-                       for _ in cfg.layer_specs],
+    layers = [{k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+               for k, shape in layer_cache_shapes(cfg, spec, batch,
+                                                  s_max).items()}
+              for spec in cfg.layer_specs]
+    return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
 
@@ -228,7 +251,7 @@ def prefill(model: Transformer, batch: Mapping[str, torch.Tensor],
 def decode_step(model: Transformer, cache: Dict, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence. tokens: (B,) or (B, 1) (or (B, 1, D)
-    frame embeds for input_mode=embeds). The K/V caches are updated in place;
+    frame embeds for input_mode=embeds). The caches are updated in place;
     returns (logits (B, V), cache with lengths + 1)."""
     cfg = model.cfg
     dt = L.dtype_of(cfg.dtype)

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.params import init_params
 from repro_torch.models.transformer import AUX_KEYS, Transformer, train_logits
 from repro_torch.train.loss import cross_entropy
@@ -39,9 +39,13 @@ class TrainConfig:
 def init_train_state(cfg: ModelConfig, ocfg: OptConfig,
                      generator: torch.Generator,
                      device: DeviceLike = "cuda") -> State:
-    """f32 params from ``generator`` (which lives on ``device``) and zero
-    AdamW moments."""
-    params = init_params(cfg, generator, device)
+    """f32 params drawn from ``generator`` on its own device, then moved to
+    ``device``, and zero AdamW moments there. A CPU generator gives one
+    state whatever ``device`` is, as one ``jax.random`` key does on every
+    backend."""
+    dev = resolve_device(device)
+    params = {k: v.to(dev) for k, v in
+              init_params(cfg, generator, generator.device).items()}
     return {"params": params, "opt": init_opt(params, ocfg)}
 
 

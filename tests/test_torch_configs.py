@@ -87,8 +87,10 @@ def _arch(arch):
 
 
 def _unstacked_jax_shapes(cfg):
-    """{port name: shape} from the JAX defs, the period unstacked."""
+    """{port name: shape} from the JAX defs, the prelayers first, then the
+    period unstacked."""
     out = {}
+    n_pre = len(cfg.prelayers)
     flat, _ = jax.tree_util.tree_flatten_with_path(
         jax_model_defs(cfg), is_leaf=lambda x: isinstance(x, JaxParamDef))
     for path, d in flat:
@@ -96,7 +98,10 @@ def _unstacked_jax_shapes(cfg):
         if keys[0] == "period":
             j, rest = keys[1], ".".join(keys[2:])
             for i in range(cfg.n_periods):
-                out[f"layers.{i * len(cfg.period) + j}.{rest}"] = d.shape[1:]
+                out[f"layers.{n_pre + i * len(cfg.period) + j}.{rest}"] = \
+                    d.shape[1:]
+        elif keys[0] == "prelayers":
+            out[f"layers.{keys[1]}.{'.'.join(keys[2:])}"] = d.shape
         else:
             out[".".join(map(str, keys))] = d.shape
     return out

@@ -30,7 +30,8 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.train.loss", "repro_torch.train.optimizer",
             "repro_torch.data.synthetic", "repro_torch.launch.train",
             "repro_torch.core.service", "repro_torch.core.executor",
-            "repro_torch.ckpt.checkpoint"} <= set(mods)
+            "repro_torch.ckpt.checkpoint", "repro_torch.models.mla",
+            "repro_torch.parallel.decode_attn"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"

@@ -528,6 +528,42 @@ def test_flash_small_head_dims_run_padded_with_their_own_scale(monkeypatch,
     assert set(seen) == {64 if D <= 64 else 128}
 
 
+def test_flash_head_dims_match_the_source():
+    """The wrapper's head dims are the kernel source's instantiations, read
+    from its text: the forward entries at 64, 128 and 192 (MLA's q/k
+    width) in both dtypes, the backward ones at 64 and 128."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    src = (build.CSRC / "flash_attention.cu").read_text()
+
+    def dims(pattern):
+        return tuple(sorted({int(d) for d in re.findall(pattern, src)}))
+
+    assert fa.HEAD_DIMS == (64, 128, 192)
+    assert dims(r"launch_wgmma<(\d+)>\(") == fa.HEAD_DIMS
+    assert dims(r"launch_fwd_f32<(\d+), (?:true|false)>\(") == fa.HEAD_DIMS
+    assert dims(r"launch_bwd_dq_wgmma<(\d+)>\(") == fa.BWD_HEAD_DIMS
+    assert dims(r"launch_bwd_dkdv_(?:wgmma|f32)<(\d+)>\(") == \
+        fa.BWD_HEAD_DIMS == (64, 128)
+    assert "(D == 64 || D == 128)" in src[src.index("bool bwd_ok("):]
+
+
+@pytest.mark.parametrize("D", [160, 192])
+def test_flash_bwd_kernels_refuse_head_dim_192_naming_the_roadmap(D):
+    """A head dim the forward runs at 192 has no backward kernel: the
+    kernel path raises, naming the ROADMAP item, before any launch; the
+    plain backward (CPU tensors) serves every head dim."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 8, 2, D),
+                                                        np.float32))
+                   for _ in range(4))
+    o, lse = fa._plain_forward(q, k, v, True, None)
+    with pytest.raises(NotImplementedError, match="R9"):
+        fa._kernel_bwd(q, k, v, o, lse, do, True, None)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
+
+
 @pytest.mark.parametrize("entry", ["flash_attention_fwd",
                                    "flash_attention_bwd_dq",
                                    "flash_attention_bwd_dkdv"])
@@ -962,6 +998,10 @@ def test_flash_fwd_f32_kernel_order_vs_jax(S, H, KV, D, causal, lengths,
      "flash_fwd_f32_merge<float, 128>"),
     ("_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi64EEEv14CUtensorMap_st",
      "flash_fwd_wgmma<bf16, 64>"),
+    ("_ZN12_GLOBAL__N_115flash_fwd_wgmmaILi192EEEv14CUtensorMap_st",
+     "flash_fwd_wgmma<bf16, 192>"),
+    ("_ZN12_GLOBAL__N_113flash_fwd_f32ILi192ELb1EEEvPKfNS_10RowStridesE",
+     "flash_fwd_f32<float, 192, split>"),
     ("_ZN12_GLOBAL__N_116flash_bwd_dq_f32ILi128EEEvPKfS2_",
      "flash_bwd_dq_f32<float, 128>")])
 def test_chip_smoke_names_every_flash_kernel(mangled, name):

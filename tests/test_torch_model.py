@@ -157,12 +157,31 @@ def test_init_cache_layout():
     assert cache["lengths"].dtype == torch.int32
 
 
-def test_other_mixers_raise_naming_the_roadmap():
-    from repro_torch.configs.base import LayerSpec
+@pytest.mark.parametrize("case", [
+    "mixer:mamba", "mixer:mlstm", "mixer:slstm", "arch:jamba-1.5-large-398b",
+    "arch:xlstm-125m", "mixer:mla"])
+def test_other_mixers_raise_naming_the_roadmap(case):
+    """The recurrent mixers and the configs that need them raise, naming
+    ROADMAP Queue 1 item 14; an MLA layer builds."""
+    from repro_torch.configs.base import LayerSpec, MLAConfig
+    kind, name = case.split(":")
+    if kind == "arch":
+        with pytest.raises(KeyError, match="ROADMAP Queue 1, item 14"):
+            get_config(name)
+        return
     cfg = get_config("tacc-100m", smoke=True)
-    for mixer in ("mla", "mamba", "mlstm", "slstm"):
-        bad = type(cfg)(**{**cfg.__dict__, "period": (LayerSpec(mixer),)})
-        with pytest.raises(NotImplementedError, match="items 13-14"):
-            model_defs(bad)
-    with pytest.raises(KeyError, match="ROADMAP Queue 1, items 13-14"):
-        get_config("deepseek-v2-236b")
+    bad = type(cfg)(**{**cfg.__dict__, "period": (LayerSpec(name),),
+                       "mla": MLAConfig(q_lora_rank=32, kv_lora_rank=32,
+                                        qk_nope_head_dim=16,
+                                        qk_rope_head_dim=8,
+                                        v_head_dim=16)})
+    if name == "mla":
+        defs = model_defs(bad)
+        assert defs["layers.0.mixer.w_ukv"].shape == (32, cfg.n_heads, 32)
+        assert init_cache(bad, 1, 8, device="cpu")["layers"][0][
+            "ckv"].shape == (1, 8, 32)
+        return
+    with pytest.raises(NotImplementedError, match="item 14"):
+        model_defs(bad)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        init_cache(bad, 1, 8, device="cpu")

@@ -39,6 +39,7 @@ from repro_torch.models import (Transformer, cast_for_compute, init_params,
                                 params_from_jax, state_from_jax, state_to_jax,
                                 train_logits)
 from repro_torch.models import moe as TM
+from repro_torch.models import params as params_module
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_opt)
@@ -255,10 +256,14 @@ def test_jax_state_round_trips_bit_for_bit():
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
-def test_serving_params_equal_cast_of_init_params():
+@pytest.mark.parametrize("draw_slice", [None, 64], ids=["whole", "sliced"])
+def test_serving_params_equal_cast_of_init_params(monkeypatch, draw_slice):
     """``init_serving_params`` casts each leaf as it is drawn; its values
     equal ``cast_for_compute(init_params(...))`` on the same seed, leaf for
-    leaf, with the router in f32."""
+    leaf, with the router in f32; also where the leaves are drawn in
+    slices (``DRAW_SLICE``, at full width only the largest leaves)."""
+    if draw_slice:
+        monkeypatch.setattr(params_module, "DRAW_SLICE", draw_slice)
     _, tcfg, _, _ = _params()
     ours = init_serving_params(tcfg, torch.Generator().manual_seed(3), "cpu")
     ref = cast_for_compute(tcfg, init_params(
