@@ -98,7 +98,29 @@ Phases, each printing one JSON line and raising on failure:
    against the full forward, and the first 2 layers against the CPU on a
    32-token prompt; phase 5's traffic served, every kernel launched as
    often as the code says, no host sync; a profile; the peak under 40 GB
-   above the phase's start and the memory given back.
+   above the phase's start and the memory given back;
+13. xlstm_serve: xlstm-125m at full width and depth (145,014,600
+   parameters, 9 mLSTM and 3 sLSTM layers, no FFN), seed 0, bf16 weights
+   drawn leaf by leaf with the sLSTM's recurrent matrices in f32: each
+   recurrent mixer's sequence pass (one 512-token row, with its cache)
+   and decode step (8 rows) timed on one layer, host-paced; prefill + 4
+   decode steps against the full forward, and all 12 layers against the
+   CPU's plain path; phase 5's traffic served, every kernel launched as
+   often as the code says (K2 only: no attention layer, no FFN); a
+   profile of one prefill and 16 decode steps; the peak under 40 GB above
+   the phase's start and the memory given back;
+14. jamba_serve: jamba-1.5-large-398b at full width cut to layers 2-4 of
+   its period as prelayers (Mamba + dense, Mamba + MoE, attention +
+   dense; 12,937,224,192 parameters), seed 0, bf16 weights drawn leaf by
+   leaf with the router, a_log and dt_w in f32: K1 on the attention
+   layer's q, k, v from a 512-token prefill (64 query heads over 8 KV
+   heads, no RoPE) and K2/K3 at rows (512, 8192) and (8, 8192), each
+   against its plain version with its times and bound; the Mamba mixer
+   timed as phase 13's; prefill + 4 decode steps against the full
+   forward, and the cut's layers 0 and 2 against the CPU on a 32-token
+   prompt; phase 5's traffic, every kernel launched as often as the code
+   says; a profile; the peak under 40 GB above the phase's start and the
+   memory given back.
 
 Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
 (forward kernels) or phase 9 (backward kernels), and in phase 10
@@ -106,7 +128,8 @@ Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
 numbers at qwen2-moe's shapes), K1's row with its f32
 numbers at both timed shapes (no path launches it), a row for K1 at
 D = 192 with its launches in phase 12 and its numbers there (f32 from
-phase 3), and the last line
+phase 3), every forward kernel's launches in phases 13 and 14 and its
+numbers at jamba's shapes, and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -156,6 +179,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models.params import KEEP_F32
+from repro_torch.models.transformer import MIXERS
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -1681,13 +1706,31 @@ def moe_long_prefills(cfg, model) -> dict:
     return out
 
 
+def cut_layers(cfg, params, layers):
+    """The model cut to ``layers`` (indices into ``cfg.layer_specs``),
+    renumbered from 0 as prelayers of a config without a period, and its
+    params (the same tensors under the new names)."""
+    cut = dataclasses.replace(
+        cfg, prelayers=tuple(cfg.layer_specs[i] for i in layers),
+        n_layers=len(layers))
+    old = {f"layers.{j}.": f"layers.{i}." for j, i in enumerate(layers)}
+
+    def source(name: str) -> str:
+        if not name.startswith("layers."):
+            return name
+        head = ".".join(name.split(".")[:2]) + "."
+        return old[head] + name[len(head):]
+    return cut, {n: params[source(n)] for n in model_defs(cut)}
+
+
 def full_width_consistency(cfg, params, model, cpu_seq: int = 128,
-                           cpu_len: int = 103) -> dict:
+                           cpu_len: int = 103,
+                           cpu_layers=tuple(range(MOE_CPU_LAYERS))) -> dict:
     """Prefill at B = 2, S = 128 and 4 decode steps against the full
-    forward; then the model cut to its first ``MOE_CPU_LAYERS`` layers at
-    full width, a prefill of one row's first ``cpu_seq`` tokens with
-    ``cpu_len`` of them valid on the card against the same layers on the
-    CPU through the plain path."""
+    forward; then the model cut to ``cpu_layers`` (its first
+    ``MOE_CPU_LAYERS`` by default) at full width, a prefill of one row's
+    first ``cpu_seq`` tokens with ``cpu_len`` of them valid on the card
+    against the same layers on the CPU through the plain path."""
     B, S, NDEC = 2, 128, 4
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
@@ -1705,20 +1748,19 @@ def full_width_consistency(cfg, params, model, cpu_seq: int = 128,
             lg, cache = decode_step(model, cache, toks[:, Sp + i])
             out["decode_vs_full"].append(rel_err(lg, full[:, Sp + i]))
         del full, cache, lg
-        cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
-        names = list(model_defs(cut))
+        cut, cut_params = cut_layers(cfg, params, cpu_layers)
         lens1 = torch.tensor([cpu_len], dtype=torch.int32)
         row = toks[:1, :cpu_seq]
-        lg_gpu, _ = prefill(
-            Transformer(cut, {n: params[n] for n in names}, device="cuda"),
-            {"tokens": row}, lens1.cuda())
+        lg_gpu, _ = prefill(Transformer(cut, cut_params, device="cuda"),
+                            {"tokens": row}, lens1.cuda())
         t0 = time.perf_counter()
         lg_cpu, _ = prefill(
-            Transformer(cut, {n: params[n].cpu() for n in names},
+            Transformer(cut, {n: t.cpu() for n, t in cut_params.items()},
                         device="cpu"), {"tokens": row.cpu()}, lens1)
         out["cpu_seconds"] = time.perf_counter() - t0
         out["prefill_vs_cpu_plain"] = rel_err(lg_gpu, lg_cpu)
-    out["cpu_cut"] = (f"the first {MOE_CPU_LAYERS} of {cfg.n_layers} layers "
+    out["cpu_cut"] = (f"layers {list(cpu_layers)} of {cfg.n_layers} "
+                      f"({[s.mixer + '+' + s.ffn for s in cut.layer_specs]}) "
                       f"at full width, {cpu_len} of {cpu_seq} tokens: the "
                       f"host's time and memory force the cut, not the card")
     out["bars"] = {"prefill_vs_full": 0.05, "decode_vs_full": 0.08,
@@ -1732,17 +1774,20 @@ def full_width_consistency(cfg, params, model, cpu_seq: int = 128,
 
 def serve_launches(cfg, prefills: int, decodes: int) -> dict:
     """Kernel launches of ``prefills`` prefills and ``decodes`` decode
-    steps of ``cfg`` (RMSNorm, no parallel layer): K1 once a layer a
-    prefill; K2 once a layer, once for out_norm, and for an MLA layer once
-    more for kv_norm and again for q_norm where the query is low-rank; K3
-    once a layer with an FFN; K2 and K3 as often in a decode step."""
-    n = cfg.n_layers
-    mla = sum(1 + bool(cfg.mla.q_lora_rank) for spec in cfg.layer_specs
+    steps of ``cfg`` (RMSNorm): K1 once an attention or MLA layer a
+    prefill (a recurrent layer runs none, and decode attends without it);
+    K2 once a layer, once for out_norm, and for an MLA layer once more for
+    kv_norm and again for q_norm where the query is low-rank; K3 once a
+    layer with an FFN after the mixer (none in a parallel layer, whose FFN
+    shares the mixer's norm); K2 and K3 as often in a decode step."""
+    specs = cfg.layer_specs
+    attn = sum(spec.mixer in ("attn", "mla") for spec in specs)
+    mla = sum(1 + bool(cfg.mla.q_lora_rank) for spec in specs
               if spec.mixer == "mla")
-    ffn = sum(spec.ffn != "none" for spec in cfg.layer_specs)
+    ffn = sum(spec.ffn != "none" and not spec.parallel for spec in specs)
     calls = prefills + decodes
-    return {"flash_attention": n * prefills,
-            "rmsnorm": (n + 1 + mla) * calls,
+    return {"flash_attention": attn * prefills,
+            "rmsnorm": (len(specs) + 1 + mla) * calls,
             "rmsnorm_residual": ffn * calls}
 
 
@@ -1794,12 +1839,12 @@ def serve_traffic(cfg, params):
     return out, engine
 
 
-def serve_profile(engine, served: dict) -> dict:
-    """4 prefills and 16 decode steps of the served engine under
+def serve_profile(engine, served: dict, prefills: int = 4) -> dict:
+    """``prefills`` prefills and 16 decode steps of the served engine under
     torch.profiler; idle shares against the untraced means."""
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, engine.cfg.vocab_size, 136).tolist()
-               for _ in range(4)]
+               for _ in range(prefills)]
     out = {"prefill": _trace(lambda: len([engine.add_request(p, max_new=64)
                                           for p in prompts])),
            "decode": _trace(lambda: len([engine.step() for _ in range(16)]))}
@@ -2046,36 +2091,62 @@ def mla_decode_cases(cfg, model) -> dict:
     return out
 
 
-def phase_mla_serve(floor: float) -> dict:
-    """Phase 12: deepseek-v2-236b at full width, cut to ``MLA_LAYERS``
-    layers, seed 0, bf16 weights drawn leaf by leaf with the router in f32:
-    K1 at D = 192 and K2/K3 at its widths, the absorbed decode against the
-    naive one, consistency against the full forward and the CPU, phase 5's
-    traffic, a profile, and the memory given back."""
+def mla_kernels(cfg, model, floor: float) -> dict:
+    """K1 at D = 192 on a 512-token prefill's q/k/v (``mla_k1_case``) and
+    K2/K3 at MLA's widths, each against its plain version with its times
+    and bound."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    tokens = torch.randint(1, cfg.vocab_size, (1, MAX_SEQ), generator=g,
+                           device="cuda")
+    k1 = mla_k1_case(cfg, model, tokens)
+    bf16, m = torch.bfloat16, cfg.mla
+    widths = (cfg.d_model, m.q_lora_rank, m.kv_lora_rank)
+    out = {"flash_attention": [k1["full"], k1["prompt"]],
+           "rmsnorm": [rms_case(bf16, n, False, D=w) for w in widths
+                       for n in (MAX_SEQ, MAX_BATCH)],
+           "rmsnorm_residual": [rms_case(bf16, n, True, D=cfg.d_model)
+                                for n in (MAX_SEQ, MAX_BATCH)]}
+    for c in out["rmsnorm"] + out["rmsnorm_residual"]:
+        c["floor_ms"] = floor
+    return out
+
+
+def serve_phase(phase: str, cfg, n_params: int, parts, *,
+                cpu_layers=tuple(range(MOE_CPU_LAYERS)), cpu_seq: int = 128,
+                cpu_len: int = 103, profile_prefills: int = 4,
+                reduced: str = "none") -> dict:
+    """Phases 12 to 14: ``cfg`` at full width, seed 0, bf16 weights drawn
+    leaf by leaf with the ``KEEP_F32`` leaves in f32 (every other matrix
+    bf16), so the card never holds the f32 model; each of ``parts`` (name,
+    fn(cfg, model)); prefill + 4 decode steps against the full forward
+    and ``cpu_layers`` against the CPU's plain path; phase 5's traffic,
+    every kernel launched as often as the code says; a profile of
+    ``profile_prefills`` prefills and 16 decode steps; the peak under 40
+    GB above the phase's start, by part, and the memory given back."""
     before = allocated_bytes()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
     t0 = time.perf_counter()
     params = init_serving_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     torch.cuda.synchronize()
-    out = {"phase": "mla_serve", "arch": MLA_ARCH,
-           "layers": f"{MLA_LAYERS} of {get_config(MLA_ARCH).n_layers}: "
-                     f"{[s.mixer + '+' + s.ffn for s in cfg.layer_specs]}",
-           "reduced": "depth only",
-           "init_s": time.perf_counter() - t0,
+    leaf = {n: n.rsplit(".", 1)[-1] for n in params}
+    f32 = sorted({leaf[n] for n, t in params.items()
+                  if t.dim() >= 2 and t.dtype == torch.float32})
+    out = {"phase": phase, "arch": cfg.name,
+           "layers": [s.mixer + "+" + s.ffn for s in cfg.layer_specs],
+           "reduced": reduced, "init_s": time.perf_counter() - t0,
            "params": sum(t.numel() for t in params.values()),
            "param_bytes": nbytes(*params.values()),
-           "router_dtypes": sorted({str(t.dtype) for k, t in params.items()
-                                    if k.endswith(".router")}),
+           "f32_matrices": f32,
            "memory_allocated_at_start_gb": before / 1e9,
            "memory_after_weights_gb": torch.cuda.memory_allocated() / 1e9}
-    if (out["params"] != MLA_PARAMS
-            or out["router_dtypes"] != ["torch.float32"]):
-        raise AssertionError(f"{MLA_ARCH} weights: {out}")
+    keep = sorted({leaf[n] for n in params} & set(KEEP_F32))
+    if (out["params"] != n_params or f32 != keep or not all(
+            t.dtype == torch.bfloat16 for n, t in params.items()
+            if t.dim() >= 2 and leaf[n] not in KEEP_F32)):
+        raise AssertionError(f"{cfg.name} weights: {out}")
     model = Transformer(cfg, params, device="cuda")
-    clock = [time.perf_counter()]
-    peaks = {}
+    clock, seconds, peaks = [time.perf_counter()], {}, {}
 
     def lap(name: str) -> None:
         """The seconds and the peak above the phase's start of the part
@@ -2085,26 +2156,11 @@ def phase_mla_serve(floor: float) -> dict:
         peaks[name] = (torch.cuda.max_memory_allocated() - before) / 1e9
         torch.cuda.reset_peak_memory_stats()
 
-    seconds = {}
-    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    tokens = torch.randint(1, cfg.vocab_size, (1, MAX_SEQ), generator=g,
-                           device="cuda")
-    k1 = mla_k1_case(cfg, model, tokens)
-    bf16, m = torch.bfloat16, cfg.mla
-    widths = (cfg.d_model, m.q_lora_rank, m.kv_lora_rank)
-    out["kernels"] = {
-        "flash_attention": [k1["full"], k1["prompt"]],
-        "rmsnorm": [rms_case(bf16, n, False, D=w) for w in widths
-                    for n in (MAX_SEQ, MAX_BATCH)],
-        "rmsnorm_residual": [rms_case(bf16, n, True, D=cfg.d_model)
-                             for n in (MAX_SEQ, MAX_BATCH)]}
-    for c in out["kernels"]["rmsnorm"] + out["kernels"]["rmsnorm_residual"]:
-        c["floor_ms"] = floor
-    lap("kernels")
-    out["decode_absorbed_vs_naive"] = mla_decode_cases(cfg, model)
-    lap("decode_absorbed_vs_naive")
-    out["consistency"] = full_width_consistency(cfg, params, model,
-                                                MLA_CPU_SEQ, MLA_CPU_LEN)
+    for name, fn in parts:
+        out[name] = fn(cfg, model)
+        lap(name)
+    out["consistency"] = full_width_consistency(cfg, params, model, cpu_seq,
+                                                cpu_len, cpu_layers)
     lap("consistency")
     del model
     served, engine = serve_traffic(cfg, params)
@@ -2112,7 +2168,7 @@ def phase_mla_serve(floor: float) -> dict:
     out["cache_bytes"] = nbytes(*(t for c in engine.cache["layers"]
                                   for t in c.values()))
     lap("serve")
-    out["profile"] = serve_profile(engine, served)
+    out["profile"] = serve_profile(engine, served, profile_prefills)
     lap("profile")
     out["peak_above_start_gb_by_part"] = peaks
     out["peak_above_start_gb"] = max(peaks.values())
@@ -2122,16 +2178,165 @@ def phase_mla_serve(floor: float) -> dict:
     out["memory_allocated_after_gb"] = after / 1e9
     emit(out)
     if out["peak_above_start_gb"] * 1e9 > MOE_PEAK_ABOVE_START_BYTES:
-        raise AssertionError(f"{MLA_ARCH} peaked {out['peak_above_start_gb']}"
+        raise AssertionError(f"{cfg.name} peaked {out['peak_above_start_gb']}"
                              f" GB above the phase's start")
     if abs(after - before) > MEMORY_SLACK_BYTES:
         raise AssertionError(f"allocated memory {before} -> {after} bytes "
-                             f"across phase 12")
+                             f"across {phase}")
     return out
 
 
+def phase_mla_serve(floor: float) -> dict:
+    """Phase 12: deepseek-v2-236b at full width, cut to ``MLA_LAYERS``
+    layers, the router in f32: K1 at D = 192 and K2/K3 at its widths, the
+    absorbed decode against the naive one, then ``serve_phase``'s checks."""
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    return serve_phase(
+        "mla_serve", cfg, MLA_PARAMS,
+        [("kernels", lambda c, m: mla_kernels(c, m, floor)),
+         ("decode_absorbed_vs_naive", mla_decode_cases)],
+        cpu_seq=MLA_CPU_SEQ, cpu_len=MLA_CPU_LEN,
+        reduced=f"depth only: {MLA_LAYERS} of "
+                f"{get_config(MLA_ARCH).n_layers} layers")
+
+
+# -- phases 13 and 14 -------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+# xlstm-125m whole: 12 layers (9 mLSTM, 3 sLSTM) of d_model 768, no FFN,
+# the tied embedding of 50,304 rows; 290 MB in bf16
+XLSTM_PARAMS = 145_014_600
+JAMBA_ARCH = "jamba-1.5-large-398b"
+# jamba at full width, cut to layers 2-4 of its 8-layer period, as
+# prelayers with no period: Mamba + dense, Mamba + MoE, attention + dense.
+# One whole period holds 4 MoE layers of 10.08e9 parameters; this is the
+# one 3-layer window with the attention layer and a single MoE layer:
+# 12,937,224,192 parameters, 25.87 GB in bf16
+JAMBA_LAYERS = slice(2, 5)
+JAMBA_PARAMS = 12_937_224_192
+# the CPU's layers of the cut: Mamba + dense and attention + dense (its
+# dense MoE oracle over 16 experts of 24,576 would take about 2 TFLOP on
+# the host at 512 rows), on a short prompt as phase 12's
+JAMBA_CPU_LAYERS = (0, 2)
+RECURRENT = ("mamba", "mlstm", "slstm")
+
+
+def jamba_cut(cfg):
+    return dataclasses.replace(cfg, prelayers=cfg.period[JAMBA_LAYERS],
+                               n_layers=len(cfg.period[JAMBA_LAYERS]))
+
+
+def mixer_times(cfg, model) -> dict:
+    """Each recurrent mixer kind of the model, on its first layer: the
+    sequence pass over one 512-token row with its cache (as a prefill runs
+    it) and a decode step of ``MAX_BATCH`` rows, bf16, host-paced
+    (``call_ms``: these passes launch a few dozen small ops a step, so the
+    host's dispatch is their time); outputs and state finite; the state's
+    bytes a row."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    out = {}
+    for i, (spec, block) in enumerate(zip(cfg.layer_specs, model.layers)):
+        if spec.mixer not in RECURRENT or spec.mixer in out:
+            continue
+        seq, dec, init = MIXERS[spec.mixer]
+        x = torch.randn(1, MAX_SEQ, cfg.d_model, generator=g,
+                        device="cuda").bfloat16()
+        xd = torch.randn(MAX_BATCH, 1, cfg.d_model, generator=g,
+                         device="cuda").bfloat16()
+        positions = torch.arange(MAX_SEQ, device="cuda")[None, :]
+        lengths = torch.tensor([MAX_SEQ - 7], dtype=torch.int32, device="cuda")
+        lengths8 = torch.full((MAX_BATCH,), 64, dtype=torch.int32,
+                              device="cuda")
+        cache = init(cfg, MAX_BATCH, MAX_SEQ, torch.device("cuda"))
+
+        def run_seq(block=block, seq=seq, x=x, positions=positions,
+                    lengths=lengths):
+            return seq(cfg, block.mixer, x, positions, lengths=lengths,
+                       want_cache=True)
+
+        def run_dec(block=block, dec=dec, xd=xd, cache=cache):
+            return dec(cfg, block.mixer, xd, cache, lengths8)
+        with torch.inference_mode():
+            (y, c), (yd, cd) = run_seq(), run_dec()
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in
+                         (y, yd, *c.values(), *cd.values()))
+            out[spec.mixer] = {
+                "layer": i, "seq_rows": [1, MAX_SEQ],
+                "seq_ms": call_ms(run_seq, iters=3),
+                "decode_rows": MAX_BATCH,
+                "decode_ms": call_ms(run_dec, iters=20),
+                "state": {k: [list(v.shape), str(v.dtype).split(".")[-1]]
+                          for k, v in c.items()},
+                "state_bytes_a_row": nbytes(*c.values()), "finite": finite}
+        if not finite:
+            raise AssertionError(f"{cfg.name} {spec.mixer}: {out}")
+    return out
+
+
+def jamba_kernels(cfg, model, floor: float) -> dict:
+    """K1 on the attention layer's q, k, v from a 512-token prefill (the
+    two Mamba layers before it run first; 64 query heads over 8 KV heads,
+    no RoPE, so k and v are views of the fused ``wkv`` product), again at
+    a serve prompt's expected length, and K2/K3 at rows (512, 8192) and
+    (8, 8192), each against its plain version with its times and bound."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    S = MAX_SEQ
+    tokens = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
+                           device="cuda")
+    at = [s.mixer for s in cfg.layer_specs].index("attn")
+    with torch.inference_mode():
+        x = L.embed_tokens(cfg, model.embed, tokens)
+        positions = torch.arange(S, device="cuda")[None, :]
+        for block in model.layers[:at]:
+            x, _, _ = block(x, positions, None, False)
+        layer = model.layers[at]
+        h = L.apply_norm(cfg, layer.mixer_norm, x)
+        q, k, v = A.project_qkv(cfg, layer.mixer, h, positions)
+        k1 = [flash_check(q, k, v, [S]), flash_check(q, k, v, [136],
+                                                      timed=False)]
+    want = ([1, S, cfg.n_heads, cfg.head_dim],
+            [1, S, cfg.n_kv_heads, cfg.head_dim])
+    if (k1[0]["q"], k1[0]["kv"]) != want:
+        raise AssertionError(f"{cfg.name}'s attention shapes: {k1[0]}")
+    bf16 = torch.bfloat16
+    out = {"flash_attention": k1,
+           "rmsnorm": [rms_case(bf16, n, False, D=cfg.d_model)
+                       for n in (MAX_SEQ, MAX_BATCH)],
+           "rmsnorm_residual": [rms_case(bf16, n, True, D=cfg.d_model)
+                                for n in (MAX_SEQ, MAX_BATCH)]}
+    for c in out["rmsnorm"] + out["rmsnorm_residual"]:
+        c["floor_ms"] = floor
+    return out
+
+
+def phase_xlstm_serve() -> dict:
+    """Phase 13: xlstm-125m whole, its mixers timed. Its prefill runs every
+    mLSTM and sLSTM step in turn, a few dozen launches a step over 512
+    steps and 12 layers, so the profile takes one prefill."""
+    cfg = get_config(XLSTM_ARCH)
+    return serve_phase("xlstm_serve", cfg, XLSTM_PARAMS,
+                           [("mixers", mixer_times)],
+                           cpu_layers=tuple(range(cfg.n_layers)),
+                           profile_prefills=1)
+
+
+def phase_jamba_serve(floor: float) -> dict:
+    """Phase 14: the jamba cut at full width, with K1/K2/K3 at its shapes
+    and the Mamba mixer's times."""
+    cfg = jamba_cut(get_config(JAMBA_ARCH))
+    return serve_phase(
+        "jamba_serve", cfg, JAMBA_PARAMS,
+        [("kernels", lambda c, m: jamba_kernels(c, m, floor)),
+         ("mixers", mixer_times)],
+        cpu_layers=JAMBA_CPU_LAYERS, cpu_seq=MLA_CPU_SEQ, cpu_len=MLA_CPU_LEN,
+        reduced=f"depth only: layers {JAMBA_LAYERS.start}-"
+                f"{JAMBA_LAYERS.stop - 1} of the 8-layer period, 3 of "
+                f"{get_config(JAMBA_ARCH).n_layers}")
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
-                cluster: dict, moe: dict, mla: dict) -> dict:
+                cluster: dict, moe: dict, mla: dict, xl: dict,
+                jb: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -2141,7 +2346,11 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     K2/K3 at rows (512, 2048)); K2 and K3 also with their launches serving
     deepseek-v2 and their numbers at its widths (phase 12); and a row for K1
     at D = 192, launched serving deepseek-v2 (phase 12), with its numbers
-    there in bf16 and at the same shape in f32 (phase 3)."""
+    there in bf16 and at the same shape in f32 (phase 3); the forward
+    kernels also with their launches serving xlstm-125m (phase 13) and the
+    jamba cut (phase 14), and their numbers at jamba's shapes (K1 on the
+    attention layer's q (1, 512, 64, 128), K2/K3 at rows (512, 8192) and
+    (8, 8192))."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -2160,6 +2369,16 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                            for k in ("q", "x") + keys
                            if k in moe["kernels"][fn.__name__][0]}}
             for fn, src, tpu in KERNELS]
+    for row in rows:
+        name = row["name"]
+        row.update(xlstm_launches=xl["serve"]["launches"][name],
+                   xlstm_launches_in=f"serve {XLSTM_ARCH} (phase 13)",
+                   jamba_launches=jb["serve"]["launches"][name],
+                   jamba_launches_in=f"serve {JAMBA_ARCH} layers 2-4 "
+                                     f"(phase 14)",
+                   jamba_shapes=[{k: c.get(k) for k in ("q", "x", "variant")
+                                  + keys if k in c}
+                                 for c in jb["kernels"][name]])
     # K1 f32 launches on neither path: its phase 3 numbers at both shapes
     fwd = cases["flash_attention"]
     rows[0].update({f"f32_{n}": {k: fwd[i][k] for k in keys
@@ -2226,7 +2445,9 @@ def main() -> None:
     cluster = phase_cluster()
     moe = phase_moe_serve(cases["rmsnorm"][0]["floor_ms"])
     mla = phase_mla_serve(cases["rmsnorm"][0]["floor_ms"])
-    emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla))
+    xl = phase_xlstm_serve()
+    jb = phase_jamba_serve(cases["rmsnorm"][0]["floor_ms"])
+    emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb))
     emit({"ok": True, "device": dev})
 
 

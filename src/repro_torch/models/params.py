@@ -27,7 +27,7 @@ class ParamDef:
     """Shape and initialiser of one parameter (``repro/models/params.py``
     without the sharding axes)."""
     shape: Tuple[int, ...]
-    init: str = "normal"                 # normal | zeros | ones | embed
+    init: str = "normal"                 # normal | zeros | ones | ssm_a | embed
     scale: float = 1.0                   # stddev multiplier for normal/embed
 
 
@@ -122,16 +122,87 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-MIXER_DEFS = {"attn": attn_defs, "mla": mla_defs}
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, d_state, d_conv, dt_rank) of a Mamba layer."""
+    m = cfg.mamba
+    return (m.expand * cfg.d_model, m.d_state, m.d_conv,
+            m.resolved_dt_rank(cfg.d_model))
+
+
+def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The S6 mixer (``repro/models/mamba.py``): the in-projection to u and
+    the gate z, the depthwise causal conv, the x-projection to dt's low
+    rank, B and C, dt's up-projection, A as log(-A) and the skip."""
+    D = cfg.d_model
+    di, ds, dc, dtr = mamba_dims(cfg)
+    return {"w_in": ParamDef((D, 2 * di)),
+            "conv_w": ParamDef((di, dc), scale=1.0),
+            "conv_b": ParamDef((di,), init="zeros"),
+            "x_proj": ParamDef((di, dtr + 2 * ds)),
+            "dt_w": ParamDef((dtr, di)),
+            "dt_b": ParamDef((di,), init="ones", scale=1.0),
+            "a_log": ParamDef((di, ds), init="ssm_a"),
+            "d_skip": ParamDef((di,), init="ones"),
+            "w_out": ParamDef((di, D))}
+
+
+def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(d_inner, heads, head dim) of an mLSTM layer."""
+    x = cfg.xlstm
+    di = x.expand * cfg.d_model
+    return di, x.n_heads, di // x.n_heads
+
+
+def slstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(heads, head dim) of an sLSTM layer."""
+    return cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads
+
+
+def mlstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The matrix-memory mixer (``repro/models/xlstm.py``). ``b_f`` is
+    ones: a ones leaf ignores its scale, as in the reference."""
+    D = cfg.d_model
+    di, nh, _ = mlstm_dims(cfg)
+    dc = cfg.xlstm.conv_width
+    return {"w_up": ParamDef((D, 2 * di)),
+            "conv_w": ParamDef((di, dc), scale=1.0),
+            "conv_b": ParamDef((di,), init="zeros"),
+            "wq": ParamDef((di, di)),
+            "wk": ParamDef((di, di)),
+            "wv": ParamDef((di, di)),
+            "w_i": ParamDef((di, nh), scale=0.1),
+            "b_i": ParamDef((nh,), init="zeros"),
+            "w_f": ParamDef((di, nh), scale=0.1),
+            "b_f": ParamDef((nh,), init="ones", scale=3.0),
+            "w_down": ParamDef((di, D)),
+            "skip_scale": ParamDef((di,), init="ones")}
+
+
+def slstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The scalar-memory mixer: per gate an input matrix, a block-diagonal
+    recurrent matrix per head and a bias (``b_f`` ones), then ``w_out``."""
+    D = cfg.d_model
+    nh, dh = slstm_dims(cfg)
+    out = {"w_out": ParamDef((D, D))}
+    for g in ("z", "i", "f", "o"):
+        out[f"w_{g}"] = ParamDef((D, D))
+        out[f"r_{g}"] = ParamDef((nh, dh, dh), scale=0.5)
+        out[f"b_{g}"] = ParamDef((D,), init="ones" if g == "f" else "zeros",
+                                 scale=2.0)
+    return out
+
+
+MIXER_DEFS = {"attn": attn_defs, "mla": mla_defs, "mamba": mamba_defs,
+              "mlstm": mlstm_defs, "slstm": slstm_defs}
 
 
 def check_spec(spec: LayerSpec) -> None:
-    """The port runs attention and MLA layers, with a dense, MoE or no FFN,
-    in sequence or in parallel; the recurrent mixers wait."""
+    """The port runs every mixer of the reference (attention, MLA, Mamba,
+    mLSTM, sLSTM), with a dense, MoE or no FFN, in sequence or in
+    parallel."""
     if spec.mixer not in MIXER_DEFS:
-        raise NotImplementedError(
-            f"mixer '{spec.mixer}' is not ported yet (ROADMAP Queue 1, "
-            f"item 14: Mamba, xLSTM)")
+        raise ValueError(f"unknown mixer '{spec.mixer}'; the mixers are "
+                         f"{sorted(MIXER_DEFS)}")
 
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Dict[str, ParamDef]]:
@@ -177,8 +248,13 @@ def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
     """Each leaf in turn, drawn in f32 from ``generator``, in f32 or with
     ``cast`` in its :func:`compute_dtype`."""
     for name, d in model_defs(cfg).items():
-        if d.init in ("zeros", "ones"):
-            t = torch.full(d.shape, float(d.init == "ones"), device=dev)
+        if d.init in ("zeros", "ones", "ssm_a"):      # nothing drawn
+            if d.init == "ssm_a":     # log(-A), A = -(1 .. d_state) a row
+                t = torch.log(torch.arange(1, d.shape[-1] + 1,
+                                           dtype=torch.float32, device=dev)
+                              ).expand(d.shape).contiguous()
+            else:
+                t = torch.full(d.shape, float(d.init == "ones"), device=dev)
             yield name, t.to(compute_dtype(cfg, name, t)) if cast else t
             continue
         std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
@@ -207,17 +283,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return dict(_draw(cfg, generator, resolve_device(device)))
 
 
-# leaves that keep f32 in the compute copy: the MoE router, as the
-# reference's early cast leaves it (``_PRECAST_EXCLUDE``,
-# repro/models/transformer.py), since top-k on bf16 logits can pick other
-# experts than on f32 ones
-KEEP_F32 = ("router",)
+# leaves that keep f32 in the compute copy, since the reference reads each
+# with ``.astype(jnp.float32)`` from f32 params: the MoE router (top-k on
+# bf16 logits can pick other experts than on f32 ones), Mamba's A and dt
+# projection (under exp and softplus; the reference's early cast leaves
+# these three, ``_PRECAST_EXCLUDE`` in repro/models/transformer.py) and
+# the sLSTM's recurrent matrices, which feed an f32 recurrence at every step
+KEEP_F32 = ("router", "a_log", "dt_w", "r_z", "r_i", "r_f", "r_o")
 
 
 def compute_dtype(cfg: ModelConfig, name: str, t: torch.Tensor
                   ) -> torch.dtype:
     """The dtype leaf ``name`` takes in the compute copy: ``cfg.dtype`` for a
-    matrix, its own for a vector (norm scales, biases) and the router."""
+    matrix, its own for a vector (norm scales, biases) and a ``KEEP_F32``
+    leaf."""
     if t.dim() >= 2 and name.rsplit(".", 1)[-1] not in KEEP_F32:
         return getattr(torch, cfg.dtype)
     return t.dtype

@@ -1,9 +1,13 @@
 """Model assembly: ``Block``, ``Transformer``, train/prefill/decode.
 
-Port of ``repro/models/transformer.py`` for attention and MLA layers with a
-dense, MoE or no FFN, in sequence or in parallel (Cohere-style: attention
-and FFN on one norm, both added to the residual). An attention layer caches
-K/V, an MLA layer its latent and rope key (``models/mla.py``). The JAX
+Port of ``repro/models/transformer.py`` for every mixer (attention, MLA,
+Mamba, mLSTM, sLSTM) with a dense, MoE or no FFN, in sequence or in
+parallel (Cohere-style: mixer and FFN on one norm, both added to the
+residual). An attention layer caches K/V, an MLA layer its latent and rope
+key (``models/mla.py``), both in bf16; a recurrent layer its state in the
+dtypes of its own ``*_init_cache`` (``models/mamba.py``,
+``models/xlstm.py``), which its sequence pass computes only when a cache
+is wanted. The JAX
 stack scans over period parameters stacked on a leading axis; here every
 layer is its own :class:`Block` in an ``nn.ModuleList``. The RMSNorm mixer
 norms and ``out_norm`` go through the rmsnorm kernel, and the residual add
@@ -34,8 +38,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.rmsnorm import rmsnorm_residual
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 from repro_torch.models.params import check_spec, compute_dtype, model_defs
 
 Cache = Dict[str, torch.Tensor]
@@ -46,11 +52,54 @@ AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 REMAT = ("full", "none")
 
-# per mixer: its sequence pass, its decode step, and the cache entries the
-# sequence pass returns, in order
-MIXERS = {"attn": (A.self_attention, A.decode_self_attention, ("k", "v")),
-          "mla": (MLA.mla_self_attention, MLA.mla_decode_attention,
-                  ("ckv", "kr"))}
+
+def _kv_seq(fn, keys: Tuple[str, str]):
+    """An attention-like sequence pass, ``fn(...) -> (y, (two tensors))``,
+    as a mixer's: (y, the two cached in bf16 under ``keys``, or None)."""
+    def seq(cfg, p, x, positions, *, lengths=None, want_cache=False):
+        y, kv = fn(cfg, p, x, positions, lengths=lengths)
+        if not want_cache:
+            return y, None
+        return y, {k: t.to(torch.bfloat16).contiguous()
+                   for k, t in zip(keys, kv)}
+    return seq
+
+
+def _kv_cache(cfg, batch, s_max, device):
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {k: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+            for k in ("k", "v")}
+
+
+def _mla_cache(cfg, batch, s_max, device):
+    m, bf16 = cfg.mla, dict(dtype=torch.bfloat16, device=device)
+    return {"ckv": torch.zeros(batch, s_max, m.kv_lora_rank, **bf16),
+            "kr": torch.zeros(batch, s_max, m.qk_rope_head_dim, **bf16)}
+
+
+def _state_cache(fn):
+    """A recurrent layer's empty cache, which holds no sequence axis."""
+    return lambda cfg, batch, s_max, device: fn(cfg, batch, device)
+
+
+# per mixer: its sequence pass ``(cfg, p, x, positions, *, lengths,
+# want_cache) -> (y, cache or None)``, its decode step ``(cfg, p, x, cache,
+# lengths) -> (y, cache)`` and its empty cache ``(cfg, batch, s_max,
+# device)`` (the reference's ``layer_cache``); a recurrent mixer takes
+# and ignores ``positions`` and the decode's ``lengths`` (its state is
+# its position) and holds no sequence axis
+MIXERS = {
+    "attn": (_kv_seq(A.self_attention, ("k", "v")), A.decode_self_attention,
+             _kv_cache),
+    "mla": (_kv_seq(MLA.mla_self_attention, ("ckv", "kr")),
+            MLA.mla_decode_attention, _mla_cache),
+    "mamba": (MB.mamba_mixer, MB.mamba_decode,
+              _state_cache(MB.mamba_init_cache)),
+    "mlstm": (XL.mlstm_mixer, XL.mlstm_decode,
+              _state_cache(XL.mlstm_init_cache)),
+    "slstm": (XL.slstm_mixer, XL.slstm_decode,
+              _state_cache(XL.slstm_init_cache)),
+}
 
 
 def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
@@ -67,9 +116,9 @@ def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
 
 
 class Block(nn.Module):
-    """One layer: mixer norm, attention or MLA (``spec.mixer``), then a
-    dense or MoE FFN on its own norm after the residual add, or
-    (``spec.parallel``) on the mixer norm's output beside the mixer."""
+    """One layer: mixer norm, the mixer (``spec.mixer``), then a dense or
+    MoE FFN on its own norm after the residual add, or (``spec.parallel``)
+    on the mixer norm's output beside the mixer, or none."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  params: Mapping[str, torch.Tensor], prefix: str,
@@ -113,12 +162,9 @@ class Block(nn.Module):
         """One layer over a whole sequence. Returns (x, cache or None, the
         MoE aux or None)."""
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
-        seq, _, keys = MIXERS[self.spec.mixer]
-        y_mix, kv = seq(self.cfg, self.mixer, h, positions, lengths=lengths)
-        cache = None
-        if want_cache:
-            cache = {name: t.to(torch.bfloat16).contiguous()
-                     for name, t in zip(keys, kv)}
+        y_mix, cache = MIXERS[self.spec.mixer][0](
+            self.cfg, self.mixer, h, positions, lengths=lengths,
+            want_cache=want_cache)
         x, aux = self._ffn(x, h, y_mix)
         return x, cache, aux
 
@@ -190,38 +236,24 @@ class Transformer(nn.Module):
 def cast_for_compute(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """``params`` on ``device`` with every matrix in ``cfg.dtype`` but the
-    MoE router; vectors (norm scales, biases) keep their dtype
-    (``params.compute_dtype``). Every use site casts matrices to
-    ``cfg.dtype`` first and the router to f32, so a model on these params
+    ``params.KEEP_F32`` leaves; vectors (norm scales, biases) keep their
+    dtype (``params.compute_dtype``). Every use site casts matrices to
+    ``cfg.dtype`` first and those leaves to f32, so a model on these params
     computes the same."""
     dev = resolve_device(device)
     return {k: v.to(dev, compute_dtype(cfg, k, v)) for k, v in params.items()}
 
 
-def layer_cache_shapes(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                       s_max: int) -> Dict[str, Tuple[int, ...]]:
-    """One layer's cache entries and shapes (``repro`` ``layer_cache``):
-    K/V (B, s_max, KV, HD) for attention, the latent (B, s_max, R) and the
-    rope key (B, s_max, dr) for MLA."""
-    check_spec(spec)
-    if spec.mixer == "mla":
-        m = cfg.mla
-        shapes = ((batch, s_max, m.kv_lora_rank),
-                  (batch, s_max, m.qk_rope_head_dim))
-    else:
-        shapes = ((batch, s_max, cfg.n_kv_heads, cfg.head_dim),) * 2
-    return dict(zip(MIXERS[spec.mixer][2], shapes))
-
-
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: DeviceLike = "cuda") -> Dict:
-    """bf16 caches per layer (:func:`layer_cache_shapes`), and zero
-    lengths."""
+    """Every layer's empty cache, made by its mixer (``MIXERS``): K/V and
+    MLA's latent in bf16 over ``s_max`` positions, a recurrent layer's
+    state in its own dtypes; and zero lengths."""
     dev = resolve_device(device)
-    layers = [{k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-               for k, shape in layer_cache_shapes(cfg, spec, batch,
-                                                  s_max).items()}
-              for spec in cfg.layer_specs]
+    layers = []
+    for spec in cfg.layer_specs:
+        check_spec(spec)
+        layers.append(MIXERS[spec.mixer][2](cfg, batch, s_max, dev))
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 

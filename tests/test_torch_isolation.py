@@ -31,7 +31,10 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.data.synthetic", "repro_torch.launch.train",
             "repro_torch.core.service", "repro_torch.core.executor",
             "repro_torch.ckpt.checkpoint", "repro_torch.models.mla",
-            "repro_torch.parallel.decode_attn"} <= set(mods)
+            "repro_torch.parallel.decode_attn", "repro_torch.models.mamba",
+            "repro_torch.models.xlstm",
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.configs.xlstm_125m"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"

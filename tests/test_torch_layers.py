@@ -62,7 +62,7 @@ def test_configs_equal_field_for_field():
     variant the layer tests use."""
     jcfg, tcfg = _configs()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert len(list_archs()) == 9
+    assert len(list_archs()) == 11
     for arch in list_archs():
         for smoke in (False, True):
             assert dataclasses.asdict(jax_get_config(arch, smoke=smoke)) == \

@@ -159,29 +159,63 @@ def test_init_cache_layout():
 
 @pytest.mark.parametrize("case", [
     "mixer:mamba", "mixer:mlstm", "mixer:slstm", "arch:jamba-1.5-large-398b",
-    "arch:xlstm-125m", "mixer:mla"])
+    "arch:xlstm-125m", "mixer:mla", "mixer:unknown"])
 def test_other_mixers_raise_naming_the_roadmap(case):
-    """The recurrent mixers and the configs that need them raise, naming
-    ROADMAP Queue 1 item 14; an MLA layer builds."""
+    """Every mixer of the reference builds since the recurrent ones were
+    ported (ROADMAP Queue 1 item 14, done), as do the configs that need
+    them: each layer's defs and its empty cache, with the reference's
+    entries, shapes and dtypes (K/V and MLA's latent in bf16 over the
+    sequence, a recurrent state in f32 with ``m`` at -1e30 and the conv
+    window in bf16). A mixer the reference does not have still raises,
+    naming the ones there are."""
     from repro_torch.configs.base import LayerSpec, MLAConfig
     kind, name = case.split(":")
+    m_init = float(np.float32(-1e30))
     if kind == "arch":
-        with pytest.raises(KeyError, match="ROADMAP Queue 1, item 14"):
-            get_config(name)
+        cfg = get_config(name, smoke=True)
+        cache = init_cache(cfg, 2, 8, device="cpu")
+        assert len(cache["layers"]) == cfg.n_layers == len(
+            {k.split(".")[1] for k in model_defs(cfg) if k.startswith("layers")})
+        for spec, c in zip(cfg.layer_specs, cache["layers"]):
+            assert set(c) == {"attn": {"k", "v"}, "mamba": {"conv", "ssm"},
+                              "mlstm": {"C", "n", "m", "conv"},
+                              "slstm": {"c", "n", "h", "m"}}[spec.mixer]
         return
     cfg = get_config("tacc-100m", smoke=True)
     bad = type(cfg)(**{**cfg.__dict__, "period": (LayerSpec(name),),
                        "mla": MLAConfig(q_lora_rank=32, kv_lora_rank=32,
                                         qk_nope_head_dim=16,
                                         qk_rope_head_dim=8,
-                                        v_head_dim=16)})
-    if name == "mla":
-        defs = model_defs(bad)
-        assert defs["layers.0.mixer.w_ukv"].shape == (32, cfg.n_heads, 32)
-        assert init_cache(bad, 1, 8, device="cpu")["layers"][0][
-            "ckv"].shape == (1, 8, 32)
+                                        v_head_dim=16),
+                       "mamba": get_config("jamba-1.5-large-398b",
+                                           smoke=True).mamba,
+                       "xlstm": get_config("xlstm-125m", smoke=True).xlstm})
+    if name == "unknown":
+        with pytest.raises(ValueError, match="unknown mixer 'unknown'.*mamba"):
+            model_defs(bad)
+        with pytest.raises(ValueError, match="unknown mixer 'unknown'"):
+            init_cache(bad, 1, 8, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model_defs(bad)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_cache(bad, 1, 8, device="cpu")
+    defs = model_defs(bad)
+    layer = init_cache(bad, 1, 8, device="cpu")["layers"][0]
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in layer.items()}
+    bf16, f32 = torch.bfloat16, torch.float32
+    if name == "mla":
+        assert defs["layers.0.mixer.w_ukv"].shape == (32, cfg.n_heads, 32)
+        assert shapes == {"ckv": ((1, 8, 32), bf16), "kr": ((1, 8, 8), bf16)}
+    elif name == "mamba":             # d_inner 128, d_state 8, d_conv 4
+        assert defs["layers.0.mixer.a_log"].init == "ssm_a"
+        assert shapes == {"conv": ((1, 3, 128), bf16),
+                          "ssm": ((1, 128, 8), f32)}
+    elif name == "mlstm":             # d_inner 128, 4 heads of 32
+        assert defs["layers.0.mixer.wq"].shape == (128, 128)
+        assert shapes == {"C": ((1, 4, 32, 32), f32), "n": ((1, 4, 32), f32),
+                          "m": ((1, 4), f32), "conv": ((1, 3, 128), bf16)}
+    else:                             # 4 heads of 16
+        assert defs["layers.0.mixer.r_z"].shape == (4, 16, 16)
+        assert shapes == dict.fromkeys("cnhm", ((1, 4, 16), f32))
+    if "m" in layer:
+        assert torch.equal(layer["m"], torch.full_like(layer["m"], m_init))
+        assert not any(layer[k].any() for k in layer if k != "m")
+    else:
+        assert not any(t.any() for t in layer.values())
