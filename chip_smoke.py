@@ -120,22 +120,55 @@ Phases, each printing one JSON line and raising on failure:
    forward, and the cut's layers 0 and 2 against the CPU on a 32-token
    prompt; phase 5's traffic, every kernel launched as often as the code
    says; a profile; the peak under 40 GB above the phase's start and the
-   memory given back.
+   memory given back;
+15. paged_serve: internlm2-1.8b at full width and depth (1,889,110,016
+   parameters; 24 layers of d_model 2048, 16 query heads over 8 KV heads
+   of 128), seed 0, bf16 weights drawn leaf by leaf: K1 on layer 0's q,
+   k, v from a 512-token prefill and K2/K3 at rows (512, 2048) and (8,
+   2048), each against its plain version with its times and bound; the
+   port's PagedKVCache (a bf16 pool of 64 pages of 64 positions a layer,
+   8 pages a sequence) held to the model's own dense decode: 8 of phase
+   5's prompts prefilled at 512 slots, each row's valid prefix written
+   into its pages, 32 greedy decode steps, at each step and layer the
+   step's k/v appended and ``attend`` on the step's q bit-equal to the
+   dense ``decode_attention_ref`` output; after step 16 two rows retire
+   and two new prompts take their pages, whose block tables must show
+   the LIFO reuse and whose stale tails are masked; the gather, ``attend``
+   and the dense attention timed at (B 8, H 16, KV 8, HD 128, S 512),
+   device and host-paced; then ``serve_phase``'s checks as in phases
+   12-14;
+16. tcloud: ``repro_torch.core.tcloud.main`` on the card, each run in its
+   own temporary ``--cluster-root``: (a) ``demo --device cuda``, its
+   three jobs completed (40/40, 4/4, 1/1) with the logs of
+   tests/test_system.py, every forward and backward kernel launched (the
+   backward ones as often as the train job's steps say), the train job's
+   last loss within rel 1e-3 of the same demo run on the CPU in this
+   phase; (b) ``hash`` and ``submit --watch`` of a spec file holding
+   tacc-100m trained at full width (global batch 16, seq 128, lr 3e-4,
+   20 steps, checkpoints every 10) and internlm2-1.8b served at full
+   width (max_batch 8, max_seq 512, 32 new tokens, 16 requests): the
+   hashes, both jobs completed, checkpoints at steps 10 and 20, the train
+   job's step ms and the serve job's wall and tokens/s, every kernel
+   launched; the allocated memory back within 100 MB.
 
-Then one ``{"kernels": [...]}`` line with each kernel's launches in phase 5
-(forward kernels) or phase 9 (backward kernels), and in phase 10
+Every phase from 12 on prints the card's name and power limit beside its
+times. Then one ``{"kernels": [...]}`` line with each kernel's launches
+in phase 5 (forward kernels) or phase 9 (backward kernels), and in phase 10
 (``cluster_launches``) and in phase 11 (``moe_launches``, with the
 numbers at qwen2-moe's shapes), K1's row with its f32
 numbers at both timed shapes (no path launches it), a row for K1 at
 D = 192 with its launches in phase 12 and its numbers there (f32 from
-phase 3), every forward kernel's launches in phases 13 and 14 and its
-numbers at jamba's shapes, and the last line
+phase 3), every forward kernel's launches in phases 13, 14 and 15 and its
+numbers at jamba's and internlm2's shapes, every kernel's launches in
+phase 16's demo and submitted spec file, and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
+import contextlib
 import dataclasses
 import gc
 import importlib.util
+import io
 import json
 import math
 import os
@@ -155,7 +188,9 @@ import torch.nn.functional as F
 
 from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs import get_config, list_archs
+from repro_torch.core import tcloud as TC
 from repro_torch.core.executor import TorchTrainRuntime
+from repro_torch.core.schema import ResourceSpec, RuntimeEnv, TaskSpec
 from repro_torch.data import SyntheticLM, to_torch
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  flash_attention_bwd_plain,
@@ -181,6 +216,8 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.params import KEEP_F32
 from repro_torch.models.transformer import MIXERS
+from repro_torch.parallel.decode_attn import (PagedKVCache, gather_paged_kv,
+                                              paged_decode_attention)
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -255,13 +292,20 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # -- phase 1 ---------------------------------------------------------------
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them: printed
+    beside the times of a phase, since a card set below its limit runs
+    slower under load."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False; "
                          "it runs on a CUDA card only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -698,9 +742,7 @@ def phase_consistency(cfg, params) -> dict:
 def phase_serve(cfg, params) -> dict:
     engine = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                          seed=SEED, device="cuda")
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(16, 257)).tolist()
-               for _ in range(N_REQUESTS)]
+    prompts = serve_prompts(cfg)
     for fn, _, _ in KERNELS:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1791,6 +1833,13 @@ def serve_launches(cfg, prefills: int, decodes: int) -> dict:
             "rmsnorm_residual": ffn * calls}
 
 
+def serve_prompts(cfg) -> list:
+    """Phase 5's traffic: 16 prompts of 16-256 tokens, drawn from SEED."""
+    rng = np.random.RandomState(SEED)
+    return [rng.randint(1, cfg.vocab_size, rng.randint(16, 257)).tolist()
+            for _ in range(N_REQUESTS)]
+
+
 def serve_traffic(cfg, params):
     """Phase 5's traffic through ServeEngine on this model; every count set
     to 0 just before and read just after, against :func:`serve_launches`.
@@ -1800,9 +1849,7 @@ def serve_traffic(cfg, params):
     goes on serving)."""
     engine = ServeEngine(cfg, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
                          seed=SEED, device="cuda")
-    rng = np.random.RandomState(SEED)
-    prompts = [rng.randint(1, cfg.vocab_size, rng.randint(16, 257)).tolist()
-               for _ in range(N_REQUESTS)]
+    prompts = serve_prompts(cfg)
     for fn, _, _ in KERNELS:
         fn.launches = 0
     MOE.dispatch_routed.host_syncs = 0
@@ -2132,7 +2179,7 @@ def serve_phase(phase: str, cfg, n_params: int, parts, *,
     leaf = {n: n.rsplit(".", 1)[-1] for n in params}
     f32 = sorted({leaf[n] for n, t in params.items()
                   if t.dim() >= 2 and t.dtype == torch.float32})
-    out = {"phase": phase, "arch": cfg.name,
+    out = {"phase": phase, "arch": cfg.name, "card": card(),
            "layers": [s.mixer + "+" + s.ffn for s in cfg.layer_specs],
            "reduced": reduced, "init_s": time.perf_counter() - t0,
            "params": sum(t.numel() for t in params.values()),
@@ -2273,12 +2320,14 @@ def mixer_times(cfg, model) -> dict:
     return out
 
 
-def jamba_kernels(cfg, model, floor: float) -> dict:
-    """K1 on the attention layer's q, k, v from a 512-token prefill (the
-    two Mamba layers before it run first; 64 query heads over 8 KV heads,
-    no RoPE, so k and v are views of the fused ``wkv`` product), again at
-    a serve prompt's expected length, and K2/K3 at rows (512, 8192) and
-    (8, 8192), each against its plain version with its times and bound."""
+def attn_kernels(cfg, model, floor: float) -> dict:
+    """K1 on the first attention layer's q, k, v from a 512-token prefill
+    (the layers before it run first: jamba's two Mamba layers, whose
+    attention has 64 query heads over 8 KV heads and no RoPE, so k and v
+    are views of the fused ``wkv`` product; internlm2's layer 0, 16 over
+    8 with RoPE), again at a serve prompt's expected length, and K2/K3 at
+    rows (512, d_model) and (8, d_model), each against its plain version
+    with its times and bound."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     S = MAX_SEQ
     tokens = torch.randint(1, cfg.vocab_size, (1, S), generator=g,
@@ -2326,7 +2375,7 @@ def phase_jamba_serve(floor: float) -> dict:
     cfg = jamba_cut(get_config(JAMBA_ARCH))
     return serve_phase(
         "jamba_serve", cfg, JAMBA_PARAMS,
-        [("kernels", lambda c, m: jamba_kernels(c, m, floor)),
+        [("kernels", lambda c, m: attn_kernels(c, m, floor)),
          ("mixers", mixer_times)],
         cpu_layers=JAMBA_CPU_LAYERS, cpu_seq=MLA_CPU_SEQ, cpu_len=MLA_CPU_LEN,
         reduced=f"depth only: layers {JAMBA_LAYERS.start}-"
@@ -2334,9 +2383,405 @@ def phase_jamba_serve(floor: float) -> dict:
                 f"{get_config(JAMBA_ARCH).n_layers}")
 
 
+# -- phase 15 --------------------------------------------------------------
+
+PAGED_ARCH = "internlm2-1.8b"
+# internlm2-1.8b whole: 24 attention + SwiGLU layers of d_model 2048, 16
+# query heads over 8 KV heads of 128, SwiGLU 8192, vocab 92,544; 3.78 GB
+# in bf16
+PAGED_PARAMS = 1_889_110_016
+# each layer's page pool holds exactly MAX_BATCH sequences of MAX_SEQ
+# positions, so the pages of a retired sequence are the only free ones
+PAGE_SIZE = 64
+PAGES_PER_SEQ = MAX_SEQ // PAGE_SIZE
+NUM_PAGES = MAX_BATCH * PAGES_PER_SEQ
+PAGED_STEPS, PAGED_RETIRE_AT, PAGED_RETIRED = 32, 16, (2, 5)
+
+
+def padded_batch(rows) -> tuple:
+    """(tokens (len(rows), MAX_SEQ), lengths) on the card, each row's
+    prompt at its start."""
+    toks = torch.zeros(len(rows), MAX_SEQ, dtype=torch.long, device="cuda")
+    for i, p in enumerate(rows):
+        toks[i, :len(p)] = torch.tensor(p, device="cuda")
+    return toks, torch.tensor([len(p) for p in rows], dtype=torch.int32,
+                              device="cuda")
+
+
+def write_prefix(cache: PagedKVCache, seq, k: torch.Tensor, v: torch.Tensor,
+                 n: int) -> None:
+    """A prefill row's first ``n`` positions of k/v (S, KV, HD) into the
+    sequence's pages; the pages' other slots keep what they held."""
+    row = torch.from_numpy(cache.tables[seq]).long().cuda()
+    pos = torch.arange(n, device="cuda")
+    cache.k_pages[row[pos // cache.page_size], pos % cache.page_size] = k[:n]
+    cache.v_pages[row[pos // cache.page_size], pos % cache.page_size] = v[:n]
+
+
+def paged_case(cfg, model) -> dict:
+    """The port's ``PagedKVCache`` held to the model's own dense decode.
+    Each layer gets a bf16 pool of ``NUM_PAGES`` pages of ``PAGE_SIZE``;
+    8 of phase 5's prompts are prefilled at ``MAX_SEQ`` slots and each
+    row's valid prefix written into its pages, then ``PAGED_STEPS`` greedy
+    decode steps run through ``decode_step``. The model's dense
+    ``decode_attention_ref`` is wrapped for each step to take its q, the
+    k/v the step wrote (read back from the dense cache) and its output;
+    the paged cache appends that k/v and its ``attend`` on that q must
+    equal the dense output bit for bit, at every step and layer. After
+    step ``PAGED_RETIRE_AT``, the rows at ``PAGED_RETIRED`` retire and two
+    new prompts take their pages: their block tables must show the LIFO
+    reuse, and their pages' stale tails, masked, must not move the output.
+    Then the gather, ``attend`` and the dense attention at this shape,
+    timed."""
+    prompts = serve_prompts(cfg)
+    B, n_layers = MAX_BATCH, cfg.n_layers
+    caches = [PagedKVCache(num_pages=NUM_PAGES, page_size=PAGE_SIZE,
+                           num_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.head_dim,
+                           pages_per_seq=PAGES_PER_SEQ, dtype=torch.bfloat16,
+                           device="cuda") for _ in range(n_layers)]
+    seqs = [f"req{i}" for i in range(B)]
+    dense_attention = A.decode_attention_ref
+    taps = []
+
+    def tap(q, k_cache, v_cache, lengths):
+        o = dense_attention(q, k_cache, v_cache, lengths)
+        rows = torch.arange(q.shape[0], device=q.device)
+        pos = (lengths - 1).long()
+        taps.append((q, k_cache[rows, pos], v_cache[rows, pos], lengths, o,
+                     k_cache, v_cache))
+        return o
+
+    out = {"pool": {"num_pages": NUM_PAGES, "page_size": PAGE_SIZE,
+                    "pages_per_seq": PAGES_PER_SEQ, "dtype": "bfloat16",
+                    "pool_bytes_a_layer": nbytes(caches[0].k_pages,
+                                                 caches[0].v_pages)},
+           "steps": PAGED_STEPS, "layers": n_layers,
+           "retire_after_step": PAGED_RETIRE_AT,
+           "retired_slots": list(PAGED_RETIRED)}
+    mismatches, stale = [], 0
+    with torch.inference_mode():
+        toks, lens = padded_batch(prompts[:B])
+        logits, dense = prefill(model, {"tokens": toks}, lens)
+        for c, d in zip(caches, dense["layers"]):
+            for b, seq in enumerate(seqs):
+                c.reserve(seq)
+                write_prefix(c, seq, d["k"][b], d["v"][b], len(prompts[b]))
+        tables = {s: caches[0].tables[s].tolist() for s in seqs}
+        tok = logits.argmax(-1)
+        for step in range(PAGED_STEPS):
+            if step == PAGED_RETIRE_AT:
+                new = prompts[B:B + len(PAGED_RETIRED)]
+                retired = [seqs[i] for i in PAGED_RETIRED]
+                for c in caches:
+                    for seq in retired:
+                        c.release(seq)
+                admitted = [f"req{B + j}" for j in range(len(new))]
+                for c in caches:
+                    for seq in admitted:
+                        c.reserve(seq)
+                for slot, seq in zip(PAGED_RETIRED, admitted):
+                    seqs[slot] = seq
+                toks2, lens2 = padded_batch(new)
+                lg2, d2 = prefill(model, {"tokens": toks2}, lens2)
+                slots = torch.tensor(PAGED_RETIRED, device="cuda")
+                for d, dn in zip(dense["layers"], d2["layers"]):
+                    for k in d:
+                        d[k][slots] = dn[k]
+                dense["lengths"][slots] = lens2
+                tok[slots] = lg2.argmax(-1)
+                for c, dn in zip(caches, d2["layers"]):
+                    for j, seq in enumerate(admitted):
+                        write_prefix(c, seq, dn["k"][j], dn["v"][j],
+                                     len(new[j]))
+                out["admitted"] = {
+                    "lengths": [len(p) for p in new],
+                    "tables": {s: caches[0].tables[s].tolist()
+                               for s in admitted},
+                    # the first sequence admitted takes the pages of the
+                    # last one retired, in their order, and so on back
+                    "lifo": [caches[0].tables[s].tolist() for s in admitted]
+                    == [tables[s] for s in reversed(retired)],
+                    "same_in_every_layer": all(
+                        {s: c.tables[s].tolist() for s in c.tables}
+                        == {s: caches[0].tables[s].tolist()
+                            for s in caches[0].tables} for c in caches)}
+            taps.clear()
+            A.decode_attention_ref = tap
+            try:
+                logits, dense = decode_step(model, dense, tok)
+            finally:
+                A.decode_attention_ref = dense_attention
+            if len(taps) != n_layers:
+                raise AssertionError(f"{len(taps)} dense decode attentions "
+                                     f"in a step of {n_layers} layers")
+            for i, (c, (q, kn, vn, ln, o, kc, vc)) in enumerate(
+                    zip(caches, taps)):
+                c.append(seqs, kn, vn, ln - 1)
+                got = c.attend(seqs, q, ln)
+                if not torch.equal(got, o):
+                    mismatches.append({"step": step, "layer": i,
+                                       "max_abs_err": max_err(got, o)})
+                if step == PAGED_RETIRE_AT:
+                    # positions past each row's length where the pages
+                    # hold other bytes than the dense cache: masked
+                    kp, _ = gather_paged_kv(c.k_pages, c.v_pages,
+                                            c.block_tables(seqs))
+                    past = (torch.arange(MAX_SEQ, device="cuda")[None, :]
+                            >= ln[:, None])
+                    stale += int(((kp != kc).flatten(2).any(-1)
+                                  & past).sum())
+            tok = logits.argmax(-1)
+        q, _, _, ln, _, kc, vc = taps[-1]
+        c = caches[-1]
+        bt = c.block_tables(seqs)
+        kp, vp = gather_paged_kv(c.k_pages, c.v_pages, bt)
+        gather_bytes = 2 * nbytes(kp, vp)
+        out["timed"] = {
+            "card": card(),
+            "shape": {"B": B, "H": cfg.n_heads, "KV": cfg.n_kv_heads,
+                      "HD": cfg.head_dim, "S": MAX_SEQ},
+            "layer": n_layers - 1, "lengths": ln.tolist(),
+            "gather_bytes": gather_bytes,
+            "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+            "gather_ms": time_ms(lambda: gather_paged_kv(
+                c.k_pages, c.v_pages, bt)),
+            "attend_ms": time_ms(lambda: paged_decode_attention(
+                q, c.k_pages, c.v_pages, bt, ln)),
+            "dense_ms": time_ms(lambda: dense_attention(q, kc, vc, ln)),
+            "gather_call_ms": call_ms(lambda: gather_paged_kv(
+                c.k_pages, c.v_pages, c.block_tables(seqs))),
+            "attend_call_ms": call_ms(lambda: c.attend(seqs, q, ln)),
+            "dense_call_ms": call_ms(lambda: dense_attention(q, kc, vc, ln))}
+        out["dense_cache"] = {"shape": list(kc.shape),
+                              "contiguous": kc.is_contiguous(),
+                              "gathered_contiguous": kp.is_contiguous()}
+    out.update(checks=PAGED_STEPS * n_layers, mismatches=mismatches[:8],
+               n_mismatches=len(mismatches), bit_equal=not mismatches,
+               initial_tables=tables, stale_positions_masked=stale)
+    del caches, taps, dense
+    if mismatches or not (out["admitted"]["lifo"]
+                          and out["admitted"]["same_in_every_layer"]
+                          and stale > 0):
+        raise AssertionError(f"paged decode against the dense decode: {out}")
+    return out
+
+
+def phase_paged_serve(floor: float) -> dict:
+    """Phase 15: internlm2-1.8b at full width and depth, K1/K2/K3 at its
+    shapes, the paged cache held to its dense decode, then
+    ``serve_phase``'s checks."""
+    return serve_phase(
+        "paged_serve", get_config(PAGED_ARCH), PAGED_PARAMS,
+        [("kernels", lambda c, m: attn_kernels(c, m, floor)),
+         ("paged", paged_case)])
+
+
+# -- phase 16 --------------------------------------------------------------
+
+def tcloud_specs() -> list:
+    """The spec file of phase 16 (b): tacc-100m trained at full width as
+    phase 9 trains it, with checkpoints every 10 of its 20 steps, and
+    internlm2-1.8b served at full width with phase 5's engine shape."""
+    return [
+        TaskSpec(name="train-tacc100m-full", tenant="lab-a",
+                 resources=ResourceSpec(chips=4),
+                 runtime=RuntimeEnv(backend="torch_train",
+                                    checkpoint_interval_steps=10),
+                 entry={"arch": "tacc-100m", "smoke": False,
+                        "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+                        "lr": 3e-4}, total_steps=TRAIN_STEPS,
+                 estimated_duration_s=60),
+        TaskSpec(name="serve-internlm2-full", tenant="lab-b",
+                 resources=ResourceSpec(chips=2, qos="realtime", priority=5),
+                 runtime=RuntimeEnv(backend="torch_serve"),
+                 entry={"arch": PAGED_ARCH, "smoke": False,
+                        "max_batch": MAX_BATCH, "max_seq": MAX_SEQ,
+                        "max_new": MAX_NEW}, total_steps=N_REQUESTS,
+                 estimated_duration_s=30)]
+
+
+def run_tcloud(argv) -> tuple:
+    """``repro_torch.core.tcloud.main(argv)``: (its standard output, the
+    ``TACC`` it drove or None). The CLI makes its service itself, so its
+    class is wrapped for the call to keep the instance, whose status,
+    logs and runtimes' stats the phase reads."""
+    made = []
+
+    class Kept(TC.TACC):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    cls, TC.TACC = TC.TACC, Kept
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = TC.main(argv)
+    finally:
+        TC.TACC = cls
+    if rc != 0:
+        raise AssertionError(f"tcloud {argv} returned {rc}")
+    return buf.getvalue(), (made[0] if made else None)
+
+
+def tcloud_jobs(svc) -> dict:
+    """name -> (status row, its full log, its runtimes' stats)."""
+    rows = {r["name"]: r for r in svc.status()}
+    return {j.spec.name: (rows[j.spec.name],
+                          "".join(svc.logs(j.id, tail=10_000)),
+                          svc.executor.stats.get(j.id, {}))
+            for j in svc.jobs.values()}
+
+
+def phase_tcloud() -> dict:
+    """Phase 16: the tcloud CLI on the card, each run in its own temporary
+    ``--cluster-root``. (a) ``demo --device cuda``: every job completes,
+    with the logs of tests/test_system.py, every kernel launched (the
+    backward ones as often as the train job's steps say), and the train
+    job's last loss within rel 1e-3 of the same demo run on the CPU in
+    this phase. (b) ``hash`` and ``submit --watch`` of ``tcloud_specs``:
+    the hashes, both jobs complete, checkpoints at steps 10 and 20, the
+    train job's step ms and the serve job's wall and tokens/s, every
+    kernel launched. The allocated memory must come back within 100 MB."""
+    wrappers = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
+                                               BWD_KERNELS]
+    backward = {name for name, _, _, _ in BWD_KERNELS}
+    before = allocated_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tcloud_")
+    out = {"phase": "tcloud", "card": card(),
+           "memory_allocated_before_gb": before / 1e9}
+    failures = []
+
+    def launched(run: str, train_cfg, train_steps: int) -> dict:
+        n = {fn.__name__: fn.launches for fn in wrappers}
+        want = expected_train_launches(train_cfg, train_steps)
+        for name, k in n.items():
+            if k == 0 or (k != want[name] if name in backward
+                          else k < want[name]):
+                failures.append(f"{run}: {name} launched {k} times; its "
+                                f"train job alone launches it {want[name]}")
+        return {"launches": n, "expected_train_launches": want}
+
+    try:
+        # (a) the demo on the card, then on the CPU
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        text, svc = run_tcloud(["--cluster-root", os.path.join(root, "a"),
+                                "--device", "cuda", "demo"])
+        torch.cuda.synchronize()
+        demo = {"wall_s": time.perf_counter() - t0}
+        demo.update(launched("demo", get_config("tacc-100m", smoke=True),
+                             40))
+        jobs = tcloud_jobs(svc)
+        del svc
+        t0 = time.perf_counter()
+        _, cpu_svc = run_tcloud(["--cluster-root", os.path.join(root, "cpu"),
+                                 "--device", "cpu", "demo"])
+        demo["cpu_wall_s"] = time.perf_counter() - t0
+        cpu_jobs = tcloud_jobs(cpu_svc)
+        del cpu_svc
+        demo["status"] = [jobs[n][0] for n in jobs]
+        want = {"train-tacc100m": ("40/40", "checkpoint"),
+                "serve-internlm2": ("4/4", "served"),
+                "hello-shell": ("1/1", "hello from TACC")}
+        for name, (progress, needle) in want.items():
+            row, log, _ = jobs[name]
+            if (row["state"], row["progress"]) != ("COMPLETED", progress) \
+                    or needle not in log:
+                failures.append(f"demo {name}: {row}, {needle!r} "
+                                f"{'in' if needle in log else 'not in'} "
+                                f"its log")
+                for block in _error_blocks(log):
+                    print(block, file=sys.stderr, flush=True)
+            if cpu_jobs[name][0]["state"] != "COMPLETED":
+                failures.append(f"demo on the CPU {name}: "
+                                f"{cpu_jobs[name][0]}")
+        losses = [[q["loss"] for q in j["train-tacc100m"][2].get("quanta",
+                                                                  [])]
+                  for j in (jobs, cpu_jobs)]
+        demo.update(losses=losses[0], cpu_losses=losses[1])
+        if losses[0] and losses[1]:
+            demo["last_loss_rel"] = (abs(losses[0][-1] - losses[1][-1])
+                                     / abs(losses[1][-1]))
+        if not demo.get("last_loss_rel", 1.0) <= 1e-3:
+            failures.append(f"demo's last loss {losses[0][-1:]} on the card,"
+                            f" {losses[1][-1:]} on the CPU (bar rel 1e-3)")
+        demo["shell_log"] = jobs["hello-shell"][1].strip().splitlines()[-1]
+        demo["stdout_lines"] = len(text.splitlines())
+        out["demo"] = demo
+
+        # (b) a spec file at full width: hash, then submit --watch
+        path = os.path.join(root, "specs.json")
+        specs = tcloud_specs()
+        with open(path, "w") as f:
+            json.dump([s.to_dict() for s in specs], f)
+        text, _ = run_tcloud(["hash", path])
+        hashes = [ln.split() for ln in text.splitlines()]
+        sub = {"hash": hashes}
+        if hashes != [[s.spec_hash(), s.name] for s in specs]:
+            failures.append(f"hash printed {hashes}")
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        text, svc = run_tcloud(["--cluster-root", os.path.join(root, "b"),
+                                "--device", "cuda", "submit", path,
+                                "--watch"])
+        torch.cuda.synchronize()
+        sub["wall_s"] = time.perf_counter() - t0
+        sub.update(launched("submit", get_config("tacc-100m"), TRAIN_STEPS))
+        jobs = tcloud_jobs(svc)
+        sub["ticks"] = svc.ticks
+        del svc
+        sub["status"] = [jobs[n][0] for n in jobs]
+        train, serve = (jobs[s.name] for s in specs)
+        saves = train[2].get("saves", [])
+        quanta = train[2].get("quanta", [])
+        served = serve[2].get("quanta", [])
+        wall = sum(q["seconds"] for q in served)
+        tokens = sum(q["tokens"] for q in served)
+        sub.update(
+            train_step_ms=[q["step_ms"] for q in quanta],
+            train_losses=[q["loss"] for q in quanta],
+            saves=len(saves), saved_steps=sorted({x["step"] for x in saves}),
+            save_s_total=sum(x["snapshot_s"] + x["write_s"] for x in saves),
+            checkpoint_bytes=saves[-1]["bytes"] if saves else None,
+            serve_requests=sum(q["requests"] for q in served),
+            serve_tokens=tokens, serve_wall_s=wall,
+            serve_tokens_per_s=tokens / wall if wall else None)
+        for spec, (row, log, _) in zip(specs, (train, serve)):
+            if (row["state"], row["progress"]) != (
+                    "COMPLETED", f"{spec.total_steps}/{spec.total_steps}"):
+                failures.append(f"submit {spec.name}: {row}")
+                for block in _error_blocks(log):
+                    print(block, file=sys.stderr, flush=True)
+        # a save every 10 steps; the completed job saves once more, at its
+        # last step, as the reference's runtime does
+        if sub["saved_steps"] != [10, 20]:
+            failures.append(f"train job saved at {sub['saved_steps']}")
+        if sub["serve_tokens"] != N_REQUESTS * MAX_NEW:
+            failures.append(f"serve job generated {tokens} tokens")
+        out["submit"] = sub
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    after = allocated_bytes()
+    out["memory_allocated_after_gb"] = after / 1e9
+    if abs(after - before) > MEMORY_SLACK_BYTES:
+        failures.append(f"allocated memory {before} -> {after} bytes "
+                        f"across phase 16")
+    out["failures"] = failures
+    emit(out)
+    if failures:
+        raise AssertionError(f"tcloud phase failed: {failures}")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
-                jb: dict) -> dict:
+                jb: dict, pg: dict, tc: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -2350,7 +2795,11 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     kernels also with their launches serving xlstm-125m (phase 13) and the
     jamba cut (phase 14), and their numbers at jamba's shapes (K1 on the
     attention layer's q (1, 512, 64, 128), K2/K3 at rows (512, 8192) and
-    (8, 8192))."""
+    (8, 8192)); the forward kernels also with their launches serving
+    internlm2-1.8b (phase 15) and their numbers at its shapes (K1 on layer
+    0's q (1, 512, 16, 128), K2/K3 at rows (512, 2048) and (8, 2048));
+    and every kernel with its launches in tcloud's demo and its submitted
+    spec file (phase 16)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -2378,7 +2827,12 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                                      f"(phase 14)",
                    jamba_shapes=[{k: c.get(k) for k in ("q", "x", "variant")
                                   + keys if k in c}
-                                 for c in jb["kernels"][name]])
+                                 for c in jb["kernels"][name]],
+                   paged_launches=pg["serve"]["launches"][name],
+                   paged_launches_in=f"serve {PAGED_ARCH} (phase 15)",
+                   paged_shapes=[{k: c.get(k) for k in ("q", "x", "variant")
+                                  + keys if k in c}
+                                 for c in pg["kernels"][name]])
     # K1 f32 launches on neither path: its phase 3 numbers at both shapes
     fwd = cases["flash_attention"]
     rows[0].update({f"f32_{n}": {k: fwd[i][k] for k in keys
@@ -2425,6 +2879,13 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                      **{k: c.get(k) for k in keys if k != "floor_ms"},
                      "shape": c["shape"], "dtype": fl["dtype"],
                      **{k: c[k] for k in ("f32", "dw") if k in c}})
+    for row in rows:
+        if row["name"] in tc["demo"]["launches"]:
+            row.update(tcloud_launches={
+                run: tc[run]["launches"][row["name"]]
+                for run in ("demo", "submit")},
+                tcloud_launches_in="tcloud demo and submit --watch "
+                                   "(phase 16)")
     return {"kernels": rows}
 
 
@@ -2447,7 +2908,10 @@ def main() -> None:
     mla = phase_mla_serve(cases["rmsnorm"][0]["floor_ms"])
     xl = phase_xlstm_serve()
     jb = phase_jamba_serve(cases["rmsnorm"][0]["floor_ms"])
-    emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb))
+    pg = phase_paged_serve(cases["rmsnorm"][0]["floor_ms"])
+    tc = phase_tcloud()
+    emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
+                     pg, tc))
     emit({"ok": True, "device": dev})
 
 

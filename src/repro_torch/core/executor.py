@@ -174,7 +174,12 @@ class TorchTrainRuntime(Runtime):
 
 
 class TorchServeRuntime(Runtime):
-    """Batched serving; a 'step' serves one request from the workload."""
+    """Batched serving; a 'step' serves one request from the workload.
+
+    ``stats``: ``quanta`` ({requests, tokens, seconds}: the requests a
+    quantum served, the tokens they generated and the quantum's wall time;
+    the engine returns host lists, so the device has finished).
+    """
 
     def __init__(self, plan: ExecutionPlan, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -198,8 +203,13 @@ class TorchServeRuntime(Runtime):
     def run_quantum(self, steps: int) -> Dict[str, Any]:
         todo = self.requests[self._done:self._done + steps]
         if todo:
+            t0 = time.perf_counter()
             results = self.engine.run(todo, max_new=self.max_new)
             self._done += len(todo)
+            self.record("quanta", {
+                "requests": len(results),
+                "tokens": sum(len(r.tokens) for r in results),
+                "seconds": time.perf_counter() - t0})
             self.log(f"served {len(results)} requests "
                      f"({self._done}/{len(self.requests)})")
         return {"served": float(self._done)}

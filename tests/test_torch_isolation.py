@@ -34,7 +34,8 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.parallel.decode_attn", "repro_torch.models.mamba",
             "repro_torch.models.xlstm",
             "repro_torch.configs.jamba_1_5_large_398b",
-            "repro_torch.configs.xlstm_125m"} <= set(mods)
+            "repro_torch.configs.xlstm_125m", "repro_torch.core.sim",
+            "repro_torch.core.tcloud", "repro_torch.data.trace"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
@@ -75,6 +76,8 @@ def test_entry_points_raise_without_a_card(tmp_path):
     import importlib.util
     from repro_torch.configs import get_config
     from repro_torch.core import TACC, RuntimeEnv, TaskSpec
+    from repro_torch.core.tcloud import main as tcloud_main
+    from repro_torch.parallel.decode_attn import PagedKVCache
     from repro_torch.models import Transformer, init_params
     from repro_torch.models.transformer import init_cache
     from repro_torch.launch.train import main as train_main
@@ -101,6 +104,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
                  lambda: init_train_state(cfg, OptConfig(), torch.Generator()),
                  lambda: train_main(["--smoke", "--steps", "1"]),
                  provision_on_the_card,
+                 lambda: PagedKVCache(num_pages=2, page_size=4,
+                                      num_kv_heads=1, head_dim=4,
+                                      pages_per_seq=1),
+                 lambda: tcloud_main(["--cluster-root",
+                                      str(tmp_path / "tcloud"), "demo"]),
                  lambda: example.main(["--smoke", "--steps", "3"])):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
