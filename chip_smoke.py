@@ -149,7 +149,29 @@ Phases, each printing one JSON line and raising on failure:
    width (max_batch 8, max_seq 512, 32 new tokens, 16 requests): the
    hashes, both jobs completed, checkpoints at steps 10 and 20, the train
    job's step ms and the serve job's wall and tokens/s, every kernel
-   launched; the allocated memory back within 100 MB.
+   launched; the allocated memory back within 100 MB;
+17. mesh_serve: qwen2-moe-a2.7b whole over a mesh of 4 ranks (data 1,
+   model 4), each a process of its own on the one card, talking over gloo
+   (NCCL refuses two ranks on one device), every collective staged
+   through the host. (a) In this process, the model whole: teacher-forced
+   logits of 4 rows (a prefill and 32 fed decode steps) and phase 5's
+   traffic's greedy tokens, saved to a temporary file, the memory given
+   back. (b) Each rank draws only its shard (16 of 64 experts a layer,
+   ``init_serving_params(shard=...)``) and holds 128 of the 512 cache
+   positions (flags from ``decode_plan``: the batch replicated, the
+   sequence over the mesh); its teacher-forced logits at capacity factor
+   8 within 0.05 (prefill) and 0.08 (decode) of (a); phase 5's traffic
+   at capacity 8 and at the config's own 1.25, every kernel launched as
+   often as the code says, the ranks' tokens equal, the dropped
+   assignments and the tokens parting from (a) counted; collectives,
+   bytes and staged bytes per prefill and decode step, peak memory, and
+   rank 0's prefill and decode-step ms and tokens/s. (c) Each rank's
+   cache shard zeroed in turn before the first decode step must move the
+   logits past the decode bar. (d) deepseek-v2 at full width cut to
+   layers 0-1 (40 of 160 experts a rank, 128 of 512 latent positions):
+   layer 0's sequence-sharded absorbed decode against the whole-cache one
+   (phase 12's bars, the written shard bit-equal) and teacher-forced
+   logits against the single process at (b)'s bars.
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -160,12 +182,14 @@ numbers at both timed shapes (no path launches it), a row for K1 at
 D = 192 with its launches in phase 12 and its numbers there (f32 from
 phase 3), every forward kernel's launches in phases 13, 14 and 15 and its
 numbers at jamba's and internlm2's shapes, every kernel's launches in
-phase 16's demo and submitted spec file, and the last line
+phase 16's demo and submitted spec file, each forward kernel's launches
+summed over phase 17's ranks, and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
 import contextlib
 import dataclasses
+import datetime
 import gc
 import importlib.util
 import io
@@ -184,10 +208,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import tcloud as TC
 from repro_torch.core.executor import TorchTrainRuntime
 from repro_torch.core.schema import ResourceSpec, RuntimeEnv, TaskSpec
@@ -207,6 +234,7 @@ from repro_torch.kernels.flash_attention import _forward as flash_forward
 from repro_torch.kernels.flash_attention import _in_place as flash_in_place
 from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
                                          launch_empty, pick_variant)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
                                 init_params, init_serving_params, model_defs,
                                 prefill, state_from_jax, train_logits)
@@ -214,10 +242,13 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.params import KEEP_F32
-from repro_torch.models.transformer import MIXERS
+from repro_torch.models.params import KEEP_F32, serving_plan
+from repro_torch.models.transformer import MIXERS, RunFlags
+from repro_torch.parallel import collectives as COLL
 from repro_torch.parallel.decode_attn import (PagedKVCache, gather_paged_kv,
                                               paged_decode_attention)
+from repro_torch.parallel.sharding import (cache_specs, decode_plan,
+                                           local_shard)
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -2779,9 +2810,470 @@ def phase_tcloud() -> dict:
     return out
 
 
+# -- phase 17 --------------------------------------------------------------
+
+# 4 ranks on one card: NCCL refuses two ranks on one device, so the ranks
+# talk over gloo and the collectives stage each buffer through the host
+MESH = ((1, 4), ("data", "model"))
+MESH_BACKEND = "gloo"
+MESH_TIMEOUT_S = 300
+# the reference checks' capacity factor, at which no assignment drops
+# (tests/distributed_checks.py:38-40); the traffic also runs at the
+# config's own 1.25
+MESH_CAPACITY = 8.0
+# teacher-forced rows: every rank's 128 of the 512 positions hold valid
+# keys of some row, so zeroing any one rank's shard moves the logits
+MESH_TF_LENGTHS = (480, 352, 224, 96)
+MESH_TF_STEPS = 32
+MESH_BARS = {"prefill": 0.05, "decode": 0.08}
+# deepseek-v2 at full width cut to layers 0-1: the dense MLA prelayer and
+# one MLA + MoE layer of 160 experts, 40 a rank
+MESH_MLA_LAYERS = 2
+MESH_MLA_TF_LENGTHS = (480, 224)
+MESH_MLA_TF_STEPS = 8
+
+
+def mesh_cfgs():
+    """(qwen2-moe-a2.7b whole, deepseek-v2-236b cut to its first
+    ``MESH_MLA_LAYERS`` layers)."""
+    return (get_config(MOE_ARCH), dataclasses.replace(
+        get_config(MLA_ARCH), n_layers=MESH_MLA_LAYERS))
+
+
+def with_capacity(cfg, cf: float):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def tf_inputs(cfg, lengths, steps: int):
+    """Teacher-forced rows: prompts of ``lengths`` tokens padded to
+    ``MAX_SEQ`` and the token fed at each of ``steps`` decode steps, from
+    one seed, so every process draws the same."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    toks = torch.randint(1, cfg.vocab_size, (len(lengths), MAX_SEQ),
+                         generator=g, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    toks = toks * (torch.arange(MAX_SEQ, device="cuda")[None]
+                   < lens[:, None])
+    feed = torch.randint(1, cfg.vocab_size, (steps, len(lengths)),
+                         generator=g, device="cuda")
+    return toks, lens, feed
+
+
+def mesh_reference(path: str) -> dict:
+    """Phase 17 (a): each model whole in this one process, its
+    teacher-forced logits (a prefill and each fed decode step) and, for
+    qwen2-moe, phase 5's traffic's greedy tokens, saved to ``path``; the
+    memory given back before the ranks start."""
+    qcfg, dcfg = mesh_cfgs()
+    ref, out = {}, {}
+    for name, cfg, lengths, steps in (
+            ("moe", qcfg, MESH_TF_LENGTHS, MESH_TF_STEPS),
+            ("mla", dcfg, MESH_MLA_TF_LENGTHS, MESH_MLA_TF_STEPS)):
+        t0 = time.perf_counter()
+        params = init_serving_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        model = Transformer(cfg, params, device="cuda")
+        toks, lens, feed = tf_inputs(cfg, lengths, steps)
+        with torch.inference_mode():
+            lg, cache = prefill(model, {"tokens": toks}, lens)
+            logits = [lg.float().cpu()]
+            for f in feed:
+                lg, cache = decode_step(model, cache, f)
+                logits.append(lg.float().cpu())
+        ref[name] = torch.stack(logits)
+        del model, cache, lg
+        out[name] = {"params": sum(t.numel() for t in params.values()),
+                     "param_bytes": nbytes(*params.values())}
+        if name == "moe":
+            engine = ServeEngine(cfg, params, max_batch=MAX_BATCH,
+                                 max_seq=MAX_SEQ, seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            results = engine.run(serve_prompts(cfg), max_new=MAX_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            ref["tokens"] = [r.tokens for r in results]
+            out[name].update(
+                tokens_per_s=sum(len(r.tokens) for r in results) / wall,
+                prefill_ms_mean=1e3 * float(np.mean(
+                    engine.timings["prefill"])),
+                decode_step_ms_mean=1e3 * float(np.mean(
+                    engine.timings["decode"])))
+            del engine
+        del params
+        out[name]["seconds"] = time.perf_counter() - t0
+    torch.save(ref, path)
+    return out
+
+
+def serve_stepwise(engine, prompts) -> tuple:
+    """``engine.run(prompts, max_new=MAX_NEW)``, admission and decode in
+    the same order, with the collectives counted around each prefill and
+    each decode step: (results, per prefill, per decode step)."""
+    queue, results, pre, steps = list(prompts), [], [], []
+    while queue or engine.active():
+        while queue:
+            COLL.reset_stats()
+            r = engine.add_request(queue[0], max_new=MAX_NEW)
+            if r is None:
+                break
+            pre.append(dict(COLL.STATS))
+            results.append(r)
+            queue.pop(0)
+        if engine.active():
+            COLL.reset_stats()
+            engine.step()
+            steps.append(dict(COLL.STATS))
+    return results, pre, steps
+
+
+def _mean_stats(rows) -> dict:
+    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+
+
+def _shard_cache(cache, specs, mesh) -> dict:
+    return {"layers": [{k: local_shard(t, sp[k], mesh) for k, t in c.items()}
+                       for c, sp in zip(cache["layers"], specs)],
+            "lengths": cache["lengths"]}
+
+
+def mesh_moe(mesh, ref) -> dict:
+    """Phase 17 (b) and (c) on one rank: qwen2-moe-a2.7b drawn as this
+    rank's shard; teacher-forced logits at ``MESH_CAPACITY``; each rank's
+    cache shard zeroed in turn before the first decode step; phase 5's
+    traffic at ``MESH_CAPACITY`` and at the config's own factor."""
+    cfg, _ = mesh_cfgs()
+    rank = mesh.rank
+    b, s = decode_plan(cfg, ShapeConfig("mesh_serve", MAX_SEQ, MAX_BATCH,
+                                        "decode"), mesh)
+    flags = RunFlags(distributed=True, token_axes=b, decode_seq_axes=s)
+    specs = cache_specs(cfg, b, s)["layers"]
+    plan = serving_plan(cfg, mesh, flags.ep_axis)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_serving_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        shard=(mesh, plan))
+    torch.cuda.synchronize()
+    out = {"plan": {"batch_axes": list(b), "seq_axes": list(s)},
+           "init_s": time.perf_counter() - t0,
+           "params_held": sum(t.numel() for t in params.values()),
+           "param_bytes": nbytes(*params.values()),
+           "experts": [list(params[k].shape) for k in
+                       ("layers.0.ffn.w_in", "layers.0.ffn.w_out")]}
+    full = with_capacity(cfg, MESH_CAPACITY)
+    model = Transformer(full, params, device="cuda")
+    toks, lens, feed = tf_inputs(cfg, MESH_TF_LENGTHS, MESH_TF_STEPS)
+    with torch.inference_mode():
+        lg, whole = prefill(model, {"tokens": toks}, lens, flags=flags,
+                            mesh=mesh)
+        cache = _shard_cache(whole, specs, mesh)
+        del whole
+        out["cache_shard"] = list(cache["layers"][0]["k"].shape)
+        base = {"layers": [{k: t.clone() for k, t in c.items()}
+                           for c in cache["layers"]],
+                "lengths": cache["lengths"]}
+        errs = [rel_err(lg, ref["moe"][0])]
+        MOE.moe_ep.dropped = 0
+        for i, f in enumerate(feed):
+            COLL.reset_stats()
+            lg, cache = decode_step(model, cache, f, flags=flags, mesh=mesh)
+            if i == 0:
+                out["tf_decode_step_collectives"] = dict(COLL.STATS)
+            errs.append(rel_err(lg, ref["moe"][i + 1]))
+        out["tf"] = {"rows": len(MESH_TF_LENGTHS), "steps": MESH_TF_STEPS,
+                     "prefill_vs_single": errs[0],
+                     "decode_vs_single": errs[1:],
+                     "dropped": int(MOE.moe_ep.dropped)}
+        del cache
+        out["fault"] = []
+        for victim in range(mesh.size(s)):
+            c = {"layers": [{k: t.clone() for k, t in layer.items()}
+                            for layer in base["layers"]],
+                 "lengths": base["lengths"]}
+            if mesh.axis_index(s) == victim:
+                for layer in c["layers"]:
+                    for t in layer.values():
+                        t.zero_()
+            lg, c = decode_step(model, c, feed[0], flags=flags, mesh=mesh)
+            out["fault"].append(rel_err(lg, ref["moe"][1]))
+            del c
+        del base, model
+    prompts = serve_prompts(cfg)
+    out["traffic"] = {}
+    for tag, c in (("capacity_8", full), ("capacity_1.25", cfg)):
+        engine = ServeEngine(c, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
+                             seed=SEED, device="cuda", flags=flags, mesh=mesh)
+        for fn, _, _ in KERNELS:
+            fn.launches = 0
+        MOE.moe_ep.dropped = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results, pre, steps = serve_stepwise(engine, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        tokens = [r.tokens for r in results]
+        pf, dc = engine.timings["prefill"], engine.timings["decode"]
+        n_tok = sum(len(t) for t in tokens)
+        out["traffic"][tag] = {
+            "capacity_factor": c.moe.capacity_factor,
+            "requests": len(results), "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "prefills": len(pf),
+            "prefill_ms_mean": 1e3 * float(np.mean(pf)),
+            "decode_steps": len(dc),
+            "decode_step_ms_mean": 1e3 * float(np.mean(dc)),
+            "decode_step_ms_p50": 1e3 * float(np.median(dc)),
+            "launches": {fn.__name__: fn.launches for fn, _, _ in KERNELS},
+            "expected_launches": serve_launches(cfg, len(pf), len(dc)),
+            "dropped": int(MOE.moe_ep.dropped),
+            "tokens_parting_from_single": sum(
+                a != b for x, y in zip(tokens, ref["tokens"])
+                for a, b in zip(x, y)),
+            "per_prefill": _mean_stats(pre),
+            "per_decode_step": _mean_stats(steps),
+            "tokens_list": tokens}
+        del engine
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    return out
+
+
+def mesh_mla(mesh, ref) -> dict:
+    """Phase 17 (d) on one rank: deepseek-v2 cut to ``MESH_MLA_LAYERS``
+    layers, this rank's 40 of 160 experts and 128 of 512 latent positions:
+    the sequence-sharded absorbed MLA decode of layer 0 against the
+    whole-cache absorbed decode on the same input (phase 12's bars), and
+    teacher-forced logits against the single process."""
+    _, cfg = mesh_cfgs()
+    b, s = decode_plan(cfg, ShapeConfig("mesh_serve", MAX_SEQ, MAX_BATCH,
+                                        "decode"), mesh)
+    flags = RunFlags(distributed=True, token_axes=b, decode_seq_axes=s)
+    specs = cache_specs(cfg, b, s)["layers"]
+    torch.cuda.reset_peak_memory_stats()
+    params = init_serving_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        shard=(mesh, serving_plan(cfg, mesh, flags.ep_axis)))
+    out = {"params_held": sum(t.numel() for t in params.values()),
+           "experts": list(params["layers.1.ffn.w_in"].shape)}
+    model = Transformer(with_capacity(cfg, MESH_CAPACITY), params,
+                        device="cuda")
+    toks, lens, feed = tf_inputs(cfg, MESH_MLA_TF_LENGTHS, MESH_MLA_TF_STEPS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    h0 = torch.randn(len(lens), 1, cfg.d_model, generator=g, device="cuda")
+    with torch.inference_mode():
+        lg, whole = prefill(model, {"tokens": toks}, lens, flags=flags,
+                            mesh=mesh)
+        errs = [rel_err(lg, ref["mla"][0])]
+        layer = model.layers[0]
+        out["layer0"] = {}
+        for dt in (torch.float32, torch.bfloat16):
+            p = {k: v.to(dt) if v.dim() > 1 else v
+                 for k, v in layer.mixer.items()}
+            wc = {k: v.to(dt) for k, v in whole["layers"][0].items()}
+            lc = {k: local_shard(v, specs[0][k], mesh).clone()
+                  for k, v in wc.items()}
+            y_whole, wc = MLA.mla_decode_attention(
+                cfg, p, h0.to(dt), {k: v.clone() for k, v in wc.items()},
+                lens)
+            y_shard, lc = MLA.mla_decode_attention(
+                cfg, p, h0.to(dt), lc, lens, seq_axes=flags.decode_seq_axes,
+                batch_axes=flags.token_axes, mesh=mesh)
+            d = (y_shard.float() - y_whole.float()).abs()
+            r = {"max_abs_err": float(d.max()),
+                 "rel_err": float(d.max() / y_whole.float().abs().max()),
+                 "cache_shard_bit_equal": all(
+                     torch.equal(lc[k], local_shard(wc[k], specs[0][k], mesh))
+                     for k in lc)}
+            r["within"] = (bool((d <= 1e-4 + 1e-3 * y_whole.float().abs())
+                                .all()) if dt == torch.float32
+                           else r["rel_err"] <= MLA_DECODE_BF16_BAR)
+            out["layer0"][str(dt).split(".")[-1]] = r
+        cache = _shard_cache(whole, specs, mesh)
+        out["cache_shard"] = list(cache["layers"][0]["ckv"].shape)
+        del whole
+        for i, f in enumerate(feed):
+            lg, cache = decode_step(model, cache, f, flags=flags, mesh=mesh)
+            errs.append(rel_err(lg, ref["mla"][i + 1]))
+        del cache, model
+    out["tf"] = {"rows": len(MESH_MLA_TF_LENGTHS),
+                 "steps": MESH_MLA_TF_STEPS, "prefill_vs_single": errs[0],
+                 "decode_vs_single": errs[1:]}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    return out
+
+
+def gloo_on_cuda() -> dict:
+    """Whether gloo itself takes ``all_to_all`` and ``all_gather`` on CUDA
+    tensors (the collectives stage through the host regardless)."""
+    out = {}
+    x = torch.arange(4.0, device="cuda")
+    for name, call in (
+            ("all_to_all", lambda: dist.all_to_all_single(
+                torch.empty_like(x), x)),
+            ("all_gather", lambda: dist.all_gather_into_tensor(
+                torch.empty(4 * x.numel(), device="cuda"), x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:          # recorded, not raised: a probe
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return out
+
+
+def mesh_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 17, a process of its own on the one card; writes
+    its results to ``work``/rank<r>.json. A rank that raises makes the
+    spawn, and so the phase, fail."""
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, os.cpu_count() // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        MESH_BACKEND, init_method=f"file://{store}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(*MESH)
+        ref = torch.load(os.path.join(work, "ref.pt"))
+        t0 = time.perf_counter()
+        out = {"rank": rank, "coords": mesh.coords, "moe": mesh_moe(mesh, ref)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["mla"] = mesh_mla(mesh, ref)
+        out["seconds"] = time.perf_counter() - t0
+        out["gloo_on_cuda"] = gloo_on_cuda()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_failures(ranks: list) -> list:
+    """Every bar of phase 17 over every rank's results."""
+    qcfg, dcfg = mesh_cfgs()
+    n = len(ranks)
+    E, E_d = MOE.padded_experts(qcfg.moe), dcfg.moe.n_experts
+    fails = []
+
+    def need(ok, what):
+        if not ok:
+            fails.append(what)
+    tokens = [r["moe"]["traffic"]["capacity_8"]["tokens_list"] for r in ranks]
+    need(all(t == tokens[0] for t in tokens), "ranks picked other tokens")
+    for r in ranks:
+        m, d, tag = r["moe"], r["mla"], f"rank {r['rank']}"
+        need(m["experts"][0][0] == E // n and m["experts"][1][0] == E // n,
+             f"{tag} holds {m['experts']} experts")
+        need(m["cache_shard"][1] == MAX_SEQ // n,
+             f"{tag} cache shard {m['cache_shard']}")
+        need(m["tf"]["prefill_vs_single"] < MESH_BARS["prefill"]
+             and max(m["tf"]["decode_vs_single"]) < MESH_BARS["decode"],
+             f"{tag} teacher-forced logits off the single process")
+        need(m["tf"]["dropped"] == 0, f"{tag} dropped at capacity 8")
+        need(all(e > MESH_BARS["decode"] for e in m["fault"]),
+             f"{tag}: a zeroed shard stayed within the bar {m['fault']}")
+        for tag2, t in m["traffic"].items():
+            need(t["launches"] == t["expected_launches"]
+                 and all(v > 0 for v in t["launches"].values()),
+                 f"{tag} {tag2} launched {t['launches']}")
+            need(t["requests"] == N_REQUESTS
+                 and t["tokens"] == N_REQUESTS * MAX_NEW,
+                 f"{tag} {tag2} served {t['requests']} / {t['tokens']}")
+        need(m["traffic"]["capacity_8"]["dropped"] == 0,
+             f"{tag} dropped at capacity 8")
+        need(d["experts"][0] == E_d // n and d["cache_shard"][1]
+             == MAX_SEQ // n, f"{tag} deepseek shards {d['experts']}, "
+             f"{d['cache_shard']}")
+        need(all(v["within"] and v["cache_shard_bit_equal"]
+                 for v in d["layer0"].values()),
+             f"{tag} sharded MLA decode {d['layer0']}")
+        need(d["tf"]["prefill_vs_single"] < MESH_BARS["prefill"]
+             and max(d["tf"]["decode_vs_single"]) < MESH_BARS["decode"],
+             f"{tag} deepseek teacher-forced logits off the single process")
+    return fails
+
+
+def phase_mesh_serve() -> dict:
+    """Phase 17: (a) the single-process reference, saved and freed; (b)
+    to (d) in 4 ranks on the one card over gloo (``mesh_rank``); every
+    bar checked over every rank's results."""
+    before = allocated_bytes()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="mesh_serve_")
+    t0 = time.perf_counter()
+    try:
+        single = mesh_reference(os.path.join(work, "ref.pt"))
+        t_ref = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        world = math.prod(MESH[0])
+        mp.spawn(mesh_rank, args=(world, os.path.join(work, "store"), work),
+                 nprocs=world, join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    qcfg, _ = mesh_cfgs()
+    fails = mesh_failures(ranks)
+    r0 = ranks[0]["moe"]["traffic"]
+    out = {"phase": "mesh_serve", "card": card(),
+           "mesh": dict(zip(*reversed(MESH))), "backend": MESH_BACKEND,
+           "interconnect": "none: 4 processes share one card over gloo, "
+                           "every collective staged through the host; "
+                           "NCCL and NVLink times not measured",
+           "single_process": single,
+           "rank0": {tag: {k: t[k] for k in (
+               "prefill_ms_mean", "decode_step_ms_mean",
+               "decode_step_ms_p50", "tokens_per_s", "wall_s")}
+               for tag, t in r0.items()},
+           "ranks": [{
+               "rank": r["rank"], "seconds": r["seconds"],
+               "peak_gb": {"moe": r["moe"]["peak_gb"],
+                           "mla": r["mla"]["peak_gb"]},
+               "shards": {"experts": r["moe"]["experts"],
+                          "kv_cache": r["moe"]["cache_shard"],
+                          "mla_experts": r["mla"]["experts"],
+                          "latent_cache": r["mla"]["cache_shard"]},
+               "params_held": r["moe"]["params_held"],
+               "param_bytes": r["moe"]["param_bytes"],
+               "init_s": r["moe"]["init_s"],
+               "per_decode_step": r["moe"]["traffic"]["capacity_8"][
+                   "per_decode_step"],
+               "per_prefill": r["moe"]["traffic"]["capacity_8"][
+                   "per_prefill"],
+               "tf": r["moe"]["tf"], "fault": r["moe"]["fault"],
+               "traffic": {tag: {k: v for k, v in t.items()
+                                 if k != "tokens_list"}
+                           for tag, t in r["moe"]["traffic"].items()},
+               "mla": {k: r["mla"][k] for k in ("tf", "layer0")},
+               "gloo_on_cuda": r["gloo_on_cuda"]} for r in ranks],
+           "launches": {fn.__name__: sum(
+               r["moe"]["traffic"]["capacity_8"]["launches"][fn.__name__]
+               for r in ranks) for fn, _, _ in KERNELS},
+           "bars": dict(MESH_BARS, mla_layer0={
+               "float32": "atol 1e-4, rtol 1e-3 elementwise",
+               "bfloat16": MLA_DECODE_BF16_BAR},
+               fault=f"each zeroed shard above {MESH_BARS['decode']}"),
+           "reference_s": t_ref, "seconds": time.perf_counter() - t0,
+           "failures": fails}
+    after = allocated_bytes()
+    out["memory_allocated_after_gb"] = after / 1e9
+    emit(out)
+    if fails:
+        raise AssertionError(f"mesh_serve phase failed: {fails}")
+    if abs(after - before) > MEMORY_SLACK_BYTES:
+        raise AssertionError(f"allocated memory {before} -> {after} bytes "
+                             f"across phase 17")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
-                jb: dict, pg: dict, tc: dict) -> dict:
+                jb: dict, pg: dict, tc: dict, ms: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -2798,8 +3290,10 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     (8, 8192)); the forward kernels also with their launches serving
     internlm2-1.8b (phase 15) and their numbers at its shapes (K1 on layer
     0's q (1, 512, 16, 128), K2/K3 at rows (512, 2048) and (8, 2048));
-    and every kernel with its launches in tcloud's demo and its submitted
-    spec file (phase 16)."""
+    every kernel with its launches in tcloud's demo and its submitted
+    spec file (phase 16); and the forward kernels with their launches
+    summed over the 4 ranks serving qwen2-moe-a2.7b over a mesh (phase
+    17)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -2886,6 +3380,13 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 for run in ("demo", "submit")},
                 tcloud_launches_in="tcloud demo and submit --watch "
                                    "(phase 16)")
+        if row["name"] in ms["launches"]:
+            row.update(mesh_launches=ms["launches"][row["name"]],
+                       mesh_launches_by_rank=[
+                           r["traffic"]["capacity_8"]["launches"][
+                               row["name"]] for r in ms["ranks"]],
+                       mesh_launches_in=f"serve {MOE_ARCH} over 4 ranks "
+                                        f"(phase 17)")
     return {"kernels": rows}
 
 
@@ -2910,8 +3411,9 @@ def main() -> None:
     jb = phase_jamba_serve(cases["rmsnorm"][0]["floor_ms"])
     pg = phase_paged_serve(cases["rmsnorm"][0]["floor_ms"])
     tc = phase_tcloud()
+    ms = phase_mesh_serve()
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc))
+                     pg, tc, ms))
     emit({"ok": True, "device": dev})
 
 

@@ -155,3 +155,25 @@ class ModelConfig:
         )
         defaults.update(over)
         return replace(self, **defaults)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned (input-shape) cell: what ``parallel.sharding.decode_plan``
+    reads to choose the decode layout."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

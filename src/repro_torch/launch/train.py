@@ -10,8 +10,8 @@ the last. With ``--ckpt-dir`` it resumes from the latest checkpoint there
 (``restored step N``; batches are indexed by step, so the stream goes on
 where it stopped), saves every ``--ckpt-every`` steps, keeping 3, and at
 the end. Checkpoints are written in JAX's tree layout, so the JAX package
-restores them. Not ported yet: ``--mesh``, which waits for distribution
-(ROADMAP Queue 1 item 15).
+restores them. Not ported yet: ``--mesh``, which waits for the training
+half of distribution (ROADMAP Queue 1 item 15b).
 """
 from __future__ import annotations
 

@@ -1,18 +1,20 @@
 """GQA attention: projections, RoPE, self-attention through the flash kernel,
-and KV-cache decode. Port of ``repro/models/attention.py`` (single-device
-path; the sequence-sharded decode waits for ROADMAP Queue 1, item 15).
+and KV-cache decode, on one device or over a cache sharded along the
+sequence (``parallel/decode_attn.py``). Port of
+``repro/models/attention.py``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models.layers import apply_rope, rms_head_norm
-from repro_torch.parallel.decode_attn import write_rows
+from repro_torch.parallel.decode_attn import (sharded_decode_attention,
+                                              write_rows)
 
 
 def project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
@@ -93,12 +95,22 @@ def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 def decode_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                           cache: Dict[str, torch.Tensor],
-                          lengths: torch.Tensor
+                          lengths: torch.Tensor, *,
+                          seq_axes: Optional[Sequence[str]] = None,
+                          batch_axes: Sequence[str] = (), mesh=None
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. x: (B, 1, D). cache: {"k": (B,S,KV,HD), "v": ...},
     updated in place. ``lengths`` counts the tokens already in the cache:
-    the new token goes at index lengths and attends to itself."""
+    the new token goes at index lengths and attends to itself. With
+    ``seq_axes`` the cache is this rank's slice of the sequence over those
+    axes of ``mesh`` (``sharded_decode_attention``)."""
     q, k, v = project_qkv(cfg, p, x, lengths[:, None])
-    kc, vc = write_kv_cache(cache["k"], cache["v"], k[:, 0], v[:, 0], lengths)
-    o = decode_attention_ref(q[:, 0], kc, vc, lengths + 1)
+    q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
+    if seq_axes:
+        o, kc, vc = sharded_decode_attention(
+            q1, cache["k"], cache["v"], k1, v1, lengths, seq_axes=seq_axes,
+            batch_axes=batch_axes, mesh=mesh)
+    else:
+        kc, vc = write_kv_cache(cache["k"], cache["v"], k1, v1, lengths)
+        o = decode_attention_ref(q1, kc, vc, lengths + 1)
     return output_proj(cfg, p, o[:, None]), {"k": kc, "v": vc}

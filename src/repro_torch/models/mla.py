@@ -1,5 +1,5 @@
 """Multi-head Latent Attention (DeepSeek-V2). Port of
-``repro/models/mla.py`` (single-device path).
+``repro/models/mla.py``.
 
 Prefill caches only the compressed latent ``c_kv`` (kv_lora_rank) and the
 shared rope key (qk_rope_head_dim) per token. The sequence pass rebuilds
@@ -7,14 +7,15 @@ every head's K and V from the latent and runs the flash kernel at the q/k
 head dim ``dn + dr`` (192 at full width), with V zero-padded to it
 (:func:`v_pad`) and the output cut back to ``dv``. Decode uses the
 *absorbed* form: W_uk is folded into the query and W_uv into the output,
-so attention runs in the latent space (``parallel/decode_attn.py``); the
-naive form, which rebuilds every head's K and V, is kept as its oracle.
+so attention runs in the latent space (``parallel/decode_attn.py``), on
+one device or over a latent cache sharded along the sequence; the naive
+form, which rebuilds every head's K and V, is kept as its oracle.
 The latent norms are RMSNorms through the rmsnorm kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.layers import apply_rope
-from repro_torch.parallel.decode_attn import mla_decode_local, write_rows
+from repro_torch.parallel.decode_attn import sharded_mla_decode, write_rows
 
 
 def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -105,12 +106,17 @@ def mla_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
 
 def mla_decode_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                          cache: Dict[str, torch.Tensor],
-                         lengths: torch.Tensor, *, absorbed: bool = True
+                         lengths: torch.Tensor, *,
+                         seq_axes: Optional[Sequence[str]] = None,
+                         batch_axes: Sequence[str] = ("data",),
+                         absorbed: bool = True, mesh=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. x: (B, 1, D); cache = {"ckv": (B,S,R), "kr":
     (B,S,dr)}, written in place (the new rows in the cache's dtype) at
     ``lengths``, the tokens already cached. ``absorbed`` attends in the
-    latent space; otherwise every head's K/V is rebuilt (the oracle)."""
+    latent space, over this rank's slice of the sequence when ``seq_axes``
+    of ``mesh`` split it (``sharded_mla_decode``); otherwise every head's
+    K/V is rebuilt from a whole cache (the oracle)."""
     m = cfg.mla
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     dt = x.dtype
@@ -121,6 +127,9 @@ def mla_decode_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     w_uk, w_uv = w_ukv[..., :dn], w_ukv[..., dn:]          # (R,H,dn), (R,H,dv)
 
     if not absorbed:
+        if seq_axes and mesh is not None and mesh.live(seq_axes):
+            raise ValueError("the naive MLA decode needs the whole cache; "
+                             "a sequence-sharded one decodes absorbed")
         ckv = write_rows(cache["ckv"], ckv_new[:, 0], lengths)
         kr = write_rows(cache["kr"], kr_new[:, 0], lengths)
         kv = _up(ckv.to(dt), w_ukv)
@@ -138,8 +147,9 @@ def mla_decode_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
 
     # absorbed: q_lat = q_nope W_uk -> attention in the latent space
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)       # (B,H,R)
-    ctx, ckv, kr = mla_decode_local(
+    ctx, ckv, kr = sharded_mla_decode(
         q_lat, q_rope[:, 0], cache["ckv"], cache["kr"], ckv_new[:, 0],
-        kr_new[:, 0], lengths, sm_scale=sm_scale)
+        kr_new[:, 0], lengths, sm_scale=sm_scale, seq_axes=seq_axes or (),
+        batch_axes=batch_axes, mesh=mesh)
     o = torch.einsum("bhr,rhd->bhd", ctx.to(dt), w_uv)              # (B,H,dv)
     return _out(p, o)[:, None], {"ckv": ckv, "kr": kr}

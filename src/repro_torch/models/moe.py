@@ -1,23 +1,30 @@
-"""Mixture-of-Experts FFN: token-choice top-k routing, single device.
+"""Mixture-of-Experts FFN: token-choice top-k routing, on one device or
+with expert parallelism over a mesh.
 
-Port of ``repro/models/moe.py``'s single-device path. Two ways to apply the
-routed experts compute the same function:
+Port of ``repro/models/moe.py``. Three ways to apply the routed experts:
 
 - :func:`moe_dense_oracle` (the reference's): every expert on every token,
   combined with the sparse top-k weights. E-fold work, but a few large
   launches and no host read.
-- :func:`moe_dispatch`: a dropless dispatch. The N*k assignments are
-  sorted by expert (stably), the per-expert counts are read to the host
-  once per call, each non-empty expert runs its two products on its
-  contiguous rows, and the outputs go back to their tokens and are
-  combined with the weights. Nothing is dropped: the reference's capacity
-  factor applies only to its expert-parallel path (``moe_ep``, which waits
-  for ROADMAP Queue 1 item 15).
+- :func:`moe_dispatch`: a dropless dispatch on one device. The N*k
+  assignments are sorted by expert (stably), the per-expert counts are
+  read to the host once per call, each non-empty expert runs its two
+  products on its contiguous rows, and the outputs go back to their tokens
+  and are combined with the weights.
+- :func:`moe_ep` (the reference's expert-parallel path): experts split
+  over the ``ep_axis`` ranks of a mesh. Each rank owns a strided subset of
+  its tokens (contiguous blocks for the all-gather combine), packs
+  fixed-capacity per-destination buffers, exchanges them with
+  ``all_to_all``, runs its local experts on a second fixed-capacity
+  grouping, sends the results back, and combines with the gate weights;
+  an assignment past a capacity is dropped (GShard-style), so the capacity
+  factor changes the function. The per-rank outputs reassemble by a
+  ``psum`` or an ``all_gather``.
 
-:func:`moe_apply`, the model's path, takes the dispatch from
-``DISPATCH_MIN_ROWS`` rows on and the oracle below. ``ServeEngine`` pads
-every prefill to ``max_seq`` rows, so the choice follows its ``max_seq``;
-a decode step has ``max_batch`` rows.
+:func:`moe_apply`, the model's path, takes ``moe_ep`` when ``distributed``;
+otherwise the dispatch from ``DISPATCH_MIN_ROWS`` rows on and the oracle
+below. ``ServeEngine`` pads every prefill to ``max_seq`` rows, so the
+choice follows its ``max_seq``; a decode step has ``max_batch`` rows.
 
 Rounding follows the reference: the router in f32; the top-k weights
 (renormalised only with ``norm_topk``) rounded to x.dtype; each expert's
@@ -27,7 +34,8 @@ every row of x, the padded rows of a prefill included, as JAX's do.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import math
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_ffn
 from repro_torch.models.params import padded_experts
+from repro_torch.parallel.collectives import all_gather, all_to_all, psum
 
 Aux = Dict[str, torch.Tensor]
 
@@ -160,10 +169,168 @@ def moe_dispatch(cfg: ModelConfig, p: Mapping, x: torch.Tensor
     return _moe(dispatch_routed, cfg, p, x)
 
 
-def moe_apply(cfg: ModelConfig, p: Mapping, x: torch.Tensor
+# ---------------------------------------------------------------------------
+# Expert-parallel path
+# ---------------------------------------------------------------------------
+
+def ep_capacities(cfg: ModelConfig, n_rows: int, n_ranks: int
+                  ) -> Tuple[int, int]:
+    """(c_send, c_loc) of :func:`moe_ep` for ``n_rows`` local tokens: the
+    slots a rank sends to each destination (each rank owns about
+    n_rows / n_ranks tokens) and the slots of each local expert."""
+    moe = cfg.moe
+    E_loc = padded_experts(moe) // n_ranks
+    k, cf = moe.top_k, moe.capacity_factor
+    c_send = max(int(math.ceil(n_rows * k * cf / (n_ranks * n_ranks))), k, 4)
+    c_loc = max(int(math.ceil(n_ranks * c_send * cf / E_loc)), 4)
+    return c_send, c_loc
+
+
+def _local_experts(w: torch.Tensor, E: int, E_loc: int, r: int
+                   ) -> torch.Tensor:
+    """This rank's experts of a stacked expert weight: the leaf itself
+    when it holds E_loc (``params.serving_plan``), its block of E
+    otherwise."""
+    if w.shape[0] == E_loc:
+        return w
+    if w.shape[0] != E:
+        raise ValueError(f"expert weight of {w.shape[0]} experts; expected "
+                         f"{E} or this rank's {E_loc}")
+    return w[r * E_loc:(r + 1) * E_loc]
+
+
+def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
+           ep_axis: str = "model",
+           token_axes: Sequence[str] = ("data",),
+           combine: str = "psum", mesh=None,
+           stats: Optional[dict] = None) -> Tuple[torch.Tensor, Aux]:
+    """x: (B_loc, S, D), this rank's block of the tokens over
+    ``token_axes`` (replicated over ``ep_axis``); experts split over
+    ``ep_axis``, whole or as this rank's block in ``p``. Without a mesh, or
+    with one rank on ``ep_axis`` or experts it does not divide, the dense
+    oracle.
+
+    ``combine``: how the owners' outputs reassemble over ``ep_axis``:
+    "psum" (each token's row is nonzero on its owner only) or "allgather"
+    (contiguous ownership blocks gathered). ``moe_ep.dropped`` (a device
+    count, never read here) grows by the assignments this rank dropped,
+    at send and at the experts; with ``stats``, ``stats["kept"]`` is the
+    (N, k) bool mask of assignments whose output came back, over every
+    token (one more ``all_to_all`` and a ``psum``, for tests).
+    """
+    moe = cfg.moe
+    E = padded_experts(moe)
+    if mesh is None:
+        return moe_dense_oracle(cfg, p, x)
+    n_ranks = mesh.size(mesh.live((ep_axis,)))
+    if n_ranks <= 1 or E % n_ranks != 0:
+        return moe_dense_oracle(cfg, p, x)
+    token_axes = mesh.live(token_axes)
+    E_loc = E // n_ranks
+    B, S, D = x.shape
+    N_loc = B * S
+    k = moe.top_k
+    c_send, c_loc = ep_capacities(cfg, N_loc, n_ranks)
+    blk = -(-N_loc // n_ranks)            # contiguous ownership block size
+    dev, dt = x.device, x.dtype
+    r = mesh.axis_index(ep_axis)
+    w_in = _local_experts(p["w_in"], E, E_loc, r)
+    w_out = _local_experts(p["w_out"], E, E_loc, r)
+
+    flat = x.reshape(-1, D)
+    n = flat.shape[0]
+    idx, w, aux = route(cfg, flat, p["router"])
+    tok = torch.arange(n, device=dev)
+    owner = tok // blk if combine == "allgather" else tok % n_ranks
+    owned = owner == r
+    a_idx = idx.reshape(-1)                                   # (n*k,)
+    a_src = tok.repeat_interleave(k)
+    a_valid = owned.repeat_interleave(k)
+    dst = a_idx // E_loc
+    e_loc = a_idx % E_loc
+    # position within each destination bucket, among valid assignments
+    oh = F.one_hot(dst, n_ranks) * a_valid[:, None].long()
+    pos = (oh.cumsum(0) - oh).gather(1, dst[:, None])[:, 0]
+    keep = a_valid & (pos < c_send)
+    pos_c = torch.where(keep, pos, c_send)                    # drop slot
+    send_x = torch.zeros(n_ranks, c_send + 1, D, dtype=dt, device=dev)
+    send_x[dst, pos_c] = flat[a_src]
+    send_e = torch.full((n_ranks, c_send + 1), E_loc, dtype=torch.int32,
+                        device=dev)
+    send_e[dst, pos_c] = e_loc.int()
+    send_slot = torch.full((n_ranks, c_send + 1), -1, dtype=torch.long,
+                           device=dev)
+    send_slot[dst, pos_c] = torch.arange(n * k, device=dev)
+    send_x, send_e, send_slot = (send_x[:, :c_send], send_e[:, :c_send],
+                                 send_slot[:, :c_send])
+
+    recv_x = all_to_all(send_x, ep_axis, mesh).reshape(-1, D)   # (M, D)
+    recv_e = all_to_all(send_e, ep_axis, mesh).reshape(-1).long()
+    # group received rows by local expert (a second fixed-capacity scatter)
+    ohe = F.one_hot(recv_e, E_loc + 1)[:, :E_loc]
+    e_c = recv_e.clamp_max(E_loc - 1)
+    gpos = (ohe.cumsum(0) - ohe).gather(1, e_c[:, None])[:, 0]
+    gvalid = (recv_e < E_loc) & (gpos < c_loc)
+    gpos_c = torch.where(gvalid, gpos, c_loc)
+    grp = torch.zeros(E_loc, c_loc + 1, D, dtype=dt, device=dev)
+    grp[e_c, gpos_c] = recv_x
+    out_grp = expert_ffn(w_in, w_out, grp[:, :c_loc])
+    # ungroup to the received layout (dropped rows give zeros)
+    out_recv = torch.where(gvalid[:, None],
+                           out_grp[e_c, gpos.clamp_max(c_loc - 1)],
+                           torch.zeros((), dtype=dt, device=dev)).to(dt)
+    back = all_to_all(out_recv.reshape(n_ranks, c_send, D), ep_axis,
+                      mesh).reshape(-1, D)
+    # combine at the source in the original slot numbering
+    slot = send_slot.reshape(-1)
+    flat_y = torch.zeros(n * k, D, dtype=dt, device=dev)
+    flat_y.index_add_(0, slot.clamp_min(0),
+                      torch.where(slot[:, None] >= 0, back,
+                                  torch.zeros((), dtype=dt, device=dev)))
+    y = (flat_y.reshape(n, k, D) * w[..., None]).float().sum(1).to(dt)
+    if combine == "allgather":
+        pad = blk * n_ranks - n
+        y_pad = F.pad(y, (0, 0, 0, pad)) if pad else y
+        y = all_gather(y_pad[r * blk:(r + 1) * blk], ep_axis, mesh)[:n]
+    else:
+        y = psum(y, ep_axis, mesh)
+    # aux terms: equal on every EP rank, partial over token shards
+    keys = ("f_sum", "p_sum", "z_sum", "n")
+    sums = psum(torch.cat([aux[kk].float().reshape(-1) for kk in keys]),
+                (ep_axis,) + tuple(token_axes), mesh) / n_ranks
+    aux = dict(zip(keys, sums.split([E, E, 1, 1])))
+    aux = {kk: v.reshape(()) if kk in ("z_sum", "n") else v
+           for kk, v in aux.items()}
+    valid_recv = recv_e < E_loc
+    moe_ep.dropped = moe_ep.dropped + (a_valid & ~keep).sum() \
+        + (valid_recv & ~gvalid).sum()
+    if stats is not None:
+        came = all_to_all(gvalid.reshape(n_ranks, c_send).int(), ep_axis,
+                          mesh).reshape(-1)
+        kept = torch.zeros(n * k, dtype=torch.int32, device=dev)
+        sent = slot >= 0
+        kept[slot[sent]] = came[sent]
+        stats["kept"] = psum(kept, ep_axis, mesh).reshape(n, k) > 0
+    y = y.reshape(x.shape)
+    if moe.n_shared:
+        y = y + _shared(cfg, p, x)
+    return y, aux_loss(cfg, aux)
+
+
+moe_ep.dropped = 0
+
+
+def moe_apply(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
+              distributed: bool = False, ep_axis: str = "model",
+              token_axes: Sequence[str] = ("data",),
+              combine: str = "psum", mesh=None
               ) -> Tuple[torch.Tensor, Aux]:
-    """x: (B, S, D). The model's path: the dispatch from
-    ``DISPATCH_MIN_ROWS`` rows on, the dense oracle below."""
+    """x: (B, S, D). The model's path: with ``distributed``, ``moe_ep``
+    over ``mesh``; otherwise the dispatch from ``DISPATCH_MIN_ROWS`` rows
+    on and the dense oracle below."""
+    if distributed:
+        return moe_ep(cfg, p, x, ep_axis=ep_axis, token_axes=token_axes,
+                      combine=combine, mesh=mesh)
     rows = x.numel() // x.shape[-1]
     fn = moe_dispatch if rows >= DISPATCH_MIN_ROWS else moe_dense_oracle
     return fn(cfg, p, x)

@@ -13,44 +13,51 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Any, Dict, Iterator, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.sharding import Spec, block_range, local_shard
 
 
 @dataclass(frozen=True)
 class ParamDef:
-    """Shape and initialiser of one parameter (``repro/models/params.py``
-    without the sharding axes)."""
+    """Shape, logical axes and initialiser of one parameter
+    (``repro/models/params.py``; the dtype is f32 throughout)."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]      # logical axis per dim (None: replicated)
     init: str = "normal"                 # normal | zeros | ones | ssm_a | embed
     scale: float = 1.0                   # stddev multiplier for normal/embed
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
 
 def norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
-    out = {"scale": ParamDef((cfg.d_model,), init="ones")}
+    out = {"scale": ParamDef((cfg.d_model,), ("norm",), init="ones")}
     if cfg.norm == "layernorm":
-        out["bias"] = ParamDef((cfg.d_model,), init="zeros")
+        out["bias"] = ParamDef((cfg.d_model,), ("norm",), init="zeros")
     return out
 
 
 def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     H, KV, HD, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    out = {"wq": ParamDef((D, H * HD)),
-           "wkv": ParamDef((D, 2 * KV * HD)),
-           "wo": ParamDef((H * HD, D))}
+    out = {"wq": ParamDef((D, H * HD), ("embed", "heads")),
+           "wkv": ParamDef((D, 2 * KV * HD), ("embed", "kv_heads")),
+           "wo": ParamDef((H * HD, D), ("heads", "embed"))}
     if cfg.use_bias or cfg.qkv_bias:
-        out["bq"] = ParamDef((H * HD,), init="zeros")
-        out["bkv"] = ParamDef((2 * KV * HD,), init="zeros")
+        out["bq"] = ParamDef((H * HD,), ("heads",), init="zeros")
+        out["bkv"] = ParamDef((2 * KV * HD,), ("kv_heads",), init="zeros")
     if cfg.use_bias:
-        out["bo"] = ParamDef((D,), init="zeros")
+        out["bo"] = ParamDef((D,), ("embed_nofsdp",), init="zeros")
     if cfg.qk_norm:
-        out["q_norm"] = ParamDef((HD,), init="ones")
-        out["k_norm"] = ParamDef((HD,), init="ones")
+        out["q_norm"] = ParamDef((HD,), ("head_dim",), init="ones")
+        out["k_norm"] = ParamDef((HD,), ("head_dim",), init="ones")
     return out
 
 
@@ -58,11 +65,12 @@ def ffn_defs(cfg: ModelConfig, d_ff: Optional[int] = None
              ) -> Dict[str, ParamDef]:
     d_ff = d_ff or cfg.d_ff
     width = 2 * d_ff if cfg.ffn_gated else d_ff
-    out = {"w_in": ParamDef((cfg.d_model, width)),
-           "w_out": ParamDef((d_ff, cfg.d_model))}
+    out = {"w_in": ParamDef((cfg.d_model, width), ("embed", "mlp")),
+           "w_out": ParamDef((d_ff, cfg.d_model), ("mlp", "embed"))}
     if cfg.use_bias:
-        out["b_in"] = ParamDef((width,), init="zeros")
-        out["b_out"] = ParamDef((cfg.d_model,), init="zeros")
+        out["b_in"] = ParamDef((width,), ("mlp",), init="zeros")
+        out["b_out"] = ParamDef((cfg.d_model,), ("embed_nofsdp",),
+                                init="zeros")
     return out
 
 
@@ -77,9 +85,9 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     SwiGLU weights and the shared block (``repro/models/moe.py``)."""
     moe = cfg.moe
     E, D, F = padded_experts(moe), cfg.d_model, moe.d_ff_expert
-    out = {"router": ParamDef((D, E), scale=1.0),
-           "w_in": ParamDef((E, D, 2 * F)),
-           "w_out": ParamDef((E, F, D))}
+    out = {"router": ParamDef((D, E), (None, "experts"), scale=1.0),
+           "w_in": ParamDef((E, D, 2 * F), ("experts", "embed", "mlp")),
+           "w_out": ParamDef((E, F, D), ("experts", "mlp", "embed"))}
     if moe.n_shared:
         out.update({f"shared_{k}": d for k, d in
                     ffn_defs(cfg, d_ff=moe.d_ff_shared).items()})
@@ -88,13 +96,15 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 def embed_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     V, D = cfg.vocab_size, cfg.d_model
-    out = {"tok": ParamDef((V, D), init="embed", scale=0.02)}
+    out = {"tok": ParamDef((V, D), ("vocab", "embed_nofsdp"), init="embed",
+                           scale=0.02)}
     if not cfg.tie_embeddings:
-        out["unembed"] = ParamDef((V, D), init="embed", scale=0.02)
+        out["unembed"] = ParamDef((V, D), ("vocab", "embed_nofsdp"),
+                                  init="embed", scale=0.02)
     if cfg.input_mode == "tokens+vision":
-        out["vision_proj"] = ParamDef((D, D))
+        out["vision_proj"] = ParamDef((D, D), ("embed", None))
     if cfg.input_mode == "embeds":
-        out["frame_proj"] = ParamDef((D, D))
+        out["frame_proj"] = ParamDef((D, D), ("embed", None))
     return out
 
 
@@ -108,17 +118,17 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     H, D = cfg.n_heads, cfg.d_model
     dn, dr, dv, R, QR = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                          m.v_head_dim, m.kv_lora_rank, m.q_lora_rank)
-    out = {"w_dkv": ParamDef((D, R)),
-           "w_kr": ParamDef((D, dr)),
-           "w_ukv": ParamDef((R, H, dn + dv)),
-           "kv_norm": ParamDef((R,), init="ones"),
-           "w_o": ParamDef((H, dv, D))}
+    out = {"w_dkv": ParamDef((D, R), ("embed", "lora")),
+           "w_kr": ParamDef((D, dr), ("embed", None)),
+           "w_ukv": ParamDef((R, H, dn + dv), ("lora", "heads", None)),
+           "kv_norm": ParamDef((R,), ("norm",), init="ones"),
+           "w_o": ParamDef((H, dv, D), ("heads", None, "embed"))}
     if QR:
-        out["w_dq"] = ParamDef((D, QR))
-        out["q_norm"] = ParamDef((QR,), init="ones")
-        out["w_uq"] = ParamDef((QR, H, dn + dr))
+        out["w_dq"] = ParamDef((D, QR), ("embed", "lora"))
+        out["q_norm"] = ParamDef((QR,), ("norm",), init="ones")
+        out["w_uq"] = ParamDef((QR, H, dn + dr), ("lora", "heads", None))
     else:
-        out["w_q"] = ParamDef((D, H, dn + dr))
+        out["w_q"] = ParamDef((D, H, dn + dr), ("embed", "heads", None))
     return out
 
 
@@ -135,15 +145,15 @@ def mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     rank, B and C, dt's up-projection, A as log(-A) and the skip."""
     D = cfg.d_model
     di, ds, dc, dtr = mamba_dims(cfg)
-    return {"w_in": ParamDef((D, 2 * di)),
-            "conv_w": ParamDef((di, dc), scale=1.0),
-            "conv_b": ParamDef((di,), init="zeros"),
-            "x_proj": ParamDef((di, dtr + 2 * ds)),
-            "dt_w": ParamDef((dtr, di)),
-            "dt_b": ParamDef((di,), init="ones", scale=1.0),
-            "a_log": ParamDef((di, ds), init="ssm_a"),
-            "d_skip": ParamDef((di,), init="ones"),
-            "w_out": ParamDef((di, D))}
+    return {"w_in": ParamDef((D, 2 * di), ("embed", "dinner")),
+            "conv_w": ParamDef((di, dc), ("dinner", "conv"), scale=1.0),
+            "conv_b": ParamDef((di,), ("dinner",), init="zeros"),
+            "x_proj": ParamDef((di, dtr + 2 * ds), ("dinner", None)),
+            "dt_w": ParamDef((dtr, di), ("lora", "dinner")),
+            "dt_b": ParamDef((di,), ("dinner",), init="ones", scale=1.0),
+            "a_log": ParamDef((di, ds), ("dinner", "state"), init="ssm_a"),
+            "d_skip": ParamDef((di,), ("dinner",), init="ones"),
+            "w_out": ParamDef((di, D), ("dinner", "embed"))}
 
 
 def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -164,18 +174,18 @@ def mlstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D = cfg.d_model
     di, nh, _ = mlstm_dims(cfg)
     dc = cfg.xlstm.conv_width
-    return {"w_up": ParamDef((D, 2 * di)),
-            "conv_w": ParamDef((di, dc), scale=1.0),
-            "conv_b": ParamDef((di,), init="zeros"),
-            "wq": ParamDef((di, di)),
-            "wk": ParamDef((di, di)),
-            "wv": ParamDef((di, di)),
-            "w_i": ParamDef((di, nh), scale=0.1),
-            "b_i": ParamDef((nh,), init="zeros"),
-            "w_f": ParamDef((di, nh), scale=0.1),
-            "b_f": ParamDef((nh,), init="ones", scale=3.0),
-            "w_down": ParamDef((di, D)),
-            "skip_scale": ParamDef((di,), init="ones")}
+    return {"w_up": ParamDef((D, 2 * di), ("embed", "dinner")),
+            "conv_w": ParamDef((di, dc), ("dinner", "conv"), scale=1.0),
+            "conv_b": ParamDef((di,), ("dinner",), init="zeros"),
+            "wq": ParamDef((di, di), ("dinner", None)),
+            "wk": ParamDef((di, di), ("dinner", None)),
+            "wv": ParamDef((di, di), ("dinner", None)),
+            "w_i": ParamDef((di, nh), ("dinner", None), scale=0.1),
+            "b_i": ParamDef((nh,), (None,), init="zeros"),
+            "w_f": ParamDef((di, nh), ("dinner", None), scale=0.1),
+            "b_f": ParamDef((nh,), (None,), init="ones", scale=3.0),
+            "w_down": ParamDef((di, D), ("dinner", "embed")),
+            "skip_scale": ParamDef((di,), ("dinner",), init="ones")}
 
 
 def slstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -183,11 +193,13 @@ def slstm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     recurrent matrix per head and a bias (``b_f`` ones), then ``w_out``."""
     D = cfg.d_model
     nh, dh = slstm_dims(cfg)
-    out = {"w_out": ParamDef((D, D))}
+    out = {"w_out": ParamDef((D, D), ("embed", None))}
     for g in ("z", "i", "f", "o"):
-        out[f"w_{g}"] = ParamDef((D, D))
-        out[f"r_{g}"] = ParamDef((nh, dh, dh), scale=0.5)
-        out[f"b_{g}"] = ParamDef((D,), init="ones" if g == "f" else "zeros",
+        out[f"w_{g}"] = ParamDef((D, D), ("embed", "dinner"))
+        out[f"r_{g}"] = ParamDef((nh, dh, dh), (None, "dinner", None),
+                                 scale=0.5)
+        out[f"b_{g}"] = ParamDef((D,), ("dinner",),
+                                 init="ones" if g == "f" else "zeros",
                                  scale=2.0)
     return out
 
@@ -227,6 +239,110 @@ def model_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sharding rules: logical axis -> mesh axis (or tuple of mesh axes)
+# ---------------------------------------------------------------------------
+
+AxisName = Union[str, Tuple[str, ...], None]
+
+# for the ("pod", "data", "model") mesh: FSDP (ZeRO-3) over data on the
+# embed dim of weight matrices, Megatron TP over model on heads / FFN hidden
+# / experts / vocab; the reference's stacked "layers" axis is never sharded
+DEFAULT_RULES: Dict[str, AxisName] = {
+    "layers": None,
+    "vocab": "model",
+    "embed": "data",            # FSDP shard of the d_model dim of matrices
+    "embed_nofsdp": None,
+    "heads": "model",
+    "kv_heads": "model",        # falls back to replicated when not divisible
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",         # EP
+    "dinner": "model",          # mamba / xlstm inner dim
+    "state": None,
+    "lora": None,
+    "conv": None,
+    "norm": None,
+}
+
+# FSDP over the pod axis too (ZeRO across pods)
+POD_FSDP_RULES = dict(DEFAULT_RULES, embed=("pod", "data"))
+
+
+def logical_to_spec(axes: Sequence[Optional[str]],
+                    rules: Mapping[str, AxisName], shape: Sequence[int],
+                    mesh_axis_sizes: Mapping[str, int]) -> Spec:
+    """Logical axes -> a spec, each dimension left whole where its mesh axes
+    are absent, used by an earlier dimension, or do not divide it."""
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, axes):
+        mesh_axis = None if name is None else rules.get(name)
+        if mesh_axis is None:
+            out.append(None)
+            continue
+        parts = (mesh_axis,) if isinstance(mesh_axis, str) else tuple(mesh_axis)
+        parts = tuple(p for p in parts
+                      if p in mesh_axis_sizes and p not in used)
+        total = math.prod(mesh_axis_sizes[p] for p in parts) if parts else 1
+        if not parts or dim % total != 0:
+            out.append(None)
+            continue
+        used.update(parts)
+        out.append(parts[0] if len(parts) == 1 else parts)
+    return tuple(out)
+
+
+def param_specs(defs: Mapping[str, ParamDef], mesh,
+                rules: Optional[Mapping[str, AxisName]] = None
+                ) -> Dict[str, Spec]:
+    """``{name: spec}`` for a flat ``{name: ParamDef}`` on ``mesh`` (anything
+    with ``axis_names`` and ``axis_sizes``)."""
+    rules = DEFAULT_RULES if rules is None else rules
+    sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
+    return {k: logical_to_spec(d.axes, rules, d.shape, sizes)
+            for k, d in defs.items()}
+
+
+def serving_plan(cfg: ModelConfig, mesh, ep_axis: str = "model"
+                 ) -> Dict[str, Spec]:
+    """The layout a rank holds to serve with ``moe_ep``: each MoE layer's
+    ``w_in``/``w_out`` split along the experts (axis 0) over ``ep_axis``, as
+    its ``shard_map`` hands them to each rank (``P(ep_axis, None, None)``),
+    when the axis has more than one rank and divides the padded experts;
+    every other leaf whole (``()``)."""
+    n = dict(zip(mesh.axis_names, mesh.axis_sizes)).get(ep_axis, 1)
+    out: Dict[str, Spec] = {}
+    for k, d in model_defs(cfg).items():
+        split = (d.axes[:1] == ("experts",) and n > 1
+                 and d.shape[0] % n == 0)
+        out[k] = (ep_axis,) + (None,) * (len(d.shape) - 1) if split else ()
+    return out
+
+
+def _rows(name: str, d: ParamDef, shard) -> Optional[Tuple[int, int]]:
+    """This rank's [start, stop) along axis 0 of leaf ``name`` under
+    ``shard`` = (mesh, plan), or None to keep the leaf whole."""
+    if shard is None:
+        return None
+    mesh, plan = shard
+    spec = plan[name]
+    if not spec or all(e is None for e in spec):
+        return None
+    if any(e is not None for e in spec[1:]):
+        raise ValueError(f"{name}: the draw splits axis 0 only, not {spec}")
+    return block_range(d.shape[0], spec[0], mesh)
+
+
+def shard_params(cfg: ModelConfig, params: Mapping[str, torch.Tensor], mesh,
+                 plan: Mapping[str, Spec]) -> Dict[str, torch.Tensor]:
+    """This rank's params under ``plan`` (:func:`serving_plan`): each leaf's
+    block, the whole leaf where the plan splits nothing."""
+    if set(plan) != set(params):
+        raise ValueError(f"the plan does not name {cfg.name}'s params")
+    return {k: local_shard(v, plan[k], mesh) for k, v in params.items()}
+
+
 def _fan_in(d: ParamDef) -> int:
     # last dim is fan-out; everything before it is fan-in (the reference's
     # rule less its stacked "layers" axis, which the port does not have:
@@ -244,17 +360,23 @@ DRAW_SLICE = 1 << 27
 
 
 def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
-          cast: bool = False) -> Iterator[Tuple[str, torch.Tensor]]:
+          cast: bool = False, shard=None
+          ) -> Iterator[Tuple[str, torch.Tensor]]:
     """Each leaf in turn, drawn in f32 from ``generator``, in f32 or with
-    ``cast`` in its :func:`compute_dtype`."""
+    ``cast`` in its :func:`compute_dtype`. With ``shard`` = (mesh, plan),
+    every slice is drawn as without it, and only this rank's rows of a leaf
+    the plan splits are kept."""
     for name, d in model_defs(cfg).items():
+        keep = _rows(name, d, shard)
+        lo, hi = keep if keep else (0, d.shape[0])
         if d.init in ("zeros", "ones", "ssm_a"):      # nothing drawn
+            shape = (hi - lo,) + d.shape[1:]
             if d.init == "ssm_a":     # log(-A), A = -(1 .. d_state) a row
                 t = torch.log(torch.arange(1, d.shape[-1] + 1,
                                            dtype=torch.float32, device=dev)
-                              ).expand(d.shape).contiguous()
+                              ).expand(shape).contiguous()
             else:
-                t = torch.full(d.shape, float(d.init == "ones"), device=dev)
+                t = torch.full(shape, float(d.init == "ones"), device=dev)
             yield name, t.to(compute_dtype(cfg, name, t)) if cast else t
             continue
         std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
@@ -263,13 +385,16 @@ def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
         for i in range(0, d.shape[0], rows):
             part = torch.randn((min(rows, d.shape[0] - i),) + d.shape[1:],
                                generator=generator, device=dev).mul_(std)
-            if rows >= d.shape[0]:                  # one slice: the leaf
+            if rows >= d.shape[0] and not keep:     # one slice: the leaf
                 out = part.to(compute_dtype(cfg, name, part)) if cast else part
                 break
             if out is None:
-                out = torch.empty(d.shape, device=dev, dtype=compute_dtype(
-                    cfg, name, part) if cast else part.dtype)
-            out[i:i + len(part)] = part
+                out = torch.empty((hi - lo,) + d.shape[1:], device=dev,
+                                  dtype=compute_dtype(cfg, name, part)
+                                  if cast else part.dtype)
+            a, b = max(i, lo), min(i + len(part), hi)
+            if a < b:
+                out[a - lo:b - lo] = part[a - i:b - i]
         yield name, out
 
 
@@ -303,14 +428,18 @@ def compute_dtype(cfg: ModelConfig, name: str, t: torch.Tensor
 
 
 def init_serving_params(cfg: ModelConfig, generator: torch.Generator,
-                        device: DeviceLike = "cuda"
+                        device: DeviceLike = "cuda", *, shard=None
                         ) -> Dict[str, torch.Tensor]:
     """The compute copy of :func:`init_params`'s draw, equal to
     ``cast_for_compute(cfg, init_params(cfg, generator, device))`` from a
     generator in the same state, but each leaf cast as soon as it is
     drawn: the f32 model is never held whole (qwen2-moe-a2.7b's is 60.6 GB,
-    its bf16 copy 30.3 GB)."""
-    return dict(_draw(cfg, generator, resolve_device(device), cast=True))
+    its bf16 copy 30.3 GB). With ``shard`` = (mesh, plan), each rank keeps
+    only its block of the leaves the plan (:func:`serving_plan`) splits,
+    equal to :func:`shard_params` of the whole draw, so no rank holds the
+    whole model."""
+    return dict(_draw(cfg, generator, resolve_device(device), cast=True,
+                      shard=shard))
 
 
 def _as_tensor(a: Any) -> torch.Tensor:

@@ -24,9 +24,17 @@ default, runs each :class:`Block` under ``torch.utils.checkpoint``: its
 activations are recomputed in the backward, so every forward kernel runs
 twice per step. The kernels' backward passes come from their autograd
 functions (``kernels/flash_attention.py``, ``kernels/rmsnorm.py``).
+
+Over a mesh of ranks (``launch/mesh.py``), ``prefill`` and ``decode_step``
+take the reference's :class:`RunFlags` and the mesh: with ``distributed``
+every MoE FFN runs ``moe_ep`` with its experts split over ``ep_axis``, and
+with ``decode_seq_axes`` every attention and MLA decode attends over this
+rank's slice of the cache along the sequence. Everything else runs whole on
+every rank.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -51,6 +59,26 @@ AUX_KEYS = ("moe_load_balance", "moe_router_z")
 
 
 REMAT = ("full", "none")
+
+
+@dataclass(frozen=True)
+class RunFlags:
+    """The distribution options of the reference's ``RunFlags``
+    (``repro/models/transformer.py``): ``distributed`` runs the MoE FFNs
+    expert-parallel over ``ep_axis``, with tokens split over
+    ``token_axes`` (also the decode's batch axes); ``decode_seq_axes``
+    shards the decode caches along the sequence (``()``: whole);
+    ``moe_combine`` is ``moe_ep``'s combine; ``mla_absorbed`` decodes MLA
+    in the latent space. ``remat`` is ``train_logits``' argument here;
+    ``backend``, ``act_spec``, ``cast_params_early``, ``mamba_chunks`` and
+    ``unroll_layers`` steer the reference's XLA compilation and have no
+    counterpart."""
+    distributed: bool = False
+    ep_axis: str = "model"
+    token_axes: Tuple[str, ...] = ("data",)
+    decode_seq_axes: Tuple[str, ...] = ()
+    moe_combine: str = "psum"
+    mla_absorbed: bool = True
 
 
 def _kv_seq(fn, keys: Tuple[str, str]):
@@ -131,21 +159,24 @@ class Block(nn.Module):
             if len(pd):
                 setattr(self, sub, pd)
 
-    def _apply_ffn(self, h: torch.Tensor
+    def _apply_ffn(self, h: torch.Tensor, flags: RunFlags, mesh
                    ) -> Tuple[torch.Tensor, Optional[Aux]]:
         if self.spec.ffn == "moe":
-            return MOE.moe_apply(self.cfg, self.ffn, h)
+            return MOE.moe_apply(
+                self.cfg, self.ffn, h, distributed=flags.distributed,
+                ep_axis=flags.ep_axis, token_axes=flags.token_axes,
+                combine=flags.moe_combine, mesh=mesh)
         return L.apply_ffn(self.cfg, self.ffn, h), None
 
-    def _ffn(self, x: torch.Tensor, h: torch.Tensor, y_mix: torch.Tensor
-             ) -> Tuple[torch.Tensor, Optional[Aux]]:
+    def _ffn(self, x: torch.Tensor, h: torch.Tensor, y_mix: torch.Tensor,
+             flags: RunFlags, mesh) -> Tuple[torch.Tensor, Optional[Aux]]:
         """The residual adds and the FFN after the mixer, whose input was
         ``h`` and output ``y_mix``. Returns (x, the MoE aux or None)."""
         cfg = self.cfg
         if self.spec.ffn == "none":
             return x + y_mix, None
         if self.spec.parallel:
-            y_ffn, aux = self._apply_ffn(h)
+            y_ffn, aux = self._apply_ffn(h, flags, mesh)
             return x + y_mix + y_ffn, aux
         if cfg.norm == "rmsnorm":
             h, x = rmsnorm_residual(x, y_mix, self.ffn_norm["scale"],
@@ -153,11 +184,12 @@ class Block(nn.Module):
         else:
             x = x + y_mix
             h = L.apply_norm(cfg, self.ffn_norm, x)
-        y_ffn, aux = self._apply_ffn(h)
+        y_ffn, aux = self._apply_ffn(h, flags, mesh)
         return x + y_ffn, aux
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                lengths: Optional[torch.Tensor], want_cache: bool
+                lengths: Optional[torch.Tensor], want_cache: bool,
+                flags: RunFlags = RunFlags(), mesh=None
                 ) -> Tuple[torch.Tensor, Optional[Cache], Optional[Aux]]:
         """One layer over a whole sequence. Returns (x, cache or None, the
         MoE aux or None)."""
@@ -165,16 +197,25 @@ class Block(nn.Module):
         y_mix, cache = MIXERS[self.spec.mixer][0](
             self.cfg, self.mixer, h, positions, lengths=lengths,
             want_cache=want_cache)
-        x, aux = self._ffn(x, h, y_mix)
+        x, aux = self._ffn(x, h, y_mix, flags, mesh)
         return x, cache, aux
 
-    def decode(self, x: torch.Tensor, cache: Cache, lengths: torch.Tensor
+    def decode(self, x: torch.Tensor, cache: Cache, lengths: torch.Tensor,
+               flags: RunFlags = RunFlags(), mesh=None
                ) -> Tuple[torch.Tensor, Cache]:
-        """One layer, one decode token. Updates ``cache`` in place."""
+        """One layer, one decode token. Updates ``cache`` in place; an
+        attention or MLA cache is this rank's slice of the sequence when
+        ``flags.decode_seq_axes`` split it."""
         h = L.apply_norm(self.cfg, self.mixer_norm, x)
         decode = MIXERS[self.spec.mixer][1]
-        y_mix, cache = decode(self.cfg, self.mixer, h, cache, lengths)
-        return self._ffn(x, h, y_mix)[0], cache
+        kw = {}
+        if self.spec.mixer in ("attn", "mla"):
+            kw = dict(seq_axes=flags.decode_seq_axes or None,
+                      batch_axes=flags.token_axes, mesh=mesh)
+        if self.spec.mixer == "mla":
+            kw["absorbed"] = flags.mla_absorbed
+        y_mix, cache = decode(self.cfg, self.mixer, h, cache, lengths, **kw)
+        return self._ffn(x, h, y_mix, flags, mesh)[0], cache
 
 
 class Transformer(nn.Module):
@@ -202,7 +243,8 @@ class Transformer(nn.Module):
 
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 lengths: Optional[torch.Tensor] = None,
-                want_cache: bool = False, remat: str = "none"
+                want_cache: bool = False, remat: str = "none",
+                flags: RunFlags = RunFlags(), mesh=None
                 ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Aux]]:
         """Full-sequence forward. Returns (hidden (B,S,D), caches or None,
         the aux losses summed over the MoE layers or None without one).
@@ -224,7 +266,8 @@ class Transformer(nn.Module):
                     x, positions, lengths, False)[::2], x, use_reentrant=False)
                 c = None
             else:
-                x, c, a = block(x, positions, lengths, want_cache)
+                x, c, a = block(x, positions, lengths, want_cache, flags,
+                                mesh)
             caches.append(c)
             if a is not None:
                 aux = a if aux is None else {k: aux[k] + a[k]
@@ -269,10 +312,12 @@ def train_logits(model: Transformer, batch: Mapping[str, torch.Tensor], *,
 
 
 def prefill(model: Transformer, batch: Mapping[str, torch.Tensor],
-            lengths: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+            lengths: torch.Tensor, *, flags: RunFlags = RunFlags(), mesh=None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Prompt ingestion. lengths: (B,) int32. Returns (logits at position
-    lengths - 1 (B, V), cache)."""
-    x, caches, _ = model(batch, lengths=lengths, want_cache=True)
+    lengths - 1 (B, V), the whole cache)."""
+    x, caches, _ = model(batch, lengths=lengths, want_cache=True,
+                         flags=flags, mesh=mesh)
     B, S = x.shape[:2]
     idx = torch.clamp(lengths - 1, 0, S - 1).long()
     last = x[torch.arange(B, device=x.device), idx]
@@ -280,11 +325,13 @@ def prefill(model: Transformer, batch: Mapping[str, torch.Tensor],
     return L.unembed(model.cfg, model.embed, last), caches
 
 
-def decode_step(model: Transformer, cache: Dict, tokens: torch.Tensor
+def decode_step(model: Transformer, cache: Dict, tokens: torch.Tensor, *,
+                flags: RunFlags = RunFlags(), mesh=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One token for every sequence. tokens: (B,) or (B, 1) (or (B, 1, D)
-    frame embeds for input_mode=embeds). The caches are updated in place;
-    returns (logits (B, V), cache with lengths + 1)."""
+    frame embeds for input_mode=embeds). The caches (this rank's blocks
+    under ``flags``) are updated in place; returns (logits (B, V), cache
+    with lengths + 1)."""
     cfg = model.cfg
     dt = L.dtype_of(cfg.dtype)
     lengths = cache["lengths"]
@@ -298,7 +345,7 @@ def decode_step(model: Transformer, cache: Dict, tokens: torch.Tensor
         x = x + L.sincos_pos_emb(lengths[:, None], cfg.d_model).to(dt)
     new_layers = []
     for block, c in zip(model.layers, cache["layers"]):
-        x, c = block.decode(x, c, lengths)
+        x, c = block.decode(x, c, lengths, flags, mesh)
         new_layers.append(c)
     x = L.apply_norm(cfg, model.out_norm, x)
     logits = L.unembed(cfg, model.embed, x[:, 0])

@@ -1,2 +1,4 @@
-"""Attention over caches, by the layout of the cache. Port of
-``repro/parallel``: so far the single-shard branches only."""
+"""Distribution and attention over caches. Port of ``repro/parallel``:
+the sharding plans (``sharding``), the collectives over named mesh axes
+(``collectives``), and decode attention over whole, sequence-sharded and
+paged caches (``decode_attn``)."""

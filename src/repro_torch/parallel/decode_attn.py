@@ -1,8 +1,17 @@
 """Decode attention over a cache. Port of ``repro/parallel/decode_attn.py``:
-the single-shard branch of ``sharded_mla_decode`` and the paged decode
-path (``PagedKVCache``, ``paged_write_kv``, ``gather_paged_kv``,
-``paged_decode_attention``); the sequence-sharded branches (ROADMAP Queue
-1, item 15) extend this module.
+the sequence-sharded decode of GQA (``sharded_decode_attention``) and of
+MLA's latent cache (``sharded_mla_decode``, whose single-shard branch is
+``mla_decode_local``), and the paged decode path (``PagedKVCache``,
+``paged_write_kv``, ``gather_paged_kv``, ``paged_decode_attention``).
+
+Sharded decode is flash-decoding across ranks: each rank holds its
+contiguous slice of the cache along the sequence (``parallel/sharding.py``),
+writes the new row only where it lands in that slice, and computes a partial
+softmax over it; the partials combine with one ``pmax`` and two ``psum``s of
+(B, H)-sized tensors (``parallel/collectives.py``) instead of gathering the
+cache. The caller passes this rank's blocks; on a degenerate mesh (no
+sequence axis of more than one rank) the single-shard branch runs on the
+whole cache.
 
 The paged cache keeps K/V in a shared pool of fixed-size pages indexed
 through per-sequence block tables. Attention gathers each sequence's pages
@@ -12,6 +21,7 @@ outputs for equal contents; stale rows past ``lengths`` are masked.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Hashable, List, Sequence, Tuple
 
 import numpy as np
@@ -19,6 +29,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.parallel.collectives import pmax, psum
 
 
 def write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -61,6 +72,119 @@ def mla_decode_local(q_lat: torch.Tensor, q_rope: torch.Tensor,
     w = torch.softmax(s, -1)
     ctx = torch.einsum("bhs,bsr->bhr", w.to(ckv_cache.dtype).float(),
                        ckv_cache.float())
+    return ctx.to(q_lat.dtype), ckv_cache, kr_cache
+
+
+def _seq_plan(seq_axes, batch_axes, mesh):
+    """The live sequence axes (None on a degenerate mesh) and batch axes,
+    as the reference filters them; a sequence axis needs a mesh."""
+    if not seq_axes:
+        return None, ()
+    if mesh is None:
+        raise ValueError("sharded decode attention needs a mesh (mesh=)")
+    return mesh.live(seq_axes) or None, mesh.live(batch_axes)
+
+
+def local_write(cache: torch.Tensor, new: torch.Tensor,
+                lengths: torch.Tensor, offset: int) -> torch.Tensor:
+    """Write each row's ``new`` into this rank's slice ``cache`` (B, S_loc,
+    ...), in place, where its position ``lengths`` lands in the slice that
+    starts at ``offset``; rows whose position lies elsewhere are left as
+    they are (the reference's ``_local_write``, one cache at a time)."""
+    S_loc = cache.shape[1]
+    idx = lengths.long() - offset
+    ok = (idx >= 0) & (idx < S_loc)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = idx.clamp(0, S_loc - 1)
+    cache[rows, at] = torch.where(
+        ok.view(-1, *([1] * (new.dim() - 1))), new.to(cache.dtype),
+        cache[rows, at])
+    return cache
+
+
+def _combine(s: torch.Tensor, ctx_of, seq_axes, mesh):
+    """Flash-decoding's merge over ranks: scores ``s`` (..., S_loc), f32,
+    masked; ``ctx_of(p)`` the f32 context of weights ``p``. Returns the
+    context over the whole sequence, f32."""
+    m = pmax(s.amax(-1), seq_axes, mesh)
+    p = torch.exp(s - m[..., None])
+    l = psum(p.sum(-1), seq_axes, mesh)
+    o = psum(ctx_of(p), seq_axes, mesh)
+    return o / l[..., None].clamp_min(1e-30)
+
+
+def sharded_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, lengths: torch.Tensor, *,
+                             seq_axes: Sequence[str] = ("model",),
+                             batch_axes: Sequence[str] = ("data",),
+                             mesh=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """q: (B, H, HD); caches: (B, S_loc, KV, HD), this rank's slice of the
+    sequence (the whole cache on a degenerate mesh); k_new/v_new: (B, KV,
+    HD); lengths: (B,) tokens already cached (the new token is appended and
+    attends to itself). B is this rank's block of the batch over
+    ``batch_axes``. The caches are written in place.
+
+    Returns (o (B, H, HD), k_cache, v_cache).
+    """
+    from repro_torch.models.attention import (decode_attention_ref,
+                                              write_kv_cache)
+    seq_axes, batch_axes = _seq_plan(seq_axes, batch_axes, mesh)
+    if seq_axes is None:
+        kc, vc = write_kv_cache(k_cache, v_cache, k_new, v_new, lengths)
+        return decode_attention_ref(q, kc, vc, lengths + 1), kc, vc
+    B, H, HD = q.shape
+    S_loc, KV = k_cache.shape[1], k_cache.shape[2]
+    offset = mesh.axis_index(seq_axes) * S_loc
+    local_write(k_cache, k_new, lengths, offset)
+    local_write(v_cache, v_new, lengths, offset)
+    qg = q.reshape(B, KV, H // KV, HD).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) \
+        * (1.0 / math.sqrt(HD))
+    kpos = offset + torch.arange(S_loc, device=q.device)
+    s = torch.where(kpos[None, None, None, :]
+                    < (lengths + 1)[:, None, None, None], s, NEG_INF)
+    o = _combine(s, lambda p: torch.einsum(
+        "bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float()),
+        seq_axes, mesh)
+    return o.reshape(B, H, HD).to(q.dtype), k_cache, v_cache
+
+
+def sharded_mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                       ckv_cache: torch.Tensor, kr_cache: torch.Tensor,
+                       ckv_new: torch.Tensor, kr_new: torch.Tensor,
+                       lengths: torch.Tensor, *, sm_scale: float,
+                       seq_axes: Sequence[str] = ("model",),
+                       batch_axes: Sequence[str] = ("data",),
+                       mesh=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed MLA decode over a sequence-sharded compressed cache.
+
+    q_lat: (B, H, R); q_rope: (B, H, DR); ckv_cache: (B, S_loc, R) and
+    kr_cache: (B, S_loc, DR), this rank's slice (the whole cache on a
+    degenerate mesh, where :func:`mla_decode_local` runs); ckv_new/kr_new
+    written in place where they land in the slice. Returns (ctx (B, H, R)
+    in q_lat's dtype, for the caller's W_uv, ckv_cache, kr_cache).
+    """
+    seq_axes, _ = _seq_plan(seq_axes, batch_axes, mesh)
+    if seq_axes is None:
+        return mla_decode_local(q_lat, q_rope, ckv_cache, kr_cache, ckv_new,
+                                kr_new, lengths, sm_scale=sm_scale)
+    S_loc = ckv_cache.shape[1]
+    offset = mesh.axis_index(seq_axes) * S_loc
+    local_write(ckv_cache, ckv_new, lengths, offset)
+    local_write(kr_cache, kr_new, lengths, offset)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_cache.float())
+         + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+         ) * sm_scale
+    kpos = offset + torch.arange(S_loc, device=q_lat.device)
+    s = torch.where(kpos[None, None, :] < (lengths + 1)[:, None, None], s,
+                    NEG_INF)
+    ctx = _combine(s, lambda p: torch.einsum(
+        "bhs,bsr->bhr", p.to(ckv_cache.dtype).float(), ckv_cache.float()),
+        seq_axes, mesh)
     return ctx.to(q_lat.dtype), ckv_cache, kr_cache
 
 

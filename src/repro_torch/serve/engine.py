@@ -5,6 +5,13 @@ Port of ``repro/serve/engine.py``. The engine owns a fixed-shape
 prefill whose cache rows are spliced into the live cache, so decoding never
 stalls the whole batch for one admission. Finished slots free immediately.
 Greedy or temperature sampling.
+
+Over a mesh of ranks (``flags`` and ``mesh``, as the reference's engine
+takes ``flags``), every rank runs the same requests and picks the same
+tokens: each holds its experts (``moe_ep``) and its slice of every
+attention and latent cache along the sequence, per
+``cache_specs(cfg, flags.token_axes, flags.decode_seq_axes)``, and a
+prefill's row cache is spliced in as this rank's slice.
 """
 from __future__ import annotations
 
@@ -17,8 +24,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import (Transformer, cast_for_compute,
-                                            decode_step, init_cache, prefill)
+from repro_torch.models.transformer import (RunFlags, Transformer,
+                                            cast_for_compute, decode_step,
+                                            init_cache, prefill)
+from repro_torch.parallel.sharding import cache_specs, local_shard
 
 
 @dataclass
@@ -37,7 +46,9 @@ class _Slot:
 
 
 class ServeEngine:
-    """``params`` is a state dict named as ``models.params.model_defs``.
+    """``params`` is a state dict named as ``models.params.model_defs``
+    (under a mesh, whole or this rank's block per
+    ``models.params.serving_plan``).
 
     Weight matrices are cast to ``cfg.dtype`` once here
     (:func:`~repro_torch.models.transformer.cast_for_compute`). ``timings``
@@ -48,11 +59,21 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor],
                  *, max_batch: int = 8, max_seq: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", flags: RunFlags = RunFlags(),
+                 mesh=None):
         if cfg.input_mode != "tokens":
             raise ValueError("ServeEngine drives token models; modality-stub "
                              "archs are exercised via prefill/decode directly")
+        if mesh is not None and mesh.live(flags.token_axes):
+            raise ValueError(f"the engine's slots are not split over "
+                             f"{flags.token_axes}: every rank holds them all")
+        if mesh is not None and mesh.live(("model",)) and any(
+                s.mixer not in ("attn", "mla") for s in cfg.layer_specs):
+            raise NotImplementedError(
+                "a recurrent layer's state splits d_inner over 'model', "
+                "which needs tensor parallelism (ROADMAP Queue 1 item 15b)")
         self.device = resolve_device(device)
+        self.flags, self.mesh = flags, mesh
         self.cfg = cfg
         self.model = Transformer(
             cfg, cast_for_compute(cfg, params, self.device), device=self.device)
@@ -62,6 +83,13 @@ class ServeEngine:
         self._next_id = 0
         self._slots = [_Slot() for _ in range(max_batch)]
         self.cache = init_cache(cfg, max_batch, max_seq, self.device)
+        self.specs = None
+        if mesh is not None:
+            self.specs = cache_specs(cfg, flags.token_axes,
+                                     flags.decode_seq_axes)["layers"]
+            self.cache["layers"] = [
+                {k: local_shard(t, spec[k], mesh) for k, t in c.items()}
+                for c, spec in zip(self.cache["layers"], self.specs)]
         self._rng = np.random.RandomState(seed)
         self._steps = 0
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": []}
@@ -89,7 +117,8 @@ class ServeEngine:
         lengths = torch.tensor([len(prompt)], dtype=torch.int32,
                                device=self.device)
         logits, row_cache = prefill(
-            self.model, {"tokens": toks.to(self.device)}, lengths)
+            self.model, {"tokens": toks.to(self.device)}, lengths,
+            flags=self.flags, mesh=self.mesh)
         self._splice(slot, row_cache)
         req = GenerationResult(self._next_id, prompt)
         self._next_id += 1
@@ -100,9 +129,13 @@ class ServeEngine:
         return req
 
     def _splice(self, slot: int, row_cache: Dict) -> None:
-        for dst, src in zip(self.cache["layers"], row_cache["layers"]):
+        specs = self.specs or [None] * len(self.cache["layers"])
+        for dst, src, spec in zip(self.cache["layers"], row_cache["layers"],
+                                  specs):
             for name, t in dst.items():
-                t[slot] = src[name][0]
+                row = src[name] if spec is None else local_shard(
+                    src[name], spec[name], self.mesh)
+                t[slot] = row[0]
         # the cache holds exactly len(prompt) entries; the first generated
         # token is written at position lengths on its first decode step
         self.cache["lengths"][slot] = row_cache["lengths"][0]
@@ -130,7 +163,8 @@ class ServeEngine:
         tokens = torch.tensor([s.last_token for s in self._slots],
                               dtype=torch.long, device=self.device)
         prev_lengths = self.cache["lengths"]
-        logits, self.cache = decode_step(self.model, self.cache, tokens)
+        logits, self.cache = decode_step(self.model, self.cache, tokens,
+                                         flags=self.flags, mesh=self.mesh)
         # the dense decode advances every row's length; freed slots must not
         # keep walking (they would run past max_seq and corrupt the position
         # a future splice resumes from), so pin them in place

@@ -7,7 +7,8 @@ their plain versions on the CPU. ``remat="full"`` (JAX's default) recomputes
 each layer's activations in the backward. ``TrainConfig.unroll_accum`` is
 not ported: in JAX it only changes how the accumulation loop is traced,
 not its math, and the port's loop is a Python loop already. The sharding
-helpers wait for ROADMAP Queue 1 item 15.
+helpers (``state_shardings``, ``batch_shardings``) wait for the training
+half of distribution (ROADMAP Queue 1 item 15b).
 """
 from __future__ import annotations
 

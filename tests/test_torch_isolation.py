@@ -35,7 +35,9 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.models.xlstm",
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.configs.xlstm_125m", "repro_torch.core.sim",
-            "repro_torch.core.tcloud", "repro_torch.data.trace"} <= set(mods)
+            "repro_torch.core.tcloud", "repro_torch.data.trace",
+            "repro_torch.launch.mesh", "repro_torch.parallel.collectives",
+            "repro_torch.parallel.sharding"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
