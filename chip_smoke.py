@@ -171,7 +171,31 @@ Phases, each printing one JSON line and raising on failure:
    layers 0-1 (40 of 160 experts a rank, 128 of 512 latent positions):
    layer 0's sequence-sharded absorbed decode against the whole-cache one
    (phase 12's bars, the written shard bit-equal) and teacher-forced
-   logits against the single process at (b)'s bars.
+   logits against the single process at (b)'s bars;
+18. mesh_train: training over a mesh of 4 ranks (data 2, model 2) on the
+   one card over gloo, FSDP over data and tensor parallelism over model.
+   (a) In this process: tacc-100m whole (phase 9's setup: global batch
+   16, seq 128, lr 3e-4, remat="full") for 6 steps, and qwen2-moe-a2.7b
+   at full width cut to layers 0-1 (1.83e9 parameters; its dense oracle)
+   for 3 steps of batch 8, each step's loss and grad norm, step 1's
+   gradients and the params after the last step (and tacc-100m's after
+   step 1) saved to a temporary directory, the memory given back. (b)
+   Each rank draws the same state and keeps its blocks, takes its rows of
+   each batch and runs the FSDP + TP step: every step's loss and grad
+   norm within rel 1e-3 of (a), every leaf of step 1's gradient at cosine
+   >= 0.999 with (a)'s (phase 8's bars), every leaf's move from the
+   seed's state over the steps at the case's cosine to (a)'s move (the
+   reference's max-abs 5e-3 reported beside it), every kernel launched as
+   often as phase 9's count says on every rank; per step and rank the
+   collectives, bytes sent and staged, the step's ms, and the peak
+   memory. (c) Faulted runs must miss those bars: one step with each
+   rank's gradient block of layer 0's wq zeroed in turn (its cosine and
+   the move), and each case's steps with the psum of the gradients over
+   the batch axes left out (the move). (d) The qwen2-moe cut over the
+   same mesh through moe_ep at capacity factor 8 against (a)'s dense
+   oracle at (b)'s bars, no assignment dropped. K1, K1b, K2, K2b, K3 and
+   K3b are also held to their plain versions and timed at a rank's local
+   shapes in (b).
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -183,7 +207,9 @@ D = 192 with its launches in phase 12 and its numbers there (f32 from
 phase 3), every forward kernel's launches in phases 13, 14 and 15 and its
 numbers at jamba's and internlm2's shapes, every kernel's launches in
 phase 16's demo and submitted spec file, each forward kernel's launches
-summed over phase 17's ranks, and the last line
+summed over phase 17's ranks, every kernel's launches on each rank of
+phase 18's tacc-100m run with its numbers at the local shapes there, and
+the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -242,13 +268,15 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.params import KEEP_F32, serving_plan
+from repro_torch.models.params import (KEEP_F32, serving_plan, shard_leaf,
+                                       train_plan)
 from repro_torch.models.transformer import MIXERS, RunFlags
 from repro_torch.parallel import collectives as COLL
 from repro_torch.parallel.decode_attn import (PagedKVCache, gather_paged_kv,
                                               paged_decode_attention)
-from repro_torch.parallel.sharding import (cache_specs, decode_plan,
-                                           local_shard)
+from repro_torch.parallel.sharding import (batch_rows, cache_specs,
+                                           decode_plan, local_shard,
+                                           train_batch_axes)
 from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
@@ -3271,9 +3299,521 @@ def phase_mesh_serve() -> dict:
     return out
 
 
+# -- phase 18 --------------------------------------------------------------
+
+# 4 ranks on one card over gloo, as phase 17's, training: FSDP over data,
+# tensor parallelism over model
+MESH_TRAIN = ((2, 2), ("data", "model"))
+MESH_TRAIN_STEPS = 6
+# qwen2-moe-a2.7b at full width cut to layers 0-1 (1.83e9 parameters: its
+# AdamW state does not fit one card whole at 24 layers), 3 steps of 8 rows
+MESH_TRAIN_MOE_LAYERS, MESH_TRAIN_MOE_STEPS, MESH_TRAIN_MOE_BATCH = 2, 3, 8
+# phase 8's bars for the loss, the grad norm and each leaf's gradient
+MESH_TRAIN_BARS = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3,
+                   "min_cosine": 0.999}
+# the params' bar, a case's: every leaf's move from the seed's state over
+# the steps at this cosine or more to the single process's move
+# (mesh_move_parts). Set from the sound and faulted runs on the H100
+# (PERF.md §6): tacc-100m's least leaf 0.9859 (embed.tok), its faulted runs
+# 0.8555-0.8558 (a zeroed quarter of wq, one step) and 0.5887 (the batch
+# psum left out). The qwen2-moe cut's least is 0.8608, layers.1.mixer.bkv:
+# the K half of a qkv bias has an exactly zero gradient (softmax ignores a
+# shift shared by every key), so AdamW makes its rounding noise a full move
+# in both runs. The reference check's params bar
+# (tests/distributed_checks.py:229), max abs 5e-3, is reported and gates
+# nothing: six AdamW steps at lr 3e-4 move an entry by about 1.6e-3 at
+# most, so two runs of any sign lie within it.
+MESH_TRAIN_MOVE_BARS = {"dense": 0.95, "moe": 0.8}
+MESH_TRAIN_PARAMS_MAX_ABS = 5e-3
+# (c): the FSDP + TP leaf whose gradient block is zeroed on one rank at a
+# time, in a step of its own; each rank holds a quarter of it
+MESH_TRAIN_FAULT_LEAF = "layers.0.mixer.wq"
+TRAIN_WRAPPERS = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
+                                                 BWD_KERNELS]
+
+
+def mesh_train_cases() -> list:
+    """(name, config, global batch, steps): tacc-100m whole, then the
+    qwen2-moe cut at phase 17's capacity factor, at which no assignment
+    drops."""
+    moe = with_capacity(dataclasses.replace(
+        get_config(MOE_ARCH), n_layers=MESH_TRAIN_MOE_LAYERS), MESH_CAPACITY)
+    return [("dense", get_config("tacc-100m"), TRAIN_BATCH, MESH_TRAIN_STEPS),
+            ("moe", moe, MESH_TRAIN_MOE_BATCH, MESH_TRAIN_MOE_STEPS)]
+
+
+def mesh_train_setup(cfg, batch: int, steps: int):
+    """Phase 9's optimizer and the case's global batches, the same in every
+    process."""
+    data = SyntheticLM(cfg, batch, TRAIN_SEQ, seed=SEED)
+    batches = [{k: torch.from_numpy(v).long().cuda()
+                for k, v in data.batch(i).items()} for i in range(steps)]
+    return OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS), \
+        batches
+
+
+def mesh_train_reference(work: str) -> dict:
+    """Phase 18 (a): each case in this one process from the seed's state:
+    each step's loss and grad norm; step 1's gradients and the params after
+    the last step (and, for tacc-100m, after step 1, which (c)'s faulted
+    steps are held to) saved under ``work`` for the ranks to read; the
+    memory given back before they start."""
+    out = {}
+    for name, cfg, batch, steps in mesh_train_cases():
+        t0 = time.perf_counter()
+        ocfg, batches = mesh_train_setup(cfg, batch, steps)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(
+            cfg, ocfg, torch.Generator(device="cuda").manual_seed(SEED),
+            "cuda")
+        step = build_train_step(cfg, ocfg, TrainConfig(), remat="full",
+                                keep_grads=True)
+        rec = {"loss": [], "grad_norm": [], "step_ms": []}
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            if i == 0:
+                torch.save({k: v.cpu() for k, v in step.grads.items()},
+                           os.path.join(work, f"{name}_grads.pt"))
+                step.grads = None
+                if name == "dense":
+                    torch.save({k: v.cpu() for k, v in
+                                state["params"].items()},
+                               os.path.join(work, f"{name}_params1.pt"))
+        torch.save({k: v.cpu() for k, v in state["params"].items()},
+                   os.path.join(work, f"{name}_params.pt"))
+        rec.update(params=sum(t.numel() for t in state["params"].values()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   seconds=time.perf_counter() - t0)
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def _owner(mesh, spec) -> bool:
+    """Whether this rank counts its block of a leaf under ``spec`` once:
+    the first of the ranks holding the same block."""
+    split = {a for e in spec if e is not None
+             for a in ((e,) if isinstance(e, str) else e)}
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in split)
+
+
+def mesh_grad_parts(cfg, grads, plan, mesh, path: str) -> dict:
+    """Per leaf, this rank's block against the same block of the single
+    process's gradient: [a.b, a.a, b.b] in f64, zeros where another rank
+    counts the block."""
+    ref = torch.load(path, mmap=True)
+    out = {}
+    for k, g in grads.items():
+        if not _owner(mesh, plan[k]):
+            out[k] = [0.0, 0.0, 0.0]
+            continue
+        r = shard_leaf(cfg, k, ref[k], plan[k], mesh).cuda().double()
+        a = g.double()
+        out[k] = [float((a * r).sum()), float((a * a).sum()),
+                  float((r * r).sum())]
+    return out
+
+
+def mesh_move_parts(cfg, params, plan, mesh, path: str) -> dict:
+    """Per leaf, this rank's move from the seed's state (drawn again here)
+    against the single process's move over the same steps, whose params
+    ``path`` holds: [d.r, d.d, r.r, max |d - r|, max |r|] in f64, with
+    d = p - p0 and r = p_ref - p0 (so d - r = p - p_ref); zeros where
+    another rank counts the block."""
+    ref = torch.load(path, mmap=True)
+    p0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     "cuda", mesh=mesh, plan=plan)
+    out = {}
+    for k, p in params.items():
+        if not _owner(mesh, plan[k]):
+            out[k] = [0.0] * 5
+            continue
+        base = p0.pop(k).double()
+        r = shard_leaf(cfg, k, ref[k], plan[k], mesh).cuda().double() - base
+        d = p.double() - base
+        out[k] = [float((d * r).sum()), float((d * d).sum()),
+                  float((r * r).sum()), float((d - r).abs().max()),
+                  float(r.abs().max())]
+    return out
+
+
+def moved(parts: list) -> dict:
+    """Every rank's :func:`mesh_move_parts` of one run put together: the
+    least cosine of a leaf's move to the single process's and its leaf,
+    the largest difference as a share of the single process's largest move
+    in that leaf, and the largest difference (the reference check's
+    measure)."""
+    cos, share = {}, {}
+    for k in parts[0]:
+        s = [sum(p[k][j] for p in parts) for j in range(3)]
+        cos[k] = _cosine(*s)
+        top = max(p[k][4] for p in parts)
+        share[k] = max(p[k][3] for p in parts) / max(top, 1e-300)
+    worst = min(cos, key=cos.get)
+    return {"min_move_cosine": cos[worst], "min_move_leaf": worst,
+            "max_move_share": max(share.values()),
+            "params_max_abs": max(p[k][3] for p in parts for k in p)}
+
+
+@contextlib.contextmanager
+def train_fault(kind: str, mesh, rank: int = 0):
+    """A fault planted in the mesh step for (c): "zero" zeroes ``rank``'s
+    block of the fault leaf's gradient before the update; "skip_psum"
+    leaves out the psum over the batch axes of every gradient whose leaf
+    is not split over them (``train.step._sum_over_batch``), so each data
+    rank updates its replicas from its own rows."""
+    from repro_torch.train import step as STEP
+    name = "adamw_update" if kind == "zero" else "_sum_over_batch"
+    real = getattr(STEP, name)
+
+    def zero(grads, *a, **kw):
+        if dist.get_rank() == rank:
+            grads[MESH_TRAIN_FAULT_LEAF] = torch.zeros_like(
+                grads[MESH_TRAIN_FAULT_LEAF])
+        return real(grads, *a, **kw)
+
+    def skip(grads, *a, **kw):
+        return grads
+
+    setattr(STEP, name, zero if kind == "zero" else skip)
+    try:
+        yield
+    finally:
+        setattr(STEP, name, real)
+
+
+def mesh_train_fault_runs(name: str, steps: int) -> list:
+    """(c)'s runs of a case, (fault, rank, steps): for tacc-100m each
+    rank's block of the fault leaf zeroed in a step of its own; for both
+    cases the batch psum left out over the case's steps."""
+    world = math.prod(MESH_TRAIN[0])
+    zero = [("zero", r, 1) for r in range(world)] if name == "dense" else []
+    return zero + [("skip_psum", None, steps)]
+
+
+def mesh_train_faults(mesh, name: str, cfg, batch: int, steps: int,
+                      work: str) -> list:
+    """Phase 18 (c) on one rank: the case's steps with a fault planted
+    (:func:`train_fault`, :func:`mesh_train_fault_runs`), each run from the
+    seed's state and held to the single process after as many steps. Each
+    run's fault-leaf gradient parts at step 1 (tacc-100m) and move
+    parts."""
+    ocfg, batches = mesh_train_setup(cfg, batch, steps)
+    axes = train_batch_axes(mesh)
+    plan = train_plan(cfg, mesh)
+    runs = mesh_train_fault_runs(name, steps)
+    out = []
+    for kind, rank, steps in runs:
+        state = init_train_state(
+            cfg, ocfg, torch.Generator(device="cuda").manual_seed(SEED),
+            "cuda", mesh=mesh)
+        step = build_train_step(
+            cfg, ocfg, TrainConfig(), remat="full", mesh=mesh,
+            keep_grads=True, flags=RunFlags(distributed=True, token_axes=axes))
+        rec = {"fault": kind, "rank": rank, "steps": steps, "loss": [],
+               "grad_norm": []}
+        with train_fault(kind, mesh, rank or 0):
+            for i, b in enumerate(batches[:steps]):
+                state, m = step(state, {k: batch_rows(v, mesh, axes)
+                                        for k, v in b.items()})
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                if i == 0 and kind == "zero":
+                    leaf = MESH_TRAIN_FAULT_LEAF
+                    rec["grad_parts"] = mesh_grad_parts(
+                        cfg, {leaf: step.grads[leaf]}, plan, mesh,
+                        os.path.join(work, f"{name}_grads.pt"))[leaf]
+                step.grads = None
+        state["opt"] = None
+        rec["move_parts"] = mesh_move_parts(
+            cfg, state["params"], plan, mesh, os.path.join(
+                work, f"{name}_params1.pt" if steps == 1 else
+                f"{name}_params.pt"))
+        out.append(rec)
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_case(mesh, name: str, cfg, batch: int, steps: int,
+                    work: str) -> dict:
+    """Phase 18 (b) or (d) on one rank: the seed's state drawn whole and
+    cut to this rank's blocks, its rows of each batch, the FSDP + TP step
+    with the MoE through moe_ep; per step the metrics, the collectives,
+    bytes sent and staged and the step's ms; step 1's gradient and the
+    final params against the single process's (read from ``work``); every
+    kernel's launches in the steps."""
+    ocfg, batches = mesh_train_setup(cfg, batch, steps)
+    axes = train_batch_axes(mesh)
+    plan = train_plan(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+        mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = build_train_step(
+        cfg, ocfg, TrainConfig(), remat="full", mesh=mesh, keep_grads=True,
+        flags=RunFlags(distributed=True, token_axes=axes))
+    rows = [{k: batch_rows(v, mesh, axes) for k, v in b.items()}
+            for b in batches]
+    MOE.moe_ep.dropped = 0
+    per_step, parts = [], None
+    for fn in TRAIN_WRAPPERS:
+        fn.launches = 0
+    for i, b in enumerate(rows):
+        COLL.reset_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        per_step.append({"ms": 1e3 * (time.perf_counter() - t1),
+                         "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         **COLL.STATS})
+        if i == 0:
+            held = {fn: fn.launches for fn in TRAIN_WRAPPERS}
+            parts = mesh_grad_parts(cfg, step.grads, plan, mesh,
+                                    os.path.join(work, f"{name}_grads.pt"))
+            step.grads = None
+            for fn in TRAIN_WRAPPERS:     # the check launched no kernel
+                if fn.launches != held[fn]:
+                    raise AssertionError(f"{fn.__name__} launched outside "
+                                         f"the steps")
+    launches = {fn.__name__: fn.launches for fn in TRAIN_WRAPPERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params_held = sum(t.numel() for t in state["params"].values())
+    state["opt"] = None
+    move = mesh_move_parts(cfg, state["params"], plan, mesh,
+                           os.path.join(work, f"{name}_params.pt"))
+    out = {"steps": per_step, "grad_parts": parts, "move_parts": move,
+           "launches": launches,
+           "expected_launches": expected_train_launches(cfg, steps),
+           "dropped": int(MOE.moe_ep.dropped), "init_s": init_s,
+           "params_held": params_held, "peak_gb": peak_gb,
+           "rows": list(rows[0]["tokens"].shape)}
+    del state, step, m
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 18, a process of its own on the one card; writes
+    its results to ``work``/rank<r>.json."""
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, os.cpu_count() // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        MESH_BACKEND, init_method=f"file://{store}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(*MESH_TRAIN)
+        out = {"rank": rank, "coords": mesh.coords}
+        t0 = time.perf_counter()
+        for name, cfg, batch, steps in mesh_train_cases():
+            out[name] = mesh_train_case(mesh, name, cfg, batch, steps, work)
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            out[name]["faults"] = mesh_train_faults(mesh, name, cfg, batch,
+                                                    steps, work)
+            out[name]["faults_s"] = time.perf_counter() - t1
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cosine(dot: float, aa: float, bb: float) -> float:
+    if aa == 0 and bb == 0:
+        return 1.0
+    return dot / max(math.sqrt(aa * bb), 1e-300)
+
+
+def mesh_train_results(name: str, ref: dict, ranks: list) -> dict:
+    """One case's numbers over every rank: the worst step's loss and grad
+    norm against the single process, each leaf's cosine, the params' move
+    (:func:`moved`), and (c): each faulted run's move and worst loss and
+    grad norm, and for a zeroed block the fault leaf's cosine at step 1."""
+    cases = [r[name] for r in ranks]
+    loss_rel = max(abs(s["loss"] - a) / abs(a) for c in cases
+                   for s, a in zip(c["steps"], ref["loss"]))
+    gn_rel = max(abs(s["grad_norm"] - a) / abs(a) for c in cases
+                 for s, a in zip(c["steps"], ref["grad_norm"]))
+    leaves = cases[0]["grad_parts"]
+    sums = {k: [sum(c["grad_parts"][k][j] for c in cases) for j in range(3)]
+            for k in leaves}
+    cos = {k: _cosine(*v) for k, v in sums.items()}
+    out = {"loss_rel_max": loss_rel, "grad_norm_rel_max": gn_rel,
+           "min_cosine": min(cos.values()),
+           "worst_cosines": sorted(cos.items(), key=lambda kv: kv[1])[:5],
+           **moved([c["move_parts"] for c in cases]), "leaves": len(cos)}
+    out["faults"] = []
+    for j, f in enumerate(cases[0]["faults"]):
+        runs = [c["faults"][j] for c in cases]
+        leaf = {}
+        if f["fault"] == "zero":
+            g = [sum(r["grad_parts"][i] for r in runs) for i in range(3)]
+            leaf = {"fault_leaf_cosine": _cosine(*g)}
+        out["faults"].append({
+            "fault": f["fault"], "rank": f["rank"], "steps": f["steps"],
+            **leaf, "loss_rel_max": max(
+                abs(x - a) / abs(a) for r in runs
+                for x, a in zip(r["loss"], ref["loss"])),
+            "grad_norm_rel_max": max(
+                abs(x - a) / abs(a) for r in runs
+                for x, a in zip(r["grad_norm"], ref["grad_norm"])),
+            **moved([r["move_parts"] for r in runs])})
+    return out
+
+
+def mesh_train_failures(res: dict, ranks: list) -> list:
+    bars, fails = MESH_TRAIN_BARS, []
+    for name, r in res.items():
+        if not (r["loss_rel_max"] < bars["loss_rel"]
+                and r["grad_norm_rel_max"] < bars["grad_norm_rel"]):
+            fails.append(f"{name}: loss or grad norm off the single process")
+        if not r["min_cosine"] >= bars["min_cosine"]:
+            fails.append(f"{name}: a gradient leaf at cosine "
+                         f"{r['min_cosine']}")
+        move = MESH_TRAIN_MOVE_BARS[name]
+        if not r["min_move_cosine"] >= move:
+            fails.append(f"{name}: {r['min_move_leaf']} moved at cosine "
+                         f"{r['min_move_cosine']} to the single process")
+        steps = next(s for n, _, _, s in mesh_train_cases() if n == name)
+        if [(f["fault"], f["rank"], f["steps"]) for f in r["faults"]] != \
+                mesh_train_fault_runs(name, steps):
+            fails.append(f"{name}: (c) did not run its faulted runs")
+        for f in r["faults"]:
+            if f["fault"] == "zero" and not f["fault_leaf_cosine"] < \
+                    bars["min_cosine"]:
+                fails.append(f"{name}: rank {f['rank']}'s zeroed block "
+                             f"kept cosine {f['fault_leaf_cosine']}")
+            if not f["min_move_cosine"] < move:
+                fails.append(f"{name}: fault {f['fault']} {f['rank']} "
+                             f"moved within the bar, at "
+                             f"{f['min_move_cosine']}")
+    for rank in ranks:
+        for name in res:
+            c = rank[name]
+            if c["launches"] != c["expected_launches"] or not all(
+                    v > 0 for v in c["launches"].values()):
+                fails.append(f"rank {rank['rank']} {name} launched "
+                             f"{c['launches']}")
+            if c["dropped"]:
+                fails.append(f"rank {rank['rank']} {name} dropped "
+                             f"{c['dropped']} at capacity 8")
+            if not all(math.isfinite(s["loss"]) for s in c["steps"]):
+                fails.append(f"rank {rank['rank']} {name}: a loss is not "
+                             f"finite")
+    return fails
+
+
+def mesh_train_kernels() -> dict:
+    """K1, K1b, K2, K2b, K3 and K3b at a rank's local shapes in (b),
+    against their plain versions, with their times, bound and library
+    calls: q (8, 128, 6, 64) over k/v (8, 128, 2, 64), norms of rows
+    (1024, 768)."""
+    bf16 = torch.bfloat16
+    cfg = get_config("tacc-100m")
+    data, model = MESH_TRAIN[0]
+    B, H, KV = (TRAIN_BATCH // data, cfg.n_heads // model,
+                cfg.n_kv_heads // model)
+    rows = B * TRAIN_SEQ
+    return {"flash_attention": flash_case(bf16, [TRAIN_SEQ] * B,
+                                          S=TRAIN_SEQ, H=H, KV=KV),
+            "flash_bwd": flash_bwd_case(bf16, B, TRAIN_SEQ, H, KV,
+                                        cfg.head_dim, timed=True),
+            "rmsnorm": rms_case(bf16, rows, False),
+            "rmsnorm_residual": rms_case(bf16, rows, True),
+            "rmsnorm_bwd": rms_bwd_case(bf16, rows, False, timed=True),
+            "rmsnorm_residual_bwd": rms_bwd_case(bf16, rows, True,
+                                                 timed=True)}
+
+
+def phase_mesh_train() -> dict:
+    """Phase 18: (a) the single-process reference, saved and freed; (b)
+    to (d) in 4 ranks on the one card over gloo (``mesh_train_rank``);
+    every bar checked over every rank's results; the kernels at (b)'s
+    local shapes."""
+    before = allocated_bytes()
+    torch.cuda.empty_cache()
+    kernels = mesh_train_kernels()
+    work = tempfile.mkdtemp(prefix="mesh_train_")
+    t0 = time.perf_counter()
+    try:
+        single = mesh_train_reference(work)
+        t_ref = time.perf_counter() - t0
+        disk = shutil.disk_usage(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        world = math.prod(MESH_TRAIN[0])
+        mp.spawn(mesh_train_rank, args=(world, os.path.join(work, "store"),
+                                        work), nprocs=world, join=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res = {name: mesh_train_results(name, single[name], ranks)
+           for name in single}
+    fails = mesh_train_failures(res, ranks)
+    out = {"phase": "mesh_train", "card": card(),
+           "mesh": dict(zip(*reversed(MESH_TRAIN))), "backend": MESH_BACKEND,
+           "interconnect": "none: 4 processes share one card over gloo, "
+                           "every collective staged through the host; "
+                           "NCCL and NVLink times not measured",
+           "cases": {name: {"arch": cfg.name, "layers": cfg.n_layers,
+                            "global_batch": batch, "seq": TRAIN_SEQ,
+                            "steps": steps}
+                     for name, cfg, batch, steps in mesh_train_cases()},
+           "reduced": {"moe": f"layers 0-{MESH_TRAIN_MOE_LAYERS - 1} of "
+                              f"24, capacity factor {MESH_CAPACITY}"},
+           "single_process": single, "results": res,
+           "ranks": [{"rank": r["rank"], "coords": r["coords"],
+                      "seconds": r["seconds"],
+                      **{name: {k: r[name][k] for k in (
+                          "steps", "launches",
+                          "expected_launches", "dropped", "init_s",
+                          "params_held", "peak_gb", "rows", "faults_s")}
+                         for name in single}} for r in ranks],
+           "launches": ranks[0]["dense"]["launches"],
+           "kernels": kernels, "bars": MESH_TRAIN_BARS,
+           "move_bars": MESH_TRAIN_MOVE_BARS,
+           "reference_params_max_abs": MESH_TRAIN_PARAMS_MAX_ABS,
+           "fault_leaf": MESH_TRAIN_FAULT_LEAF,
+           "tmp_free_gb_after_reference": disk.free / 1e9,
+           "reference_s": t_ref, "seconds": time.perf_counter() - t0,
+           "failures": fails}
+    after = allocated_bytes()
+    out["memory_allocated_after_gb"] = after / 1e9
+    emit(out)
+    if fails:
+        raise AssertionError(f"mesh_train phase failed: {fails}")
+    if abs(after - before) > MEMORY_SLACK_BYTES:
+        raise AssertionError(f"allocated memory {before} -> {after} bytes "
+                             f"across phase 18")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
-                jb: dict, pg: dict, tc: dict, ms: dict) -> dict:
+                jb: dict, pg: dict, tc: dict, ms: dict, mt: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -3293,7 +3833,9 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     every kernel with its launches in tcloud's demo and its submitted
     spec file (phase 16); and the forward kernels with their launches
     summed over the 4 ranks serving qwen2-moe-a2.7b over a mesh (phase
-    17)."""
+    17); and every kernel with a rank's launches training tacc-100m over
+    the (data 2, model 2) mesh, by rank, and its numbers at a rank's local
+    shapes there (phase 18: q (8, 128, 6, 64), rows (1024, 768))."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -3387,6 +3929,26 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                                row["name"]] for r in ms["ranks"]],
                        mesh_launches_in=f"serve {MOE_ARCH} over 4 ranks "
                                         f"(phase 17)")
+        name = row["name"]
+        if name in mt["launches"]:
+            local = mt["kernels"]
+            c = local.get(name)
+            if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+                fb = local["flash_bwd"]
+                part = "dq" if name == "flash_bwd_dq" else "dkdv"
+                c = {**fb[part], "plain_ms": fb["plain_ms"],
+                     "library_ms": fb["library_ms"],
+                     "max_abs_err": (fb["dq_err"] if part == "dq" else
+                                     max(fb["dk_err"], fb["dv_err"])),
+                     "q": fb["q"]}
+            row.update(
+                mesh_train_launches=mt["launches"][name],
+                mesh_train_launches_by_rank=[
+                    r["dense"]["launches"][name] for r in mt["ranks"]],
+                mesh_train_launches_in="train tacc-100m over (data 2, "
+                                       "model 2), one rank (phase 18)",
+                mesh_train_shape={k: c.get(k) for k in ("q", "x") + keys
+                                  if k in c})
     return {"kernels": rows}
 
 
@@ -3412,8 +3974,9 @@ def main() -> None:
     pg = phase_paged_serve(cases["rmsnorm"][0]["floor_ms"])
     tc = phase_tcloud()
     ms = phase_mesh_serve()
+    mt = phase_mesh_train()
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc, ms))
+                     pg, tc, ms, mt))
     emit({"ok": True, "device": dev})
 
 

@@ -174,11 +174,16 @@ class Checkpointer:
     an error there is raised by the next ``wait`` (or ``save``). ``saves``
     records each finished save: step, bytes, the seconds ``save`` took to
     copy (``snapshot_s``) and the thread's seconds to write (``write_s``).
+    Over a mesh every rank holds one, and only the ``writer`` (rank 0)
+    writes the whole state it is given (``models.params.state_to_jax(...,
+    mesh=)``, which every rank calls); every rank restores, and takes its
+    blocks (``state_from_jax(..., mesh=)``).
     """
 
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, *, writer: bool = True):
         self.root = root
         self.keep = keep
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.saves: List[Dict[str, float]] = []
@@ -186,6 +191,8 @@ class Checkpointer:
     def save(self, step: int, state: Any, *, block: bool = False,
              extra: Optional[Dict] = None) -> None:
         self.wait()
+        if not self.writer:
+            return
         t0 = time.perf_counter()
         host_state = _map(_snapshot, state)
         snapshot_s = time.perf_counter() - t0

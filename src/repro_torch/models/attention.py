@@ -1,18 +1,22 @@
 """GQA attention: projections, RoPE, self-attention through the flash kernel,
 and KV-cache decode, on one device or over a cache sharded along the
-sequence (``parallel/decode_attn.py``). Port of
+sequence (``parallel/decode_attn.py``), and self-attention with its heads
+split over the mesh's ``model`` axis (:func:`tp_self_attention`). Port of
 ``repro/models/attention.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
-from repro_torch.models.layers import apply_rope, rms_head_norm
+from repro_torch.models.layers import (TP_AXIS, apply_rope, rms_head_norm,
+                                       row_parallel)
+from repro_torch.parallel.collectives import all_gather, pvary
 from repro_torch.parallel.decode_attn import (sharded_decode_attention,
                                               write_rows)
 
@@ -62,6 +66,66 @@ def self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     q, k, v = project_qkv(cfg, p, x, positions)
     o = flash_attention(q, k, v, causal=True, lengths=lengths)
     return output_proj(cfg, p, o), (k, v)
+
+
+def tp_heads(cfg: ModelConfig, p: Mapping, mesh, axis: str = TP_AXIS,
+             tp_split: FrozenSet[str] = frozenset()
+             ) -> Tuple[ModelConfig, Dict[str, torch.Tensor]]:
+    """This rank's heads over ``axis``: a config of its H / n query heads
+    and the KV heads they read, and the parameters :func:`project_qkv`
+    takes for them.
+
+    ``wq``/``bq``/``wo`` hold the rank's heads as stored. Where the KV
+    heads split over n, ``wkv``/``bkv`` hold the rank's [K | V] heads
+    (stored grouped, ``params.grouped_columns``). Where n ranks share each
+    KV head (n a multiple of KV), each rank gathers ``wkv`` where the plan
+    splits it over ``axis`` (in ``tp_split``, ``params.tp_split``; the
+    gather's backward sums the sharers' partial gradients) or else takes
+    it whole through ``pvary``, and keeps its KV head's K and V columns.
+    The qk-norm scales, the same on every rank, go through ``pvary``
+    too."""
+    n = mesh.size(mesh.live((axis,)))
+    r = mesh.axis_index(mesh.live((axis,)))
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if H % n or (KV % n and n % KV):
+        raise NotImplementedError(
+            f"{cfg.name}: {H} query and {KV} KV heads over {n} ranks")
+    if p["wq"].shape[-1] * n != H * HD:
+        raise ValueError(f"wq of {p['wq'].shape[-1]} columns is not this "
+                         f"rank's {H // n} heads")
+    local = dict(p)
+    kv_loc = KV // n if KV % n == 0 else 1
+    if KV % n:
+        head = r // (n // KV)
+        for k in ("wkv", "bkv"):
+            if k not in p:
+                continue
+            w = (all_gather(p[k], axis, mesh, dim=-1) if k in tp_split
+                 else pvary(p[k], axis, mesh))
+            w = w.unflatten(-1, (2, KV, HD))[..., head:head + 1, :]
+            local[k] = w.flatten(-3)
+    for k in ("q_norm", "k_norm"):
+        if k in p:
+            local[k] = pvary(p[k], axis, mesh)
+    return dataclasses.replace(cfg, n_heads=H // n, n_kv_heads=kv_loc), local
+
+
+def tp_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
+                      positions: torch.Tensor, *,
+                      lengths: Optional[torch.Tensor] = None, mesh,
+                      axis: str = TP_AXIS,
+                      tp_split: FrozenSet[str] = frozenset()) -> torch.Tensor:
+    """:func:`self_attention` with its heads split over ``axis``
+    (:func:`tp_heads`): ``x`` the same on every rank, the flash kernel on
+    this rank's heads, the output projection's partial sums added
+    (``layers.row_parallel``), then ``bo``."""
+    cfg_loc, local = tp_heads(cfg, p, mesh, axis, tp_split)
+    q, k, v = project_qkv(cfg_loc, local, pvary(x, axis, mesh), positions)
+    o = flash_attention(q, k, v, causal=True, lengths=lengths)
+    y = row_parallel(o.flatten(2), p["wo"], mesh, axis)
+    if "bo" in p:
+        y = y + p["bo"].to(y.dtype)
+    return y
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

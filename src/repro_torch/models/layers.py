@@ -4,6 +4,14 @@ embeddings. Port of ``repro/models/layers.py``.
 Plain functions over (config, params, inputs), named as in JAX. ``p`` is any
 mapping of parameter name to tensor (an ``nn.ParameterDict`` in the model).
 Weights are ``(in, out)`` and applied as ``x @ w``.
+
+Tensor parallelism over the mesh's ``model`` axis (what GSPMD derives from
+the reference's ``param_specs``, written out): the embedding split over the
+vocab (each rank looks up the ids in its rows, a psum adds them), the
+unembedding giving each rank its vocab's logits, and the dense FFN
+column-parallel into the hidden and row-parallel out of it, with
+``pvary`` where a value the ranks share enters their own computation and
+``psum`` where their partial results meet (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models.params import TP_AXIS
+from repro_torch.parallel.collectives import psum, pvary
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -88,19 +98,57 @@ def sincos_pos_emb(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 # Dense (SwiGLU / GELU) FFN
 # ---------------------------------------------------------------------------
 
-def apply_ffn(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
+def ffn_hidden(cfg: ModelConfig, p: Mapping, x: torch.Tensor
+               ) -> torch.Tensor:
+    """The FFN's hidden activations: SwiGLU of [gate | up], or GELU."""
     dt = x.dtype
     gu = x @ p["w_in"].to(dt)
     if "b_in" in p:
         gu = gu + p["b_in"].to(dt)
     if cfg.ffn_gated:
         g, u = gu.chunk(2, dim=-1)
-        h = F.silu(g) * u
-    else:
-        h = F.gelu(gu, approximate="tanh")    # jax.nn.gelu's default form
-    y = h @ p["w_out"].to(dt)
+        return F.silu(g) * u
+    return F.gelu(gu, approximate="tanh")    # jax.nn.gelu's default form
+
+
+def apply_ffn(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    y = ffn_hidden(cfg, p, x) @ p["w_out"].to(dt)
     if "b_out" in p:
         y = y + p["b_out"].to(dt)
+    return y
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, mesh,
+                 axis: str = TP_AXIS) -> torch.Tensor:
+    """``h @ w`` where each rank holds its part of the contraction (its
+    heads or hidden units): each rank's partial product in f32 (products
+    of two h.dtype values are exact there), the partials summed, and the
+    sum rounded once to h.dtype, as the single device's product is. Bf16
+    partials rounded apart move the mesh step's gradients several times
+    further from the single process's (``tools/mesh_grad_cosines.py``)."""
+    return psum(h.float() @ w.to(h.dtype).float(), axis, mesh).to(h.dtype)
+
+
+def tp_apply_ffn(cfg: ModelConfig, p: Mapping, x: torch.Tensor, mesh,
+                 d_ff: Optional[int] = None, axis: str = TP_AXIS
+                 ) -> torch.Tensor:
+    """:func:`apply_ffn` over ``axis``: ``w_in`` (and ``b_in``) hold this
+    rank's part of the ``d_ff`` hidden units (``cfg.d_ff`` by default; a
+    gated FFN's stored grouped, [its gate | its up],
+    ``params.grouped_columns``), ``w_out`` their rows; the partial outputs
+    are summed (:func:`row_parallel`), then ``b_out`` added once. ``x`` is
+    the same on every rank."""
+    n = mesh.size(mesh.live((axis,)))
+    d_ff = d_ff or cfg.d_ff
+    if p["w_out"].shape[0] * n != d_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: an FFN hidden of {d_ff} does not split over {n} "
+            f"ranks")
+    h = ffn_hidden(cfg, p, pvary(x, axis, mesh))
+    y = row_parallel(h, p["w_out"], mesh, axis)
+    if "b_out" in p:
+        y = y + p["b_out"].to(y.dtype)
     return y
 
 
@@ -108,15 +156,35 @@ def apply_ffn(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
+def lookup(p: Mapping, tokens: torch.Tensor, dt: torch.dtype, mesh=None,
+           axis: str = TP_AXIS) -> torch.Tensor:
+    """``p["tok"][tokens]`` in ``dt`` (gather, then cast: same values).
+    Over a live ``axis`` ``tok`` holds this rank's vocab rows: each rank
+    looks up the ids in its range, zeroes the rest, and a psum adds them
+    (one nonzero a row, so the sum is exact)."""
+    if mesh is None or not mesh.live((axis,)):
+        return p["tok"][tokens].to(dt)
+    w = p["tok"]
+    local = tokens - mesh.axis_index(mesh.live((axis,))) * w.shape[0]
+    inside = (local >= 0) & (local < w.shape[0])
+    x = w[local.clamp(0, w.shape[0] - 1)].to(dt)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=dt,
+                                                       device=x.device))
+    return psum(x, axis, mesh)
+
+
 def embed_tokens(cfg: ModelConfig, p: Mapping, tokens: Optional[torch.Tensor],
                  extra_embeds: Optional[torch.Tensor] = None,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None, mesh=None
+                 ) -> torch.Tensor:
+    """The input embeddings; with ``mesh``, ``tok`` split over the vocab
+    (:func:`lookup`)."""
     dt = dtype_of(cfg.dtype)
     if cfg.input_mode == "embeds":
         # modality stub: the token slot carries precomputed frame embeddings
         x = extra_embeds.to(dt) @ p["frame_proj"].to(dt)
     else:
-        x = p["tok"][tokens].to(dt)            # gather, then cast: same values
+        x = lookup(p, tokens, dt, mesh)
         if cfg.input_mode == "tokens+vision" and extra_embeds is not None:
             v = extra_embeds.to(dt) @ p["vision_proj"].to(dt)
             x = torch.cat([v, x], dim=1)
@@ -128,9 +196,14 @@ def embed_tokens(cfg: ModelConfig, p: Mapping, tokens: Optional[torch.Tensor],
     return x
 
 
-def unembed(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits of x against the (tied or separate) unembedding."""
+def unembed(cfg: ModelConfig, p: Mapping, x: torch.Tensor, mesh=None
+            ) -> torch.Tensor:
+    """f32 logits of x against the (tied or separate) unembedding; with
+    ``mesh``, the weight holds this rank's vocab rows and so do the logits
+    (``train.loss.cross_entropy`` takes them so)."""
     w = p["tok"] if cfg.tie_embeddings else p["unembed"]
+    if mesh is not None:
+        x = pvary(x, TP_AXIS, mesh)
     # products of two x.dtype values are exact in f32: this is the
     # reference's x.dtype einsum with f32 accumulation
     logits = x.float() @ w.to(x.dtype).float().T

@@ -19,7 +19,13 @@ Port of ``repro/models/moe.py``. Three ways to apply the routed experts:
   grouping, sends the results back, and combines with the gate weights;
   an assignment past a capacity is dropped (GShard-style), so the capacity
   factor changes the function. The per-rank outputs reassemble by a
-  ``psum`` or an ``all_gather``.
+  ``psum`` or an ``all_gather``. Its gradient runs through the same
+  collectives backward (``parallel/collectives.py``): the tokens and the
+  router enter each rank's share of the work through ``pvary`` (or, for
+  a router held as this rank's experts' columns, an ``all_gather`` whose
+  backward sums the ranks' parts), the combine is a ``psum`` or an
+  invariant ``all_gather``, and the aux sums a ``psum`` over
+  ``(ep_axis,) + token_axes`` divided by the EP ranks, as the reference's.
 
 :func:`moe_apply`, the model's path, takes ``moe_ep`` when ``distributed``;
 otherwise the dispatch from ``DISPATCH_MIN_ROWS`` rows on and the oracle
@@ -35,15 +41,16 @@ every row of x, the padded rows of a prefill included, as JAX's do.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_ffn
+from repro_torch.models.layers import apply_ffn, tp_apply_ffn
 from repro_torch.models.params import padded_experts
-from repro_torch.parallel.collectives import all_gather, all_to_all, psum
+from repro_torch.parallel.collectives import (all_gather, all_to_all, psum,
+                                              pvary)
 
 Aux = Dict[str, torch.Tensor]
 
@@ -107,9 +114,17 @@ def expert_ffn(w_in: torch.Tensor, w_out: torch.Tensor, x: torch.Tensor
     return torch.matmul(F.silu(g) * u, w_out.to(dt))
 
 
-def _shared(cfg: ModelConfig, p: Mapping, x: torch.Tensor) -> torch.Tensor:
+def _shared(cfg: ModelConfig, p: Mapping, x: torch.Tensor, mesh=None,
+            axis: str = "model", tp_split: FrozenSet[str] = frozenset()
+            ) -> torch.Tensor:
+    """The shared expert block; with its hidden split over ``axis``
+    (``shared_w_out`` in ``tp_split``, as a training plan leaves it),
+    tensor-parallel there."""
     sp = {k[len("shared_"):]: v for k, v in p.items()
           if k.startswith("shared_")}
+    if "shared_w_out" in tp_split:
+        return tp_apply_ffn(cfg, sp, x, mesh, d_ff=cfg.moe.d_ff_shared,
+                            axis=axis)
     return apply_ffn(cfg, sp, x)
 
 
@@ -147,13 +162,31 @@ def dispatch_routed(cfg: ModelConfig, p: Mapping, flat: torch.Tensor,
 dispatch_routed.host_syncs = 0
 
 
-def _moe(routed_fn, cfg: ModelConfig, p: Mapping, x: torch.Tensor
+AUX_SUMS = ("f_sum", "p_sum", "z_sum", "n")
+
+
+def _reduce_aux(aux: Aux, axes, mesh, ranks: int = 1) -> Aux:
+    """The aux sums added over ``axes`` of ``mesh`` in one ``psum``, divided
+    by the ``ranks`` along them that counted the same tokens."""
+    sums = psum(torch.cat([aux[k].float().reshape(-1) for k in AUX_SUMS]),
+                axes, mesh) / ranks
+    E = aux["f_sum"].numel()
+    out = dict(zip(AUX_SUMS, sums.split([E, E, 1, 1])))
+    return {k: v.reshape(()) if k in ("z_sum", "n") else v
+            for k, v in out.items()}
+
+
+def _moe(routed_fn, cfg: ModelConfig, p: Mapping, x: torch.Tensor,
+         token_axes: Sequence[str] = (), mesh=None, ep_axis: str = "model",
+         tp_split: FrozenSet[str] = frozenset()
          ) -> Tuple[torch.Tensor, Aux]:
     flat = x.reshape(-1, x.shape[-1])
     idx, w, aux = route(cfg, flat, p["router"])
     y = routed_fn(cfg, p, flat, idx, w).to(x.dtype).reshape(x.shape)
     if cfg.moe.n_shared:
-        y = y + _shared(cfg, p, x)
+        y = y + _shared(cfg, p, x, mesh, ep_axis, tp_split)
+    if mesh is not None and mesh.live(token_axes):
+        aux = _reduce_aux(aux, token_axes, mesh)
     return y, aux_loss(cfg, aux)
 
 
@@ -203,12 +236,17 @@ def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
            ep_axis: str = "model",
            token_axes: Sequence[str] = ("data",),
            combine: str = "psum", mesh=None,
-           stats: Optional[dict] = None) -> Tuple[torch.Tensor, Aux]:
+           stats: Optional[dict] = None,
+           tp_split: FrozenSet[str] = frozenset()
+           ) -> Tuple[torch.Tensor, Aux]:
     """x: (B_loc, S, D), this rank's block of the tokens over
     ``token_axes`` (replicated over ``ep_axis``); experts split over
-    ``ep_axis``, whole or as this rank's block in ``p``. Without a mesh, or
-    with one rank on ``ep_axis`` or experts it does not divide, the dense
-    oracle.
+    ``ep_axis``, whole or as this rank's block in ``p``. ``tp_split``
+    names the leaves of ``p`` a training plan splits over ``ep_axis``
+    (``params.tp_split``): ``router`` held as its columns of this rank's
+    experts, the shared block's hidden split; the rest are whole. Without
+    a mesh, or with one rank on ``ep_axis`` or experts it does not divide,
+    the dense oracle, its aux sums added over the live ``token_axes``.
 
     ``combine``: how the owners' outputs reassemble over ``ep_axis``:
     "psum" (each token's row is nonzero on its owner only) or "allgather"
@@ -223,9 +261,14 @@ def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
     if mesh is None:
         return moe_dense_oracle(cfg, p, x)
     n_ranks = mesh.size(mesh.live((ep_axis,)))
-    if n_ranks <= 1 or E % n_ranks != 0:
-        return moe_dense_oracle(cfg, p, x)
     token_axes = mesh.live(token_axes)
+    if n_ranks <= 1 or E % n_ranks != 0:
+        if tuple(p["w_in"].shape) != (E, cfg.d_model, 2 * moe.d_ff_expert):
+            raise NotImplementedError(
+                f"{cfg.name}: the dense oracle needs every expert whole, "
+                f"not blocks of {tuple(p['w_in'].shape)}")
+        return _moe(dense_routed, cfg, p, x, token_axes, mesh, ep_axis,
+                    tp_split)
     E_loc = E // n_ranks
     B, S, D = x.shape
     N_loc = B * S
@@ -237,9 +280,11 @@ def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
     w_in = _local_experts(p["w_in"], E, E_loc, r)
     w_out = _local_experts(p["w_out"], E, E_loc, r)
 
-    flat = x.reshape(-1, D)
+    router = (all_gather(p["router"], ep_axis, mesh, dim=-1)
+              if "router" in tp_split else pvary(p["router"], ep_axis, mesh))
+    flat = pvary(x.reshape(-1, D), ep_axis, mesh)
     n = flat.shape[0]
-    idx, w, aux = route(cfg, flat, p["router"])
+    idx, w, aux = route(cfg, flat, router)
     tok = torch.arange(n, device=dev)
     owner = tok // blk if combine == "allgather" else tok % n_ranks
     owned = owner == r
@@ -291,16 +336,12 @@ def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
     if combine == "allgather":
         pad = blk * n_ranks - n
         y_pad = F.pad(y, (0, 0, 0, pad)) if pad else y
-        y = all_gather(y_pad[r * blk:(r + 1) * blk], ep_axis, mesh)[:n]
+        y = all_gather(y_pad[r * blk:(r + 1) * blk], ep_axis, mesh,
+                       invariant=True)[:n]
     else:
         y = psum(y, ep_axis, mesh)
     # aux terms: equal on every EP rank, partial over token shards
-    keys = ("f_sum", "p_sum", "z_sum", "n")
-    sums = psum(torch.cat([aux[kk].float().reshape(-1) for kk in keys]),
-                (ep_axis,) + tuple(token_axes), mesh) / n_ranks
-    aux = dict(zip(keys, sums.split([E, E, 1, 1])))
-    aux = {kk: v.reshape(()) if kk in ("z_sum", "n") else v
-           for kk, v in aux.items()}
+    aux = _reduce_aux(aux, (ep_axis,) + tuple(token_axes), mesh, n_ranks)
     valid_recv = recv_e < E_loc
     moe_ep.dropped = moe_ep.dropped + (a_valid & ~keep).sum() \
         + (valid_recv & ~gvalid).sum()
@@ -313,7 +354,7 @@ def moe_ep(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
         stats["kept"] = psum(kept, ep_axis, mesh).reshape(n, k) > 0
     y = y.reshape(x.shape)
     if moe.n_shared:
-        y = y + _shared(cfg, p, x)
+        y = y + _shared(cfg, p, x, mesh, ep_axis, tp_split)
     return y, aux_loss(cfg, aux)
 
 
@@ -323,14 +364,15 @@ moe_ep.dropped = 0
 def moe_apply(cfg: ModelConfig, p: Mapping, x: torch.Tensor, *,
               distributed: bool = False, ep_axis: str = "model",
               token_axes: Sequence[str] = ("data",),
-              combine: str = "psum", mesh=None
+              combine: str = "psum", mesh=None,
+              tp_split: FrozenSet[str] = frozenset()
               ) -> Tuple[torch.Tensor, Aux]:
     """x: (B, S, D). The model's path: with ``distributed``, ``moe_ep``
-    over ``mesh``; otherwise the dispatch from ``DISPATCH_MIN_ROWS`` rows
-    on and the dense oracle below."""
+    over ``mesh`` (``tp_split`` as there); otherwise the dispatch from
+    ``DISPATCH_MIN_ROWS`` rows on and the dense oracle below."""
     if distributed:
         return moe_ep(cfg, p, x, ep_axis=ep_axis, token_axes=token_axes,
-                      combine=combine, mesh=mesh)
+                      combine=combine, mesh=mesh, tp_split=tp_split)
     rows = x.numel() // x.shape[-1]
     fn = moe_dispatch if rows >= DISPATCH_MIN_ROWS else moe_dense_oracle
     return fn(cfg, p, x)

@@ -13,15 +13,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import (Any, Dict, Iterator, Mapping, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Dict, FrozenSet, Iterable, Iterator, Mapping,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.parallel.sharding import Spec, block_range, local_shard
+from repro_torch.parallel.sharding import (Spec, block_range, block_slices,
+                                           entry_axes, local_shard, spec_axes)
 
 
 @dataclass(frozen=True)
@@ -320,17 +321,102 @@ def serving_plan(cfg: ModelConfig, mesh, ep_axis: str = "model"
     return out
 
 
+# the mesh axis of tensor parallelism: every rule that splits heads, the FFN
+# hidden, experts or the vocab names it
+TP_AXIS = "model"
+
+
+def train_plan(cfg: ModelConfig, mesh) -> Dict[str, Spec]:
+    """The layout a rank holds to train on ``mesh``: every leaf under
+    :func:`param_specs` (FSDP over ``data`` on the embed dim of matrices,
+    TP over ``model``), as JAX's ``state_shardings`` places params and both
+    AdamW moments. A leaf whose last dim is two halves (:func:`halves`)
+    is stored grouped: see :func:`grouped_columns`."""
+    return param_specs(model_defs(cfg), mesh)
+
+
+def tp_split(plan: Mapping[str, Spec], prefix: str, names: Iterable[str],
+             mesh) -> FrozenSet[str]:
+    """The ``names`` whose leaf ``<prefix>.<name>`` the training ``plan``
+    splits over a live :data:`TP_AXIS`: the leaves a rank holds only its
+    part of (its heads, hidden units, experts' router columns) and must
+    gather or compute on as a part, where the others it holds whole."""
+    return frozenset(k for k in names if TP_AXIS in mesh.live(
+        spec_axes(plan[f"{prefix}.{k}"])))
+
+
+def halves(cfg: ModelConfig, name: str) -> int:
+    """For a leaf whose last dim is two halves the model reads apart
+    (attention's fused ``wkv``/``bkv`` as (2, KV, HD), a gated FFN's
+    ``w_in``/``b_in`` as [gate | up], the shared expert's too), the width
+    of a unit of one half a rank must hold whole (a head, a hidden unit);
+    0 for any other leaf."""
+    sub, leaf = name.split(".")[-2:]
+    if sub == "mixer" and leaf in ("wkv", "bkv"):
+        return cfg.head_dim
+    if sub == "ffn" and cfg.ffn_gated and leaf in (
+            "w_in", "b_in", "shared_w_in", "shared_b_in"):
+        return 1
+    return 0
+
+
+def grouped_columns(cfg: ModelConfig, name: str, shape: Sequence[int],
+                    spec: Spec, mesh) -> Optional[torch.Tensor]:
+    """The column order of a leaf of ``shape`` stored grouped, or None.
+    JAX's spec cuts the last dim of a :func:`halves` leaf into n contiguous
+    blocks, so at n = 2 rank 0 would hold every K column and rank 1 every
+    V column. Where each half splits into n whole units, the leaf's columns
+    are stored in this order instead: rank r's block is [its part of the
+    first half | its part of the second], which it reads as the whole leaf
+    of its heads or hidden units; :func:`unshard_leaf` restores JAX's
+    order. Where the units do not split (2 KV heads over 4 ranks), the
+    block is JAX's and the model gathers the leaf at use."""
+    unit = halves(cfg, name)
+    if not unit or len(spec) != len(shape):
+        return None
+    n = mesh.size(entry_axes(spec[-1]))
+    half = shape[-1] // 2
+    if n <= 1 or half % (n * unit):
+        return None
+    per = half // n
+    return torch.cat([torch.arange(r * per, (r + 1) * per) + h * half
+                      for r in range(n) for h in (0, 1)])
+
+
+def shard_leaf(cfg: ModelConfig, name: str, t: torch.Tensor, spec: Spec,
+               mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` under ``spec``, in the
+    grouped column order where :func:`grouped_columns` gives one."""
+    cols = grouped_columns(cfg, name, t.shape, spec, mesh)
+    if cols is not None:
+        t = t[..., cols.to(t.device)]
+    return local_shard(t, spec, mesh)
+
+
+def unshard_leaf(cfg: ModelConfig, name: str, block: torch.Tensor,
+                 spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf in JAX's layout from every rank's ``block`` (a
+    collective: every rank of the mesh calls it, and each gets the whole
+    leaf)."""
+    from repro_torch.parallel.collectives import all_gather
+    whole = block.detach()
+    for d, e in enumerate(spec):
+        whole = all_gather(whole, entry_axes(e), mesh, dim=d)
+    cols = grouped_columns(cfg, name, whole.shape, spec, mesh)
+    if cols is not None:
+        whole = whole[..., torch.argsort(cols).to(whole.device)]
+    return whole
+
+
 def _rows(name: str, d: ParamDef, shard) -> Optional[Tuple[int, int]]:
     """This rank's [start, stop) along axis 0 of leaf ``name`` under
     ``shard`` = (mesh, plan), or None to keep the leaf whole."""
     if shard is None:
         return None
-    mesh, plan = shard
+    mesh, plan = shard[:2]
     spec = plan[name]
     if not spec or all(e is None for e in spec):
         return None
-    if any(e is not None for e in spec[1:]):
-        raise ValueError(f"{name}: the draw splits axis 0 only, not {spec}")
     return block_range(d.shape[0], spec[0], mesh)
 
 
@@ -364,11 +450,28 @@ def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
           ) -> Iterator[Tuple[str, torch.Tensor]]:
     """Each leaf in turn, drawn in f32 from ``generator``, in f32 or with
     ``cast`` in its :func:`compute_dtype`. With ``shard`` = (mesh, plan),
-    every slice is drawn as without it, and only this rank's rows of a leaf
-    the plan splits are kept."""
+    every slice is drawn as without it, and only this rank's block of a
+    leaf the plan splits is kept: its rows of axis 0 and, for a training
+    plan (``shard`` = (mesh, plan, True)), its block of the other dims in
+    :func:`grouped_columns`' order."""
+    train = shard is not None and len(shard) > 2
     for name, d in model_defs(cfg).items():
-        keep = _rows(name, d, shard)
+        vector = train and len(d.shape) == 1      # drawn whole, then cut
+        keep = None if vector else _rows(name, d, shard)
         lo, hi = keep if keep else (0, d.shape[0])
+        rest = lambda t: t                                  # noqa: E731
+        if train:
+            mesh, plan = shard[:2]
+            cols = grouped_columns(cfg, name, d.shape, plan[name], mesh)
+            sl = (slice(None),) + block_slices(d.shape, plan[name],
+                                                mesh)[1:]
+
+            def rest(t, name=name, cols=cols, sl=sl):
+                if vector:
+                    return shard_leaf(cfg, name, t, plan[name], mesh)
+                if cols is not None:
+                    t = t[..., cols.to(t.device)]
+                return t[sl]
         if d.init in ("zeros", "ones", "ssm_a"):      # nothing drawn
             shape = (hi - lo,) + d.shape[1:]
             if d.init == "ssm_a":     # log(-A), A = -(1 .. d_state) a row
@@ -377,6 +480,7 @@ def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
                               ).expand(shape).contiguous()
             else:
                 t = torch.full(shape, float(d.init == "ones"), device=dev)
+            t = rest(t).contiguous()
             yield name, t.to(compute_dtype(cfg, name, t)) if cast else t
             continue
         std = d.scale if d.init == "embed" else d.scale / math.sqrt(_fan_in(d))
@@ -386,26 +490,35 @@ def _draw(cfg: ModelConfig, generator: torch.Generator, dev: torch.device,
             part = torch.randn((min(rows, d.shape[0] - i),) + d.shape[1:],
                                generator=generator, device=dev).mul_(std)
             if rows >= d.shape[0] and not keep:     # one slice: the leaf
+                part = rest(part).contiguous()
                 out = part.to(compute_dtype(cfg, name, part)) if cast else part
                 break
-            if out is None:
-                out = torch.empty((hi - lo,) + d.shape[1:], device=dev,
-                                  dtype=compute_dtype(cfg, name, part)
-                                  if cast else part.dtype)
             a, b = max(i, lo), min(i + len(part), hi)
-            if a < b:
-                out[a - lo:b - lo] = part[a - i:b - i]
+            part = rest(part[a - i:b - i]) if a < b else None
+            if out is None:
+                probe = rest(torch.empty((0,) + d.shape[1:], device=dev))
+                out = torch.empty((hi - lo,) + probe.shape[1:], device=dev,
+                                  dtype=compute_dtype(cfg, name, probe)
+                                  if cast else probe.dtype)
+            if part is not None:
+                out[a - lo:b - lo] = part
         yield name, out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+                device: DeviceLike = "cuda", *, mesh=None,
+                plan: Optional[Mapping[str, Spec]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Random f32 params with ``repro.models.params.init_one``'s scales.
 
     The values differ from ``jax.random``'s; the shapes and distributions
-    are the same. ``generator`` must live on ``device``.
+    are the same. ``generator`` must live on ``device``. With ``mesh`` and
+    a training ``plan`` (:func:`train_plan`), every leaf is drawn as
+    without them and this rank keeps its block (:func:`shard_leaf`), so
+    the ranks' blocks make up the same params.
     """
-    return dict(_draw(cfg, generator, resolve_device(device)))
+    shard = None if mesh is None else (mesh, plan, True)
+    return dict(_draw(cfg, generator, resolve_device(device), shard=shard))
 
 
 # leaves that keep f32 in the compute copy, since the reference reads each
@@ -550,11 +663,27 @@ def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in sorted(tree.items())}
 
 
-def state_to_jax(cfg: ModelConfig, state: Mapping) -> Dict[str, Any]:
+def _state_map(state: Mapping, fn) -> Dict[str, Any]:
+    """``fn(name, leaf)`` over params, m and v; ``step`` as it is."""
+    opt = state["opt"]
+    return {"params": {k: fn(k, v) for k, v in state["params"].items()},
+            "opt": {"m": {k: fn(k, v) for k, v in opt["m"].items()},
+                    "v": {k: fn(k, v) for k, v in opt["v"].items()},
+                    "step": opt["step"]}}
+
+
+def state_to_jax(cfg: ModelConfig, state: Mapping, *, mesh=None
+                 ) -> Dict[str, Any]:
     """The port's train state ``{"params", "opt": {"m", "v", "step"}}`` in
     JAX's layout, as a JAX train step returns it: params, m and v through
     :func:`params_to_jax`, ``step`` the int32 scalar as it is, every dict's
-    keys sorted."""
+    keys sorted. With ``mesh``, ``state`` holds this rank's blocks under
+    :func:`train_plan`: every leaf is gathered whole in JAX's column order
+    first (a collective every rank calls; each gets the whole state)."""
+    if mesh is not None:
+        plan = train_plan(cfg, mesh)
+        state = _state_map(state, lambda k, v: unshard_leaf(
+            cfg, k, v, plan[k], mesh))
     opt = state["opt"]
     return {"opt": {"m": params_to_jax(cfg, opt["m"]),
                     "step": opt["step"],
@@ -563,14 +692,21 @@ def state_to_jax(cfg: ModelConfig, state: Mapping) -> Dict[str, Any]:
 
 
 def state_from_jax(cfg: ModelConfig, tree: Mapping,
-                   device: DeviceLike = "cuda") -> Dict[str, Any]:
+                   device: DeviceLike = "cuda", *, mesh=None
+                   ) -> Dict[str, Any]:
     """A train state in JAX's layout (numpy or torch leaves, e.g. a restored
     checkpoint) -> the port's train state on ``device``. Every leaf is a
     tensor of its own (no view into a stacked leaf); dtypes are kept and
-    ``step`` is an int32 scalar."""
+    ``step`` is an int32 scalar. With ``mesh``, each leaf is this rank's
+    block under :func:`train_plan` (the counterpart of the reference's
+    ``Checkpointer.restore(shardings=...)``)."""
     dev = resolve_device(device)
+    plan = None if mesh is None else train_plan(cfg, mesh)
 
     def own(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if plan is not None:
+            flat = {k: shard_leaf(cfg, k, v, plan[k], mesh)
+                    for k, v in flat.items()}
         return {k: v.to(dev, copy=True) for k, v in flat.items()}
 
     opt = tree["opt"]

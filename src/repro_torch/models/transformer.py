@@ -25,17 +25,29 @@ activations are recomputed in the backward, so every forward kernel runs
 twice per step. The kernels' backward passes come from their autograd
 functions (``kernels/flash_attention.py``, ``kernels/rmsnorm.py``).
 
-Over a mesh of ranks (``launch/mesh.py``), ``prefill`` and ``decode_step``
-take the reference's :class:`RunFlags` and the mesh: with ``distributed``
-every MoE FFN runs ``moe_ep`` with its experts split over ``ep_axis``, and
-with ``decode_seq_axes`` every attention and MLA decode attends over this
-rank's slice of the cache along the sequence. Everything else runs whole on
-every rank.
+Over a mesh of ranks (``launch/mesh.py``), ``prefill``, ``decode_step``
+and ``train_logits`` take the reference's :class:`RunFlags` and the mesh:
+with ``distributed`` every MoE FFN runs ``moe_ep`` with its experts split
+over ``ep_axis``, and with ``decode_seq_axes`` every attention and MLA
+decode attends over this rank's slice of the cache along the sequence.
+Everything else runs whole on every rank.
+
+To train on a mesh, the model holds this rank's blocks under a training
+plan (``params.train_plan``, ``Transformer(..., plan=)``): FSDP over the
+batch axes and tensor parallelism over ``model``, GSPMD's partitioning of
+the reference's step written out. Each block casts its FSDP leaves to
+their compute dtype and gathers them before its forward, inside the remat
+region, so the backward gathers them again and the gathered copy is not
+kept; the gathers' backward sums the gradients over the ranks and leaves
+each its block, in f32. On a live ``model`` axis the embedding, the
+unembedding, attention, the dense FFN and the MoE run tensor-parallel
+(``models/layers.py``, ``models/attention.py``, ``moe_ep``); the other
+mixers have no tensor parallelism yet and raise (ROADMAP item 15c).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, FrozenSet, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,7 +62,10 @@ from repro_torch.models import mamba as MB
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as XL
-from repro_torch.models.params import check_spec, compute_dtype, model_defs
+from repro_torch.models.params import (TP_AXIS, check_spec, compute_dtype,
+                                       model_defs, tp_split)
+from repro_torch.parallel.collectives import all_gather
+from repro_torch.parallel.sharding import entry_axes
 
 Cache = Dict[str, torch.Tensor]
 Aux = Dict[str, torch.Tensor]
@@ -143,48 +158,115 @@ def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
         if k.startswith(prefix + ".") and "." not in k[n:]})
 
 
+def fsdp_gather(cfg: ModelConfig, pd: Mapping[str, torch.Tensor],
+                prefix: str, plan: Mapping, mesh) -> Dict[str, torch.Tensor]:
+    """The leaves ``<prefix>.<name>`` of ``pd`` as a rank computes with them
+    under a training ``plan``: each one split over axes other than
+    ``model`` cast to its compute dtype, then gathered over them (the
+    gather's backward sums the gradient over those ranks in f32 and keeps
+    this rank's block); the rest as held."""
+    out = {}
+    for k, v in pd.items():
+        name = f"{prefix}.{k}"
+        for d, e in enumerate(plan[name]):
+            axes = mesh.live(a for a in entry_axes(e) if a != TP_AXIS)
+            if not axes:
+                continue
+            if TP_AXIS in mesh.live(entry_axes(e)):
+                raise NotImplementedError(f"{name}: dim {d} split over "
+                                          f"{e}")
+            v = all_gather(v, axes, mesh, dim=d,
+                           dtype=compute_dtype(cfg, name, v))
+        out[k] = v
+    return out
+
+
+def check_tp(cfg: ModelConfig, mesh) -> None:
+    """Raises where ``cfg`` cannot train with its heads split over a live
+    ``model`` axis of ``mesh``: MLA, Mamba and the xLSTM mixers have no
+    tensor parallelism yet."""
+    if mesh is None or not mesh.live((TP_AXIS,)):
+        return
+    bad = sorted({s.mixer for s in cfg.layer_specs} - {"attn"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: the {', '.join(bad)} mixer(s) have no tensor "
+            f"parallelism over '{TP_AXIS}' yet (ROADMAP Queue 1 item 15c); "
+            f"train on a mesh whose '{TP_AXIS}' axis has size 1")
+
+
+SUBS = ("mixer_norm", "mixer", "ffn_norm", "ffn")
+
+
 class Block(nn.Module):
     """One layer: mixer norm, the mixer (``spec.mixer``), then a dense or
     MoE FFN on its own norm after the residual add, or (``spec.parallel``)
-    on the mixer norm's output beside the mixer, or none."""
+    on the mixer norm's output beside the mixer, or none. Under a training
+    ``plan`` its parameters are this rank's blocks (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec,
                  params: Mapping[str, torch.Tensor], prefix: str,
-                 device: torch.device, trainable: bool = False):
+                 device: torch.device, trainable: bool = False,
+                 plan: Optional[Mapping] = None):
         super().__init__()
         check_spec(spec)
-        self.cfg, self.spec = cfg, spec
-        for sub in ("mixer_norm", "mixer", "ffn_norm", "ffn"):
+        self.cfg, self.spec, self.prefix, self.plan = cfg, spec, prefix, plan
+        for sub in SUBS:
             pd = _param_dict(params, f"{prefix}.{sub}", device, trainable)
             if len(pd):
                 setattr(self, sub, pd)
 
-    def _apply_ffn(self, h: torch.Tensor, flags: RunFlags, mesh
+    def _use(self, mesh) -> Dict[str, Mapping]:
+        """Each part's parameters as the layer computes with them."""
+        subs = {s: getattr(self, s) for s in SUBS if hasattr(self, s)}
+        if self.plan is None:
+            return subs
+        return {s: fsdp_gather(self.cfg, pd, f"{self.prefix}.{s}",
+                               self.plan, mesh) for s, pd in subs.items()}
+
+    def _tp(self, mesh) -> bool:
+        return self.plan is not None and bool(mesh.live((TP_AXIS,)))
+
+    def _tp_split(self, sub: str, mesh) -> FrozenSet[str]:
+        """The leaves of part ``sub`` its plan splits over a live
+        ``model`` axis (``params.tp_split``)."""
+        if not self._tp(mesh):
+            return frozenset()
+        return tp_split(self.plan, f"{self.prefix}.{sub}",
+                        getattr(self, sub), mesh)
+
+    def _apply_ffn(self, p: Mapping, h: torch.Tensor, flags: RunFlags, mesh
                    ) -> Tuple[torch.Tensor, Optional[Aux]]:
         if self.spec.ffn == "moe":
+            # blocks of a training plan go through moe_ep, which takes them
             return MOE.moe_apply(
-                self.cfg, self.ffn, h, distributed=flags.distributed,
+                self.cfg, p["ffn"], h,
+                distributed=flags.distributed or self.plan is not None,
                 ep_axis=flags.ep_axis, token_axes=flags.token_axes,
-                combine=flags.moe_combine, mesh=mesh)
-        return L.apply_ffn(self.cfg, self.ffn, h), None
+                combine=flags.moe_combine, mesh=mesh,
+                tp_split=self._tp_split("ffn", mesh))
+        if self._tp(mesh):
+            return L.tp_apply_ffn(self.cfg, p["ffn"], h, mesh), None
+        return L.apply_ffn(self.cfg, p["ffn"], h), None
 
-    def _ffn(self, x: torch.Tensor, h: torch.Tensor, y_mix: torch.Tensor,
-             flags: RunFlags, mesh) -> Tuple[torch.Tensor, Optional[Aux]]:
+    def _ffn(self, p: Mapping, x: torch.Tensor, h: torch.Tensor,
+             y_mix: torch.Tensor, flags: RunFlags, mesh
+             ) -> Tuple[torch.Tensor, Optional[Aux]]:
         """The residual adds and the FFN after the mixer, whose input was
         ``h`` and output ``y_mix``. Returns (x, the MoE aux or None)."""
         cfg = self.cfg
         if self.spec.ffn == "none":
             return x + y_mix, None
         if self.spec.parallel:
-            y_ffn, aux = self._apply_ffn(h, flags, mesh)
+            y_ffn, aux = self._apply_ffn(p, h, flags, mesh)
             return x + y_mix + y_ffn, aux
         if cfg.norm == "rmsnorm":
-            h, x = rmsnorm_residual(x, y_mix, self.ffn_norm["scale"],
+            h, x = rmsnorm_residual(x, y_mix, p["ffn_norm"]["scale"],
                                     cfg.norm_eps)
         else:
             x = x + y_mix
-            h = L.apply_norm(cfg, self.ffn_norm, x)
-        y_ffn, aux = self._apply_ffn(h, flags, mesh)
+            h = L.apply_norm(cfg, p["ffn_norm"], x)
+        y_ffn, aux = self._apply_ffn(p, h, flags, mesh)
         return x + y_ffn, aux
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
@@ -193,11 +275,21 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[Cache], Optional[Aux]]:
         """One layer over a whole sequence. Returns (x, cache or None, the
         MoE aux or None)."""
-        h = L.apply_norm(self.cfg, self.mixer_norm, x)
-        y_mix, cache = MIXERS[self.spec.mixer][0](
-            self.cfg, self.mixer, h, positions, lengths=lengths,
-            want_cache=want_cache)
-        x, aux = self._ffn(x, h, y_mix, flags, mesh)
+        p = self._use(mesh)
+        h = L.apply_norm(self.cfg, p["mixer_norm"], x)
+        if self._tp(mesh):
+            check_tp(self.cfg, mesh)
+            if want_cache:
+                raise NotImplementedError("a training plan keeps no cache")
+            y_mix = A.tp_self_attention(
+                self.cfg, p["mixer"], h, positions, lengths=lengths,
+                mesh=mesh, tp_split=self._tp_split("mixer", mesh))
+            cache = None
+        else:
+            y_mix, cache = MIXERS[self.spec.mixer][0](
+                self.cfg, p["mixer"], h, positions, lengths=lengths,
+                want_cache=want_cache)
+        x, aux = self._ffn(p, x, h, y_mix, flags, mesh)
         return x, cache, aux
 
     def decode(self, x: torch.Tensor, cache: Cache, lengths: torch.Tensor,
@@ -206,7 +298,10 @@ class Block(nn.Module):
         """One layer, one decode token. Updates ``cache`` in place; an
         attention or MLA cache is this rank's slice of the sequence when
         ``flags.decode_seq_axes`` split it."""
-        h = L.apply_norm(self.cfg, self.mixer_norm, x)
+        if self.plan is not None:
+            raise NotImplementedError("a training plan does not decode")
+        p = self._use(mesh)
+        h = L.apply_norm(self.cfg, p["mixer_norm"], x)
         decode = MIXERS[self.spec.mixer][1]
         kw = {}
         if self.spec.mixer in ("attn", "mla"):
@@ -214,8 +309,8 @@ class Block(nn.Module):
                       batch_axes=flags.token_axes, mesh=mesh)
         if self.spec.mixer == "mla":
             kw["absorbed"] = flags.mla_absorbed
-        y_mix, cache = decode(self.cfg, self.mixer, h, cache, lengths, **kw)
-        return self._ffn(x, h, y_mix, flags, mesh)[0], cache
+        y_mix, cache = decode(self.cfg, p["mixer"], h, cache, lengths, **kw)
+        return self._ffn(p, x, h, y_mix, flags, mesh)[0], cache
 
 
 class Transformer(nn.Module):
@@ -225,7 +320,8 @@ class Transformer(nn.Module):
     without)."""
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor],
-                 *, device: DeviceLike = "cuda", trainable: bool = False):
+                 *, device: DeviceLike = "cuda", trainable: bool = False,
+                 plan: Optional[Mapping] = None):
         super().__init__()
         dev = resolve_device(device)
         expected = set(model_defs(cfg))
@@ -234,12 +330,19 @@ class Transformer(nn.Module):
                 f"params do not match {cfg.name}: missing "
                 f"{sorted(expected - set(params))}, unexpected "
                 f"{sorted(set(params) - expected)}")
-        self.cfg = cfg
+        self.cfg, self.plan = cfg, plan
         self.embed = _param_dict(params, "embed", dev, trainable)
         self.out_norm = _param_dict(params, "out_norm", dev, trainable)
         self.layers = nn.ModuleList(
-            Block(cfg, spec, params, f"layers.{i}", dev, trainable)
+            Block(cfg, spec, params, f"layers.{i}", dev, trainable, plan)
             for i, spec in enumerate(cfg.layer_specs))
+
+    def tp_mesh(self, mesh):
+        """``mesh`` when this model's blocks split the vocab and heads over
+        its live ``model`` axis, else None."""
+        if self.plan is None or mesh is None or not mesh.live((TP_AXIS,)):
+            return None
+        return mesh
 
     def forward(self, batch: Mapping[str, torch.Tensor], *,
                 lengths: Optional[torch.Tensor] = None,
@@ -255,7 +358,10 @@ class Transformer(nn.Module):
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         cfg = self.cfg
         extra = batch.get("vision_embeds", batch.get("frame_embeds"))
-        x = L.embed_tokens(cfg, self.embed, batch.get("tokens"), extra)
+        embed = (self.embed if self.plan is None else
+                 fsdp_gather(cfg, self.embed, "embed", self.plan, mesh))
+        x = L.embed_tokens(cfg, embed, batch.get("tokens"), extra,
+                           mesh=self.tp_mesh(mesh))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         remat = remat == "full" and torch.is_grad_enabled() and not want_cache
         caches: List[Optional[Cache]] = []
@@ -263,7 +369,8 @@ class Transformer(nn.Module):
         for block in self.layers:
             if remat:
                 x, a = checkpoint(lambda x, block=block: block(
-                    x, positions, lengths, False)[::2], x, use_reentrant=False)
+                    x, positions, lengths, False, flags, mesh)[::2], x,
+                    use_reentrant=False)
                 c = None
             else:
                 x, c, a = block(x, positions, lengths, want_cache, flags,
@@ -302,13 +409,16 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def train_logits(model: Transformer, batch: Mapping[str, torch.Tensor], *,
-                 remat: str = "full") -> Tuple[torch.Tensor, Optional[Aux]]:
+                 remat: str = "full", flags: RunFlags = RunFlags(),
+                 mesh=None) -> Tuple[torch.Tensor, Optional[Aux]]:
     """f32 logits (B, S, V) of a full-sequence forward and the aux losses
     under ``AUX_KEYS`` (None without a MoE layer); differentiable when the
-    model is trainable.
-    ``remat`` as JAX's ``RunFlags.remat``."""
-    x, _, aux = model(batch, remat=remat)
-    return L.unembed(model.cfg, model.embed, x), aux
+    model is trainable. ``remat`` as JAX's ``RunFlags.remat``; ``flags``
+    and ``mesh`` reach every block, under remat too. Under a training
+    plan on a live ``model`` axis the logits are this rank's vocab
+    columns (B, S, V / n)."""
+    x, _, aux = model(batch, remat=remat, flags=flags, mesh=mesh)
+    return L.unembed(model.cfg, model.embed, x, mesh=model.tp_mesh(mesh)), aux
 
 
 def prefill(model: Transformer, batch: Mapping[str, torch.Tensor],

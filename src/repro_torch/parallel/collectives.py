@@ -1,6 +1,7 @@
 """Collectives over named mesh axes: the port's counterparts of ``psum``,
-``pmax``, ``all_to_all(tiled=True)`` and ``all_gather(tiled=True)`` inside
-a ``shard_map`` (``jax.lax.axis_index`` is ``Mesh.axis_index``).
+``pmax``, ``psum_scatter(tiled=True)``, ``all_to_all(tiled=True)`` and
+``all_gather(tiled=True)`` inside a ``shard_map`` (``jax.lax.axis_index``
+is ``Mesh.axis_index``), each with its gradient.
 
 Each runs in the mesh's process group over its axes
 (``launch/mesh.py``); axes of size 1 are dropped, and over none the
@@ -11,14 +12,27 @@ refuses two ranks on one device), and its documented support for CUDA
 tensors lists broadcast and all_reduce only, so this module stages by
 design, not after a failure. Under
 ``nccl`` nothing is staged. Under gloo a reduction is one ``all_to_all``
-and a local sum (``_reduce``).
+and a local sum (``_reduce``), a reduce-scatter one ``all_to_all`` of the
+blocks and a sum of what came back, in the ranks' order.
 
-``STATS`` counts what the module ran: ``collectives``, the ``bytes``
-each rank sent, and the ``staged_bytes`` copied to the host and back.
+Gradients follow JAX's typing of values over an axis as the same on every
+rank (invariant) or each rank's own (varying), Megatron's conjugate pair
+for tensor parallelism: :func:`psum` takes varying values to an invariant
+sum and its backward is the identity; :func:`pvary` is the identity from
+an invariant value into a computation that varies over the axes, and its
+backward is a psum; :func:`all_gather` and :func:`psum_scatter` are each
+other's transpose, as :func:`all_to_all` is its own; and
+``all_gather(..., invariant=True)`` gathers a result used alike on every
+rank, so its backward takes this rank's block (``all_gather_invariant``).
+:func:`pmax` carries no gradient (its one use is a shift that cancels).
+
+``STATS`` counts what the module ran, forward and backward: ``collectives``,
+the ``bytes`` each rank sent, and the ``staged_bytes`` copied to the host
+and back.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -77,7 +91,7 @@ def _reduce(t: torch.Tensor, axes, mesh, op) -> torch.Tensor:
         return t
     if mesh.backend == "gloo":
         n = mesh.size(axes)
-        got = all_to_all(t.reshape(1, -1).expand(n, -1), axes, mesh)
+        got = _all_to_all(t.reshape(1, -1).expand(n, -1), axes, mesh)
         red = got.sum(0) if op == dist.ReduceOp.SUM else got.amax(0)
         return red.reshape(t.shape)
 
@@ -87,16 +101,6 @@ def _reduce(t: torch.Tensor, axes, mesh, op) -> torch.Tensor:
     return _exchange(mesh, t, t.numel(), run).reshape(t.shape)
 
 
-def psum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """The sum of ``t`` over the ranks along ``axes``, on every one."""
-    return _reduce(t, axes, mesh, dist.ReduceOp.SUM)
-
-
-def pmax(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """The elementwise max of ``t`` over the ranks along ``axes``."""
-    return _reduce(t, axes, mesh, dist.ReduceOp.MAX)
-
-
 def _order(mesh, axes) -> list:
     """Each group rank's position along ``axes`` (in the order given):
     the identity unless the axes are listed out of the mesh's order."""
@@ -104,10 +108,7 @@ def _order(mesh, axes) -> list:
     return [mesh.axis_index(axes, mesh.coords_of(r)) for r in members]
 
 
-def all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """``jax.lax.all_to_all(t, axes, 0, 0, tiled=True)``: dim 0 is cut into
-    n blocks, block j goes to the rank at position j along ``axes``, and the
-    result stacks the blocks received, in the senders' positions."""
+def _all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     axes = mesh.live(_axes(axes))
     if not axes:
         return t
@@ -129,9 +130,7 @@ def all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     return out.reshape(t.shape)
 
 
-def all_gather(t: torch.Tensor, axes, mesh) -> torch.Tensor:
-    """``jax.lax.all_gather(t, axes, axis=0, tiled=True)``: every rank's
-    ``t`` stacked along dim 0 in their positions along ``axes``."""
+def _all_gather(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     axes = mesh.live(_axes(axes))
     if not axes:
         return t
@@ -146,3 +145,165 @@ def all_gather(t: torch.Tensor, axes, mesh) -> torch.Tensor:
         out = out[torch.argsort(torch.tensor(order))]
     return out.reshape(n * t.shape[0], *t.shape[1:])
 
+
+def _psum_scatter(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """Block i (of n along dim 0) of the sum over ``axes`` lands on the rank
+    at position i. Under gloo, one ``all_to_all`` of the blocks and a sum
+    of the n received, in the senders' positions."""
+    axes = mesh.live(_axes(axes))
+    if not axes:
+        return t
+    n = mesh.size(axes)
+    if t.shape[0] % n:
+        raise ValueError(f"psum_scatter over {axes} ({n} ranks) of dim "
+                         f"{t.shape[0]}")
+    shape = (t.shape[0] // n,) + tuple(t.shape[1:])
+    if mesh.backend == "gloo":
+        return _all_to_all(t, axes, mesh).reshape(n, *shape).sum(0)
+    order = _order(mesh, axes)
+    blocks = t.reshape(n, -1)
+    if order != sorted(order):
+        blocks = blocks[order]
+
+    def run(buf, out):
+        dist.reduce_scatter_tensor(out, buf.reshape(-1),
+                                   group=mesh.group(axes)[0])
+    return _exchange(mesh, blocks, blocks.shape[1], run).reshape(shape)
+
+
+def _on_dim(fn, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` (a collective along dim 0) along ``dim``."""
+    if dim % t.dim() == 0:
+        return fn(t)
+    return fn(t.movedim(dim, 0).contiguous()).movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable collectives
+# ---------------------------------------------------------------------------
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        return _reduce(t, axes, mesh, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.axes, ctx.mesh, dist.ReduceOp.SUM), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return _all_to_all(t, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.axes, ctx.mesh), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh, dim, dtype, invariant):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        ctx.in_dtype, ctx.invariant = t.dtype, invariant
+        ctx.rows = t.shape[dim]
+        src = t if dtype is None else t.to(dtype)
+        return _on_dim(lambda u: _all_gather(u, axes, mesh), src, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(ctx.in_dtype)
+        if ctx.invariant:
+            i = ctx.mesh.axis_index(ctx.mesh.live(_axes(ctx.axes)))
+            out = g.narrow(ctx.dim, i * ctx.rows, ctx.rows)
+        else:
+            out = _on_dim(lambda u: _psum_scatter(u, ctx.axes, ctx.mesh),
+                          g, ctx.dim)
+        return out, None, None, None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return _on_dim(lambda u: _psum_scatter(u, axes, mesh), t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _on_dim(lambda u: _all_gather(u, ctx.axes, ctx.mesh),
+                       g, ctx.dim), None, None, None
+
+
+def psum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks along ``axes``, on every one. The
+    sum is the same on every rank and used alike there, so its cotangent
+    is whole on each and the backward is the identity (Megatron's g; the
+    transpose of :func:`pvary`)."""
+    if not mesh.live(_axes(axes)):
+        return t
+    return _PSum.apply(t, axes, mesh)
+
+
+def pvary(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``t``, the same on every rank along ``axes``, handed to a
+    computation that differs there (a rank's heads, hidden units, vocab
+    rows or tokens): the identity, whose backward sums the ranks'
+    cotangents (Megatron's f; JAX's ``pvary``)."""
+    if not mesh.live(_axes(axes)):
+        return t
+    return _PVary.apply(t, axes, mesh)
+
+
+def pmax(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The elementwise max of ``t`` over the ranks along ``axes``; no
+    gradient flows through it."""
+    return _reduce(t.detach(), axes, mesh, dist.ReduceOp.MAX)
+
+
+def all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """``jax.lax.all_to_all(t, axes, 0, 0, tiled=True)``: dim 0 is cut into
+    n blocks, block j goes to the rank at position j along ``axes``, and the
+    result stacks the blocks received, in the senders' positions. Its own
+    transpose."""
+    if not mesh.live(_axes(axes)):
+        return t
+    return _AllToAll.apply(t, axes, mesh)
+
+
+def all_gather(t: torch.Tensor, axes, mesh, *, dim: int = 0,
+               dtype: Optional[torch.dtype] = None,
+               invariant: bool = False) -> torch.Tensor:
+    """``jax.lax.all_gather(t, axes, axis=dim, tiled=True)``: every rank's
+    ``t`` concatenated along ``dim`` in their positions along ``axes``.
+    With ``dtype``, each block is cast before it is sent (half the bytes
+    for bf16; a cast is elementwise, so the result equals gathering and
+    then casting). The backward is the transpose, :func:`psum_scatter`,
+    in ``t``'s own dtype; with ``invariant`` (the result is used alike on
+    every rank) it takes this rank's block instead."""
+    if not mesh.live(_axes(axes)):
+        return t if dtype is None else t.to(dtype)
+    return _AllGather.apply(t, axes, mesh, dim, dtype, invariant)
+
+
+def psum_scatter(t: torch.Tensor, axes, mesh, *, dim: int = 0
+                 ) -> torch.Tensor:
+    """``jax.lax.psum_scatter(t, axes, scatter_dimension=dim,
+    tiled=True)``: the sum over the ranks along ``axes``, cut into n blocks
+    along ``dim``, block i on the rank at position i. The transpose of
+    :func:`all_gather`."""
+    if not mesh.live(_axes(axes)):
+        return t
+    return _PSumScatter.apply(t, axes, mesh, dim)

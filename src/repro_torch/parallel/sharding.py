@@ -14,7 +14,8 @@ d_inner over "model".
 
 ``local_shard`` gives this rank's block of a whole tensor under a spec (what
 ``jax.device_put`` with a ``NamedSharding`` leaves on one device);
-``gather_shards`` puts every rank's block back together (tests).
+``gather_shards`` puts every rank's block back together (tests);
+``batch_rows`` gives a rank its rows of a global training batch.
 """
 from __future__ import annotations
 
@@ -80,10 +81,35 @@ def train_batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
-def _entry_axes(entry: Entry) -> Tuple[str, ...]:
+def batch_rows(t: torch.Tensor, mesh, batch_axes: Sequence[str],
+               n_microbatches: int = 1) -> torch.Tensor:
+    """This rank's rows of a global batch leaf ``t`` split over
+    ``batch_axes`` (replicated over the other axes), in the reference's
+    order: the global batch is cut into ``n_microbatches`` first, then each
+    microbatch over the batch axes. The rank's rows are its block of each
+    microbatch, one after the other, so cutting them into
+    ``n_microbatches`` again gives its block of each; a rank's block of the
+    whole batch would group other rows into each microbatch, whose loss is
+    a mean over its own tokens."""
+    m = n_microbatches
+    if t.shape[0] % m:
+        raise ValueError(f"batch of {t.shape[0]} rows does not split into "
+                         f"{m} microbatches")
+    micro = t.reshape(m, t.shape[0] // m, *t.shape[1:])
+    mine = local_shard(micro, (None, _lead(mesh.live(batch_axes))), mesh)
+    return mine.reshape(-1, *t.shape[1:])
+
+
+def entry_axes(entry: Entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry splits its dimension over."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec splits its tensor over, in its order."""
+    return tuple(a for e in spec for a in entry_axes(e))
 
 
 def block_range(dim: int, entry: Entry, mesh,
@@ -91,7 +117,7 @@ def block_range(dim: int, entry: Entry, mesh,
                 ) -> Tuple[int, int]:
     """[start, stop) of this rank's (or ``coords``') block of a dimension
     of ``dim`` under one spec entry."""
-    axes = _entry_axes(entry)
+    axes = entry_axes(entry)
     n = mesh.size(axes)
     if dim % n:
         raise ValueError(f"dimension {dim} does not split over {axes} "
@@ -100,7 +126,9 @@ def block_range(dim: int, entry: Entry, mesh,
     return i * (dim // n), (i + 1) * (dim // n)
 
 
-def _slices(shape, spec: Spec, mesh, coords=None) -> tuple:
+def block_slices(shape, spec: Spec, mesh, coords=None) -> tuple:
+    """This rank's (or ``coords``') block of a tensor of ``shape`` under
+    ``spec``, as one slice a dimension."""
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(slice(*block_range(d, e, mesh, coords))
                  for d, e in zip(shape, spec))
@@ -109,10 +137,10 @@ def _slices(shape, spec: Spec, mesh, coords=None) -> tuple:
 def local_shard(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec``: a tensor of its own where
     a dimension is split, ``t`` itself where none is."""
-    if not any(_entry_axes(e) and mesh.size(_entry_axes(e)) > 1
+    if not any(entry_axes(e) and mesh.size(entry_axes(e)) > 1
                for e in spec):
         return t
-    return t[_slices(t.shape, spec, mesh)].clone()
+    return t[block_slices(t.shape, spec, mesh)].clone()
 
 
 def gather_shards(blocks: List[torch.Tensor], spec: Spec, mesh
@@ -120,12 +148,12 @@ def gather_shards(blocks: List[torch.Tensor], spec: Spec, mesh
     """The whole tensor from every rank's block (``blocks[r]`` is global
     rank r's), for tests: replicated blocks must agree."""
     spec = tuple(spec) + (None,) * (blocks[0].dim() - len(spec))
-    shape = [b * mesh.size(_entry_axes(e))
+    shape = [b * mesh.size(entry_axes(e))
              for b, e in zip(blocks[0].shape, spec)]
     out = torch.empty(shape, dtype=blocks[0].dtype)
     seen = set()
     for r, b in enumerate(blocks):
-        sl = _slices(shape, spec, mesh, mesh.coords_of(r))
+        sl = block_slices(shape, spec, mesh, mesh.coords_of(r))
         key = tuple((s.start, s.stop) for s in sl)
         if key in seen and not torch.equal(out[sl], b.cpu()):
             raise ValueError(f"rank {r}'s block differs from a replica")

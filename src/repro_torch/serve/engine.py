@@ -71,7 +71,7 @@ class ServeEngine:
                 s.mixer not in ("attn", "mla") for s in cfg.layer_specs):
             raise NotImplementedError(
                 "a recurrent layer's state splits d_inner over 'model', "
-                "which needs tensor parallelism (ROADMAP Queue 1 item 15b)")
+                "which needs tensor parallelism (ROADMAP Queue 1 item 15c)")
         self.device = resolve_device(device)
         self.flags, self.mesh = flags, mesh
         self.cfg = cfg

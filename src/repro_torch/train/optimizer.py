@@ -6,14 +6,22 @@ Parameters, grads and moments are dicts of tensors keyed alike. Where JAX
 returns new trees, :func:`adamw_update` writes the new parameters and
 moments into the given tensors, under ``torch.no_grad()``, and returns the
 same dicts: one copy of the optimizer state, not two.
+
+On a mesh the dicts hold this rank's blocks (``params.train_plan``): the
+update stays elementwise on them, and the global norms add each leaf's
+sum of squares over exactly the axes its spec splits, so a leaf the same
+on several ranks counts once.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+
+from repro_torch.parallel.collectives import psum
+from repro_torch.parallel.sharding import spec_axes
 
 Tree = Dict[str, torch.Tensor]
 
@@ -54,20 +62,36 @@ def init_opt(params: Tree, cfg: OptConfig) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
+def global_norm(leaves: Iterable[torch.Tensor], *, mesh=None,
+                specs: Optional[Iterable] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32. With ``mesh``, the
+    leaves are this rank's blocks under ``specs`` (one a leaf): the sums of
+    the leaves split over the same axes are added over those axes, one
+    psum for each such set."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in leaves))
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for t, spec in zip(leaves, specs):
+        axes = mesh.live(spec_axes(spec))
+        sq = torch.sum(torch.square(t.float()))
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    return torch.sqrt(sum(psum(v, axes, mesh) for axes, v in groups.items()))
 
 
 @torch.no_grad()
-def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig
+def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig, *,
+                 mesh=None, plan: Optional[Mapping] = None
                  ) -> Tuple[Tree, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, IN PLACE: ``params`` and ``opt["m"]``/``opt["v"]``
     are overwritten (each rounded to its own dtype) and ``opt["step"]``
     replaced. Returns (params, opt, {"grad_norm", "lr", "param_norm"}).
-    Weight decay applies to leaves with ndim >= 2 only."""
+    Weight decay applies to leaves with ndim >= 2 only. With ``mesh``,
+    every tree holds this rank's blocks under ``plan`` ({name: spec})."""
+    specs = None if mesh is None else [plan[k] for k in params]
     step = opt["step"] + 1
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads.values() if mesh is None else
+                        [grads[k] for k in params], mesh=mesh, specs=specs)
     scale = torch.where(gnorm > cfg.clip_norm,
                         cfg.clip_norm / (gnorm + 1e-9), 1.0)
     lr = lr_at(cfg, step)
@@ -87,5 +111,6 @@ def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig
         v.copy_(v1)
     opt["step"] = step
     stats = {"grad_norm": gnorm, "lr": lr,
-             "param_norm": global_norm(params.values())}
+             "param_norm": global_norm(params.values(), mesh=mesh,
+                                       specs=specs)}
     return params, opt, stats

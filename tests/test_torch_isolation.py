@@ -37,7 +37,10 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.configs.xlstm_125m", "repro_torch.core.sim",
             "repro_torch.core.tcloud", "repro_torch.data.trace",
             "repro_torch.launch.mesh", "repro_torch.parallel.collectives",
-            "repro_torch.parallel.sharding"} <= set(mods)
+            "repro_torch.parallel.sharding", "repro_torch.models.params",
+            "repro_torch.models.transformer", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.moe",
+            "repro_torch.ckpt.checkpoint"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
