@@ -8,9 +8,9 @@ Phases, each printing one JSON line and raising on failure:
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: every kernel under src/repro_torch/kernels/csrc/ with nvcc,
    built anew so that ptxas reports on each; HGMMA (wgmma) in the SASS of
-   every bf16 flash-attention kernel (forward at D = 64, 128 and 192,
-   K1b-dq and K1b-dkdv at D = 64 and 128), no spills in the D = 192 bf16
-   forward, and 128-bit global loads and stores in every 16-byte rmsnorm
+   every bf16 flash-attention kernel (forward, K1b-dq and K1b-dkdv, each
+   at D = 64, 128 and 192), no spills in the three bf16 kernels at D =
+   192, and 128-bit global loads and stores in every 16-byte rmsnorm
    kernel;
 3. kernels: each kernel against its plain PyTorch version at the serving
    shapes of tacc-100m (k/v as strided views of one tensor, as the model
@@ -43,7 +43,11 @@ Phases, each printing one JSON line and raising on failure:
    place), with its time, the plain version's, the backward of one PyTorch
    call where there is one, and its bound; K1b's and dw's outputs must be
    bit-equal over two calls, dw also under a CUDA graph's replay; ptxas's
-   spills of the D = 64 K1b kernels (bf16 and f32) must be 0;
+   spills of the D = 64 K1b kernels (bf16 and f32) must be 0; K1b bf16 at
+   D = 192 (MLA's q/k width; SDPA's backward under the first backend that
+   takes the shape, named), timed at q and k/v (8, 128, 64, 192) and held
+   at its edges, with V's last 64 columns zero as MLA pads them, dV's
+   padded columns exact zeros;
 8. train_consistency: full-width tacc-100m, one forward and backward of
    train_logits + cross_entropy on the card through the kernels and on the
    CPU through the plain path, from the same weights and tokens;
@@ -107,8 +111,8 @@ Phases, each printing one JSON line and raising on failure:
    decode steps against the full forward, and all 12 layers against the
    CPU's plain path; phase 5's traffic served, every kernel launched as
    often as the code says (K2 only: no attention layer, no FFN); a
-   profile of one prefill and 16 decode steps; the peak under 40 GB above
-   the phase's start and the memory given back;
+   profile of 16 decode steps (a traced prefill took about 90 s); the
+   peak under 40 GB above the phase's start and the memory given back;
 14. jamba_serve: jamba-1.5-large-398b at full width cut to layers 2-4 of
    its period as prelayers (Mamba + dense, Mamba + MoE, attention +
    dense; 12,937,224,192 parameters), seed 0, bf16 weights drawn leaf by
@@ -154,13 +158,13 @@ Phases, each printing one JSON line and raising on failure:
    model 4), each a process of its own on the one card, talking over gloo
    (NCCL refuses two ranks on one device), every collective staged
    through the host. (a) In this process, the model whole: teacher-forced
-   logits of 4 rows (a prefill and 32 fed decode steps) and phase 5's
-   traffic's greedy tokens, saved to a temporary file, the memory given
-   back. (b) Each rank draws only its shard (16 of 64 experts a layer,
+   logits of 4 rows (a prefill and 32 fed decode steps) and the greedy
+   tokens of phase 5's first 4 prompts with 8 new tokens each (the mesh
+   traffic), saved to a temporary file, the memory given back. (b) Each rank draws only its shard (16 of 64 experts a layer,
    ``init_serving_params(shard=...)``) and holds 128 of the 512 cache
    positions (flags from ``decode_plan``: the batch replicated, the
    sequence over the mesh); its teacher-forced logits at capacity factor
-   8 within 0.05 (prefill) and 0.08 (decode) of (a); phase 5's traffic
+   8 within 0.05 (prefill) and 0.08 (decode) of (a); the mesh traffic
    at capacity 8 and at the config's own 1.25, every kernel launched as
    often as the code says, the ranks' tokens equal, the dropped
    assignments and the tokens parting from (a) counted; collectives,
@@ -171,15 +175,30 @@ Phases, each printing one JSON line and raising on failure:
    layers 0-1 (40 of 160 experts a rank, 128 of 512 latent positions):
    layer 0's sequence-sharded absorbed decode against the whole-cache one
    (phase 12's bars, the written shard bit-equal) and teacher-forced
-   logits against the single process at (b)'s bars;
+   logits against the single process at (b)'s bars. (e) jamba's layer 0
+   (Mamba + dense FFN) and xlstm-125m's first period (3 mLSTM, 1 sLSTM)
+   at full width, whole weights on every rank: each rank's Mamba
+   conv/ssm and mLSTM conv a quarter of d_inner (the mixers compute on
+   their block of it), the mLSTM's C, n, m and the sLSTM's state whole;
+   teacher-forced logits (8 fed steps) at (b)'s bars; each rank's state
+   shards zeroed in turn before the first decode step must move the
+   logits past the decode bar (jamba's ssm alone reported too); the mesh
+   traffic, every kernel launched as the code says, the ranks' tokens
+   equal; rank 0's decode step ms;
 18. mesh_train: training over a mesh of 4 ranks (data 2, model 2) on the
    one card over gloo, FSDP over data and tensor parallelism over model.
    (a) In this process: tacc-100m whole (phase 9's setup: global batch
    16, seq 128, lr 3e-4, remat="full") for 6 steps, and qwen2-moe-a2.7b
    at full width cut to layers 0-1 (1.83e9 parameters; its dense oracle)
-   for 3 steps of batch 8, each step's loss and grad norm, step 1's
+   for 3 steps of batch 8, and for 3 steps of batch 8 each the mixers
+   tensor-parallel since ROADMAP item 15c: deepseek-v2's layer 0 (MLA +
+   dense FFN, K1 and K1b at D = 192 on a rank's 64 heads), jamba's layer
+   0 (Mamba + dense FFN) and xlstm-125m's first period; each step's loss
+   and grad norm, step 1's
    gradients and the params after the last step (and tacc-100m's after
-   step 1) saved to a temporary directory, the memory given back. (b)
+   step 1) saved to a temporary directory, the memory given back; the
+   cases run in groups (``MESH_TRAIN_GROUPS``), each group's saved
+   states on the disk only while it runs. (b)
    Each rank draws the same state and keeps its blocks, takes its rows of
    each batch and runs the FSDP + TP step: every step's loss and grad
    norm within rel 1e-3 of (a), every leaf of step 1's gradient at cosine
@@ -191,7 +210,12 @@ Phases, each printing one JSON line and raising on failure:
    memory. (c) Faulted runs must miss those bars: one step with each
    rank's gradient block of layer 0's wq zeroed in turn (its cosine and
    the move), and each case's steps with the psum of the gradients over
-   the batch axes left out (the move). (d) The qwen2-moe cut over the
+   the batch axes left out (the move); for item 15c's cases their steps
+   with rank 0's block of MLA's w_uq zeroed, Mamba's x_proj sum over
+   model left out, or the sLSTM's recurrent rows used without their
+   gather (step 1's least gradient cosine and the move). The sLSTM's
+   input-gate bias b_i, whose exact gradient is zero, is reported apart
+   (``rounding_only``). (d) The qwen2-moe cut over the
    same mesh through moe_ep at capacity factor 8 against (a)'s dense
    oracle at (b)'s bars, no assignment dropped. K1, K1b, K2, K2b, K3 and
    K3b are also held to their plain versions and timed at a rank's local
@@ -208,8 +232,10 @@ phase 3), every forward kernel's launches in phases 13, 14 and 15 and its
 numbers at jamba's and internlm2's shapes, every kernel's launches in
 phase 16's demo and submitted spec file, each forward kernel's launches
 summed over phase 17's ranks, every kernel's launches on each rank of
-phase 18's tacc-100m run with its numbers at the local shapes there, and
-the last line
+phase 18's tacc-100m run with its numbers at the local shapes there, a
+row for each of K1b-dq and K1b-dkdv at D = 192 with its launches on
+each rank of phase 18's deepseek-v2 run and its numbers from phase 7;
+before it one line with each phase's wall seconds; and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -268,7 +294,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.params import (KEEP_F32, serving_plan, shard_leaf,
+from repro_torch.models.params import (KEEP_F32, mamba_dims, mlstm_dims,
+                                       serving_plan, shard_leaf,
                                        train_plan)
 from repro_torch.models.transformer import MIXERS, RunFlags
 from repro_torch.parallel import collectives as COLL
@@ -414,7 +441,11 @@ def sass(library: str) -> dict:
 
 WGMMA_KERNELS = [f"{k}<bf16, {d}>" for k in (
     "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")
-    for d in (64, 128)] + ["flash_fwd_wgmma<bf16, 192>"]
+    for d in (64, 128, 192)]
+# the kernels at MLA's q/k width (96 accumulator floats a thread), which
+# must not spill
+D192_KERNELS = tuple(f"{k}<bf16, 192>" for k in (
+    "flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"))
 
 
 def hgmma_counts() -> dict:
@@ -466,8 +497,9 @@ def ptxas_report(report: str) -> dict:
 
 
 def phase_build() -> dict:
-    """Returns ptxas's report by kernel name. The D = 192 bf16 forward (96
-    accumulator registers a thread) must not spill."""
+    """Returns ptxas's report by kernel name. The D = 192 bf16 kernels,
+    forward and backward (96 accumulator registers a thread), must not
+    spill."""
     t0 = time.perf_counter()
     reports = build.build_all()
     seconds = time.perf_counter() - t0
@@ -475,7 +507,7 @@ def phase_build() -> dict:
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
           "hgmma": hgmma_counts(), "ldst128": wide_access_counts()})
     flat = {k: v for rep in ptxas.values() for k, v in rep.items()}
-    require_no_spills(flat, ("flash_fwd_wgmma<bf16, 192>",), "build_spills")
+    require_no_spills(flat, D192_KERNELS, "build_spills")
     return flat
 
 
@@ -921,13 +953,34 @@ def library_bwd_ms(fn, inputs, grads_out) -> float:
     return both - fwd
 
 
+def sdpa_backend(fn, inputs, grads_out):
+    """The first SDPA backend (an ``SDPBackend``), flash first, that runs
+    ``fn``'s forward and backward on these inputs (the library call's
+    times are taken under it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                ins = [t.detach().requires_grad_(True) for t in inputs]
+                torch.autograd.grad(fn(*ins), ins, grads_out)
+            torch.cuda.synchronize()
+            return b
+        except RuntimeError:            # this backend refuses the shape
+            continue
+    raise AssertionError("no SDPA backend runs the shape")
+
+
 def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
-                   timed=False, strided=False):
+                   timed=False, strided=False, vpad=0):
     """K1b-dq and K1b-dkdv against the plain backward on the same q, k, v,
     dO and the kernel forward's o and lse; the lse against the plain
     forward's. ``strided`` (bf16): q and dO are transposed views of
     (B, H, S, D) tensors, k and v views of one fused (B, S, 2, KV, D)
-    tensor, and the backward must read all four in place."""
+    tensor, and the backward must read all four in place. ``vpad``: V's
+    last ``vpad`` columns are zeros, and so dO's (the output's padded
+    columns are cut off), as MLA pads V; dV's must come back exact
+    zeros."""
     g = torch.Generator(device="cuda").manual_seed(SEED + S + H + D)
     if strided:
         q, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
@@ -939,6 +992,11 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
                  for _ in range(2))
         k, v = (torch.randn(B, S, KV, D, generator=g, device="cuda").to(dtype)
                 for _ in range(2))
+    if vpad:
+        v = torch.cat([v[..., :D - vpad], torch.zeros_like(v[..., :vpad])],
+                      -1)
+        do = torch.cat([do[..., :D - vpad],
+                        torch.zeros_like(do[..., :vpad])], -1)
     ln = (None if lengths is None else
           torch.tensor(lengths, dtype=torch.int32, device="cuda"))
     o, lse = flash_forward(q, k, v, causal, ln, True)
@@ -955,6 +1013,10 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
             "lse_err": max_err(lse, lse_ref),
             "bit_equal_over_two_calls": all(
                 torch.equal(a, b) for a, b in zip((dq, dk, dv), again))}
+    if vpad:
+        case["v_zero_columns"] = vpad
+        case["dv_padded_columns_zero"] = bool(
+            (dv[..., D - vpad:] == 0).all())
     if strided:
         case["strides"] = {n: list(t.stride())
                            for n, t in (("q", q), ("k", k), ("dO", do))}
@@ -966,6 +1028,8 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
                                                    1.0) else ["lse"])
     if not case["bit_equal_over_two_calls"]:
         failed.append("repeat")
+    if vpad and not case["dv_padded_columns_zero"]:
+        failed.append("dv padded columns")
     for name, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         good, tol, need = grad_within_bar(a, r, rounds_p=name == "dv")
         if not (good and bool(torch.isfinite(a.float()).all())):
@@ -991,10 +1055,17 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
     plain_ms = time_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal=causal, lengths=ln), iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = library_bwd_ms(
-        lambda a, b, c: F.scaled_dot_product_attention(
-            a, b, c, is_causal=causal, enable_gqa=True),
-        (qt, kt, vt), do.transpose(1, 2))
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
+                                              enable_gqa=True)
+    backend = sdpa_backend(sdpa, (qt, kt, vt), do.transpose(1, 2))
+    from torch.nn.attention import sdpa_kernel
+
+    def sdpa_under(a, b, c):
+        with sdpa_kernel([backend]):
+            return sdpa(a, b, c)
+    lib = library_bwd_ms(sdpa_under, (qt, kt, vt), do.transpose(1, 2))
     for name, fn, nbytes_, products in (
             ("dq", lambda: flash_bwd_dq(q, k, v, o, lse, do,
                                         causal=causal, lengths=ln),
@@ -1012,7 +1083,8 @@ def flash_bwd_case(dtype, B, S, H, KV, D, *, causal=True, lengths=None,
         q, k, v, o, lse, do, causal=causal, lengths=ln)),
         plain_ms=plain_ms, library_ms=lib,
         library="backward of F.scaled_dot_product_attention(is_causal, "
-                "enable_gqa=True)", bound_ms=b_ms, bound_by=b_by,
+                "enable_gqa=True)", library_backend=backend.name,
+        bound_ms=b_ms, bound_by=b_by,
         bytes=both, flops=flops)
     return case
 
@@ -1092,16 +1164,40 @@ def rms_bwd_case(dtype, rows, residual: bool, *, D=None, offset=0,
     return case
 
 
+def flash_bwd_d192_cases() -> list:
+    """K1b bf16 at D = 192, MLA's q/k width, with V's last 64 columns zero
+    as MLA pads them from 128: timed at q and k/v (8, 128, 64, 192), 8 rows
+    of 128 tokens over deepseek-v2's 64 of 128 heads that a rank of a
+    2-way ``model`` axis holds, then at the tile edges, ragged lengths and
+    0, GQA, and non-causal."""
+    bf16 = torch.bfloat16
+    mla = get_config(MLA_ARCH)
+    H = mla.n_heads // MESH_TRAIN[0][1]
+    pad = 192 - mla.mla.v_head_dim
+    return [flash_bwd_case(bf16, 8, TRAIN_SEQ, H, H, 192, timed=True,
+                           vpad=pad),
+            flash_bwd_case(bf16, 2, 1, 4, 4, 192, lengths=[1, 0], vpad=pad),
+            flash_bwd_case(bf16, 2, 65, 4, 4, 192, lengths=[65, 30],
+                           vpad=pad),
+            flash_bwd_case(bf16, 2, 200, 4, 4, 192, lengths=[200, 0],
+                           vpad=pad),
+            flash_bwd_case(bf16, 1, 512, 2, 2, 192, vpad=pad),
+            flash_bwd_case(bf16, 2, 200, 8, 2, 192, lengths=[137, 200]),
+            flash_bwd_case(bf16, 2, 200, 4, 4, 192, causal=False,
+                           lengths=[0, 151], vpad=pad),
+            flash_bwd_case(bf16, 1, 128, 4, 4, 192, causal=False)]
+
+
 def phase_kernels_bwd(ptxas: dict) -> dict:
     """Phase 7: every backward kernel against its plain backward, and
     ptxas's registers and spills for each backward kernel; the D = 64 K1b
-    kernels (the training shape's head dim), bf16 and f32, must not
-    spill."""
+    kernels (the training shape's head dim), bf16 and f32, and the bf16
+    ones at D = 192 (MLA's), must not spill."""
     require_no_spills(ptxas, ("flash_bwd_dq_wgmma<bf16, 64>",
                               "flash_bwd_dkdv_wgmma<bf16, 64>",
                               "flash_bwd_dq_f32<float, 64>",
-                              "flash_bwd_dkdv_f32<float, 64>"),
-                      "kernels_bwd_spills")
+                              "flash_bwd_dkdv_f32<float, 64>")
+                      + D192_KERNELS[1:], "kernels_bwd_spills")
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = get_config("tacc-100m")
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1122,6 +1218,7 @@ def phase_kernels_bwd(ptxas: dict) -> dict:
         ]
     flash.append(flash_bwd_case(bf16, 2, 200, H, KV, HD, lengths=[200, 137],
                                 strided=True))
+    d192 = flash_bwd_d192_cases()
     N = TB * TS
     norms = {}
     for residual, key in ((False, "K2b"), (True, "K3b")):
@@ -1135,8 +1232,9 @@ def phase_kernels_bwd(ptxas: dict) -> dict:
                       rms_bwd_case(dt, 7, residual, offset=1),
                       rms_bwd_case(dt, 3, residual, D=8192)]
         norms[key] = cases
-    out = {"phase": "kernels_bwd", "flash": flash, **norms,
-           "ptxas": {k: v for k, v in ptxas.items() if "_bwd_" in k}}
+    out = {"phase": "kernels_bwd", "flash": flash, "flash_d192": d192,
+           **norms, "ptxas": {k: v for k, v in ptxas.items() if "_bwd_" in k},
+           "hgmma_d192": {n: hgmma_counts().get(n) for n in D192_KERNELS}}
     emit(out)
     return out
 
@@ -1226,15 +1324,21 @@ BWD_KERNELS = [
 
 def expected_train_launches(cfg, steps: int) -> dict:
     """Launches of each kernel in ``steps`` train steps, from the code:
-    every layer is an attention + dense FFN block under remat="full", so
-    its forward runs twice (forward, then recomputed in the backward) and
-    its backward once; out_norm (K2) lies outside the blocks; K2b and K3b
-    each give dx and dw in one launch, with no separate dw reduction."""
-    n = cfg.n_layers
-    per_step = {"flash_attention": 2 * n, "rmsnorm": 2 * n + 1,
-                "rmsnorm_residual": 2 * n, "flash_bwd_dq": n,
-                "flash_bwd_dkdv": n, "rmsnorm_bwd": n + 1,
-                "rmsnorm_residual_bwd": n}
+    every block runs under remat="full", so its forward runs twice
+    (forward, then recomputed in the backward) and its backward once: K1
+    and K1b in each attention or MLA layer, K2 for each mixer norm and
+    MLA's latent norms (serve_launches counts them), K3 for each FFN after
+    its mixer; out_norm (K2) lies outside the blocks; K2b and K3b each
+    give dx and dw in one launch, with no separate dw reduction."""
+    specs = cfg.layer_specs
+    attn = sum(spec.mixer in ("attn", "mla") for spec in specs)
+    norms = len(specs) + sum(1 + bool(cfg.mla.q_lora_rank) for spec in specs
+                             if spec.mixer == "mla")
+    ffn = sum(spec.ffn != "none" and not spec.parallel for spec in specs)
+    per_step = {"flash_attention": 2 * attn, "rmsnorm": 2 * norms + 1,
+                "rmsnorm_residual": 2 * ffn, "flash_bwd_dq": attn,
+                "flash_bwd_dkdv": attn, "rmsnorm_bwd": norms + 1,
+                "rmsnorm_residual_bwd": ffn}
     return {k: steps * v for k, v in per_step.items()}
 
 
@@ -1946,16 +2050,23 @@ def serve_traffic(cfg, params):
 
 
 def serve_profile(engine, served: dict, prefills: int = 4) -> dict:
-    """``prefills`` prefills and 16 decode steps of the served engine under
-    torch.profiler; idle shares against the untraced means."""
+    """``prefills`` prefills (none: no prefill window) and 16 decode steps
+    of the served engine under torch.profiler; idle shares against the
+    untraced means."""
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(1, engine.cfg.vocab_size, 136).tolist()
-               for _ in range(prefills)]
-    out = {"prefill": _trace(lambda: len([engine.add_request(p, max_new=64)
-                                          for p in prompts])),
-           "decode": _trace(lambda: len([engine.step() for _ in range(16)]))}
+               for _ in range(max(prefills, 1))]
+    out = {"decode": None}
+    if prefills:
+        out["prefill"] = _trace(lambda: len([
+            engine.add_request(p, max_new=64) for p in prompts]))
+    else:                       # the decode steps need a live request
+        engine.add_request(prompts[0], max_new=64)
+    out["decode"] = _trace(lambda: len([engine.step() for _ in range(16)]))
     for name, untraced in (("prefill", served["prefill_ms_mean"]),
                            ("decode", served["decode_step_ms_mean"])):
+        if name not in out:
+            continue
         busy = out[name]["device_busy_ms"]
         out[name]["device_idle_share"] = (
             None if busy is None else max(0.0, 1.0 - busy / untraced))
@@ -2420,12 +2531,14 @@ def attn_kernels(cfg, model, floor: float) -> dict:
 def phase_xlstm_serve() -> dict:
     """Phase 13: xlstm-125m whole, its mixers timed. Its prefill runs every
     mLSTM and sLSTM step in turn, a few dozen launches a step over 512
-    steps and 12 layers, so the profile takes one prefill."""
+    steps and 12 layers: one traced prefill took about 90 s, so the
+    profile takes the decode steps only (the prefill's idle share, 0.849,
+    is PERF.md's reading from before the cut)."""
     cfg = get_config(XLSTM_ARCH)
     return serve_phase("xlstm_serve", cfg, XLSTM_PARAMS,
                            [("mixers", mixer_times)],
                            cpu_layers=tuple(range(cfg.n_layers)),
-                           profile_prefills=1)
+                           profile_prefills=0)
 
 
 def phase_jamba_serve(floor: float) -> dict:
@@ -2859,6 +2972,34 @@ MESH_BARS = {"prefill": 0.05, "decode": 0.08}
 MESH_MLA_LAYERS = 2
 MESH_MLA_TF_LENGTHS = (480, 224)
 MESH_MLA_TF_STEPS = 8
+# the mesh engines' traffic: phase 5's first 4 prompts, 8 new tokens each
+# (all 16 with 32 new took about 90 s of host-bound decode steps at
+# qwen2-moe's two capacity factors)
+MESH_PROMPTS, MESH_NEW = 4, 8
+# the recurrent cuts served with d_inner over model (phase 17 (e)): each
+# rank's Mamba conv/ssm and mLSTM conv a quarter of d_inner
+MESH_REC_TF_STEPS = 8
+
+
+def jamba_layer0(cfg):
+    """jamba's layer 0 alone (Mamba + dense FFN), as a prelayer."""
+    return dataclasses.replace(cfg, prelayers=cfg.period[:1], n_layers=1)
+
+
+def xlstm_period(cfg):
+    """xlstm-125m's first period: 3 mLSTM and 1 sLSTM layers."""
+    return dataclasses.replace(cfg, n_layers=len(cfg.period))
+
+
+def mesh_rec_cfgs() -> list:
+    """(name, config) of phase 17 (e): jamba's layer 0 and xlstm-125m's
+    first period at full width."""
+    return [("jamba", jamba_layer0(get_config(JAMBA_ARCH))),
+            ("xlstm", xlstm_period(get_config(XLSTM_ARCH)))]
+
+
+def mesh_prompts(cfg) -> list:
+    return serve_prompts(cfg)[:MESH_PROMPTS]
 
 
 def mesh_cfgs():
@@ -2897,7 +3038,9 @@ def mesh_reference(path: str) -> dict:
     ref, out = {}, {}
     for name, cfg, lengths, steps in (
             ("moe", qcfg, MESH_TF_LENGTHS, MESH_TF_STEPS),
-            ("mla", dcfg, MESH_MLA_TF_LENGTHS, MESH_MLA_TF_STEPS)):
+            ("mla", dcfg, MESH_MLA_TF_LENGTHS, MESH_MLA_TF_STEPS),
+            *((f"rec_{n}", c, MESH_TF_LENGTHS, MESH_REC_TF_STEPS)
+              for n, c in mesh_rec_cfgs())):
         t0 = time.perf_counter()
         params = init_serving_params(
             cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -2913,15 +3056,15 @@ def mesh_reference(path: str) -> dict:
         del model, cache, lg
         out[name] = {"params": sum(t.numel() for t in params.values()),
                      "param_bytes": nbytes(*params.values())}
-        if name == "moe":
+        if name != "mla":
             engine = ServeEngine(cfg, params, max_batch=MAX_BATCH,
                                  max_seq=MAX_SEQ, seed=SEED, device="cuda")
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            results = engine.run(serve_prompts(cfg), max_new=MAX_NEW)
+            results = engine.run(mesh_prompts(cfg), max_new=MESH_NEW)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-            ref["tokens"] = [r.tokens for r in results]
+            ref[f"{name}_tokens"] = [r.tokens for r in results]
             out[name].update(
                 tokens_per_s=sum(len(r.tokens) for r in results) / wall,
                 prefill_ms_mean=1e3 * float(np.mean(
@@ -2936,14 +3079,14 @@ def mesh_reference(path: str) -> dict:
 
 
 def serve_stepwise(engine, prompts) -> tuple:
-    """``engine.run(prompts, max_new=MAX_NEW)``, admission and decode in
+    """``engine.run(prompts, max_new=MESH_NEW)``, admission and decode in
     the same order, with the collectives counted around each prefill and
     each decode step: (results, per prefill, per decode step)."""
     queue, results, pre, steps = list(prompts), [], [], []
     while queue or engine.active():
         while queue:
             COLL.reset_stats()
-            r = engine.add_request(queue[0], max_new=MAX_NEW)
+            r = engine.add_request(queue[0], max_new=MESH_NEW)
             if r is None:
                 break
             pre.append(dict(COLL.STATS))
@@ -3028,7 +3171,7 @@ def mesh_moe(mesh, ref) -> dict:
             out["fault"].append(rel_err(lg, ref["moe"][1]))
             del c
         del base, model
-    prompts = serve_prompts(cfg)
+    prompts = mesh_prompts(cfg)
     out["traffic"] = {}
     for tag, c in (("capacity_8", full), ("capacity_1.25", cfg)):
         engine = ServeEngine(c, params, max_batch=MAX_BATCH, max_seq=MAX_SEQ,
@@ -3041,12 +3184,27 @@ def mesh_moe(mesh, ref) -> dict:
         results, pre, steps = serve_stepwise(engine, prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-        tokens = [r.tokens for r in results]
-        pf, dc = engine.timings["prefill"], engine.timings["decode"]
-        n_tok = sum(len(t) for t in tokens)
-        out["traffic"][tag] = {
-            "capacity_factor": c.moe.capacity_factor,
-            "requests": len(results), "tokens": n_tok, "wall_s": wall,
+        out["traffic"][tag] = dict(
+            mesh_traffic_numbers(engine, results, pre, steps, wall, cfg,
+                                 ref["moe_tokens"]),
+            capacity_factor=c.moe.capacity_factor,
+            dropped=int(MOE.moe_ep.dropped))
+        del engine
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    return out
+
+
+def mesh_traffic_numbers(engine, results, pre, steps, wall: float, cfg,
+                         single_tokens) -> dict:
+    """One mesh engine's traffic: requests, tokens, host-clock times, the
+    kernels' launches against the code's counts, the tokens that part
+    from the single process's, and the collectives a prefill and a decode
+    step."""
+    tokens = [r.tokens for r in results]
+    pf, dc = engine.timings["prefill"], engine.timings["decode"]
+    n_tok = sum(len(t) for t in tokens)
+    return {"requests": len(results), "tokens": n_tok, "wall_s": wall,
             "tokens_per_s": n_tok / wall, "prefills": len(pf),
             "prefill_ms_mean": 1e3 * float(np.mean(pf)),
             "decode_steps": len(dc),
@@ -3054,17 +3212,12 @@ def mesh_moe(mesh, ref) -> dict:
             "decode_step_ms_p50": 1e3 * float(np.median(dc)),
             "launches": {fn.__name__: fn.launches for fn, _, _ in KERNELS},
             "expected_launches": serve_launches(cfg, len(pf), len(dc)),
-            "dropped": int(MOE.moe_ep.dropped),
             "tokens_parting_from_single": sum(
-                a != b for x, y in zip(tokens, ref["tokens"])
+                a != b for x, y in zip(tokens, single_tokens)
                 for a, b in zip(x, y)),
             "per_prefill": _mean_stats(pre),
             "per_decode_step": _mean_stats(steps),
             "tokens_list": tokens}
-        del engine
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del params
-    return out
 
 
 def mesh_mla(mesh, ref) -> dict:
@@ -3132,6 +3285,91 @@ def mesh_mla(mesh, ref) -> dict:
     return out
 
 
+def mesh_recurrent(mesh, ref) -> dict:
+    """Phase 17 (e) on one rank: jamba's layer 0 and xlstm-125m's first
+    period, whole weights (the mixers cut their d_inner block at first
+    use), each rank's Mamba conv/ssm and mLSTM conv a quarter of d_inner:
+    teacher-forced logits against the single process; for jamba each
+    rank's ssm shard zeroed in turn before the first decode step; the
+    traffic (``MESH_PROMPTS`` prompts, ``MESH_NEW`` new tokens)."""
+    out = {}
+    for name, cfg in mesh_rec_cfgs():
+        b, s = decode_plan(cfg, ShapeConfig("mesh_serve", MAX_SEQ, MAX_BATCH,
+                                            "decode"), mesh)
+        flags = RunFlags(distributed=True, token_axes=b, decode_seq_axes=s)
+        specs = cache_specs(cfg, b, s)["layers"]
+        torch.cuda.reset_peak_memory_stats()
+        params = init_serving_params(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+            shard=(mesh, serving_plan(cfg, mesh, flags.ep_axis)))
+        model = Transformer(cfg, params, device="cuda")
+        toks, lens, feed = tf_inputs(cfg, MESH_TF_LENGTHS, MESH_REC_TF_STEPS)
+        rec, key = {"params_held": sum(t.numel() for t in params.values())}, \
+            f"rec_{name}"
+        with torch.inference_mode():
+            lg, whole = prefill(model, {"tokens": toks}, lens, flags=flags,
+                                mesh=mesh)
+            errs = [rel_err(lg, ref[key][0])]
+            cache = _shard_cache(whole, specs, mesh)
+            del whole
+            rec["state_shards"] = {
+                f"{i}.{k}": list(t.shape)
+                for i, c in enumerate(cache["layers"]) for k, t in c.items()
+                if "model" in specs[i][k]}
+            base = {"layers": [{k: t.clone() for k, t in c.items()}
+                               for c in cache["layers"]],
+                    "lengths": cache["lengths"]}
+            for i, f in enumerate(feed):
+                lg, cache = decode_step(model, cache, f, flags=flags,
+                                        mesh=mesh)
+                errs.append(rel_err(lg, ref[key][i + 1]))
+            rec["tf"] = {"rows": len(MESH_TF_LENGTHS),
+                         "steps": MESH_REC_TF_STEPS,
+                         "prefill_vs_single": errs[0],
+                         "decode_vs_single": errs[1:]}
+            del cache
+            # each rank's state shards zeroed in turn: every d_inner block
+            # (``fault``), and Mamba's ssm alone (``fault_ssm``)
+            rec["fault"], rec["fault_ssm"] = [], []
+            split = [[k for k in spec if "model" in spec[k]]
+                     for spec in specs]
+            for tag, names in (("fault", None), ("fault_ssm", ("ssm",))):
+                if names and not any("ssm" in keys for keys in split):
+                    continue
+                for victim in range(mesh.size(("model",))):
+                    c = {"layers": [{k: t.clone() for k, t in layer.items()}
+                                    for layer in base["layers"]],
+                         "lengths": base["lengths"]}
+                    if mesh.axis_index(("model",)) == victim:
+                        for layer, keys in zip(c["layers"], split):
+                            for k in keys:
+                                if names is None or k in names:
+                                    layer[k].zero_()
+                    lg, c = decode_step(model, c, feed[0], flags=flags,
+                                        mesh=mesh)
+                    rec[tag].append(rel_err(lg, ref[key][1]))
+                    del c
+            del base
+        engine = ServeEngine(cfg, params, max_batch=MAX_BATCH,
+                             max_seq=MAX_SEQ, seed=SEED, device="cuda",
+                             flags=flags, mesh=mesh)
+        for fn, _, _ in KERNELS:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results, pre, steps = serve_stepwise(engine, mesh_prompts(cfg))
+        torch.cuda.synchronize()
+        rec["traffic"] = mesh_traffic_numbers(
+            engine, results, pre, steps, time.perf_counter() - t1, cfg,
+            ref[f"{key}_tokens"])
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del engine, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
 def gloo_on_cuda() -> dict:
     """Whether gloo itself takes ``all_to_all`` and ``all_gather`` on CUDA
     tensors (the collectives stage through the host regardless)."""
@@ -3170,6 +3408,9 @@ def mesh_rank(rank: int, world: int, store: str, work: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         out["mla"] = mesh_mla(mesh, ref)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["recurrent"] = mesh_recurrent(mesh, ref)
         out["seconds"] = time.perf_counter() - t0
         out["gloo_on_cuda"] = gloo_on_cuda()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -3190,6 +3431,12 @@ def mesh_failures(ranks: list) -> list:
             fails.append(what)
     tokens = [r["moe"]["traffic"]["capacity_8"]["tokens_list"] for r in ranks]
     need(all(t == tokens[0] for t in tokens), "ranks picked other tokens")
+    rec = mesh_rec_cfgs()
+    for name, cfg in rec:
+        tokens = [r["recurrent"][name]["traffic"]["tokens_list"]
+                  for r in ranks]
+        need(all(t == tokens[0] for t in tokens),
+             f"{name}: ranks picked other tokens")
     for r in ranks:
         m, d, tag = r["moe"], r["mla"], f"rank {r['rank']}"
         need(m["experts"][0][0] == E // n and m["experts"][1][0] == E // n,
@@ -3202,13 +3449,31 @@ def mesh_failures(ranks: list) -> list:
         need(m["tf"]["dropped"] == 0, f"{tag} dropped at capacity 8")
         need(all(e > MESH_BARS["decode"] for e in m["fault"]),
              f"{tag}: a zeroed shard stayed within the bar {m['fault']}")
-        for tag2, t in m["traffic"].items():
+        traffic = dict(m["traffic"], **{
+            name: r["recurrent"][name]["traffic"] for name, _ in rec})
+        for tag2, t in traffic.items():
             need(t["launches"] == t["expected_launches"]
-                 and all(v > 0 for v in t["launches"].values()),
+                 and any(v > 0 for v in t["launches"].values()),
                  f"{tag} {tag2} launched {t['launches']}")
-            need(t["requests"] == N_REQUESTS
-                 and t["tokens"] == N_REQUESTS * MAX_NEW,
+            need(t["requests"] == MESH_PROMPTS
+                 and t["tokens"] == MESH_PROMPTS * MESH_NEW,
                  f"{tag} {tag2} served {t['requests']} / {t['tokens']}")
+        for name, cfg in rec:
+            e = r["recurrent"][name]
+            need(e["tf"]["prefill_vs_single"] < MESH_BARS["prefill"]
+                 and max(e["tf"]["decode_vs_single"]) < MESH_BARS["decode"],
+                 f"{tag} {name} teacher-forced logits off the single "
+                 f"process")
+            quarter = {"mamba": lambda: mamba_dims(cfg)[0] // n,
+                       "mlstm": lambda: mlstm_dims(cfg)[0] // n}
+            need(e["state_shards"] and all(
+                quarter[cfg.layer_specs[int(k.split(".")[0])].mixer]()
+                in shape for k, shape in e["state_shards"].items()),
+                f"{tag} {name} state shards {e['state_shards']}")
+            need(len(e["fault"]) == n
+                 and all(f > MESH_BARS["decode"] for f in e["fault"]),
+                 f"{tag} {name}: a zeroed state shard stayed within the bar "
+                 f"{e['fault']}")
         need(m["traffic"]["capacity_8"]["dropped"] == 0,
              f"{tag} dropped at capacity 8")
         need(d["experts"][0] == E_d // n and d["cache_shard"][1]
@@ -3254,10 +3519,13 @@ def phase_mesh_serve() -> dict:
                            "every collective staged through the host; "
                            "NCCL and NVLink times not measured",
            "single_process": single,
+           "traffic": {"prompts": MESH_PROMPTS, "new_tokens": MESH_NEW},
            "rank0": {tag: {k: t[k] for k in (
                "prefill_ms_mean", "decode_step_ms_mean",
                "decode_step_ms_p50", "tokens_per_s", "wall_s")}
-               for tag, t in r0.items()},
+               for tag, t in dict(r0, **{
+                   f"recurrent_{n}": ranks[0]["recurrent"][n]["traffic"]
+                   for n, _ in mesh_rec_cfgs()}).items()},
            "ranks": [{
                "rank": r["rank"], "seconds": r["seconds"],
                "peak_gb": {"moe": r["moe"]["peak_gb"],
@@ -3278,10 +3546,18 @@ def phase_mesh_serve() -> dict:
                                  if k != "tokens_list"}
                            for tag, t in r["moe"]["traffic"].items()},
                "mla": {k: r["mla"][k] for k in ("tf", "layer0")},
+               "recurrent": {n: {k: ({a: b for a, b in v.items()
+                                      if a != "tokens_list"}
+                                     if k == "traffic" else v)
+                                 for k, v in e.items()}
+                             for n, e in r["recurrent"].items()},
                "gloo_on_cuda": r["gloo_on_cuda"]} for r in ranks],
            "launches": {fn.__name__: sum(
                r["moe"]["traffic"]["capacity_8"]["launches"][fn.__name__]
                for r in ranks) for fn, _, _ in KERNELS},
+           "recurrent": {n: {"arch": c.name, "layers": [
+               sp.mixer + "+" + sp.ffn for sp in c.layer_specs]}
+               for n, c in mesh_rec_cfgs()},
            "bars": dict(MESH_BARS, mla_layer0={
                "float32": "atol 1e-4, rtol 1e-3 elementwise",
                "bfloat16": MLA_DECODE_BF16_BAR},
@@ -3308,6 +3584,15 @@ MESH_TRAIN_STEPS = 6
 # qwen2-moe-a2.7b at full width cut to layers 0-1 (1.83e9 parameters: its
 # AdamW state does not fit one card whole at 24 layers), 3 steps of 8 rows
 MESH_TRAIN_MOE_LAYERS, MESH_TRAIN_MOE_STEPS, MESH_TRAIN_MOE_BATCH = 2, 3, 8
+# the mixers with tensor parallelism since ROADMAP item 15c, at full width:
+# deepseek-v2's layer 0 (MLA + dense FFN, 1.386e9 parameters), jamba's
+# layer 0 (Mamba + dense FFN, 2.098e9) and xlstm-125m's first period (3
+# mLSTM + 1 sLSTM), 3 steps of 8 rows each
+MESH_TRAIN_TP_STEPS, MESH_TRAIN_TP_BATCH = 3, 8
+# the cases of one spawn of the ranks, after their reference: each saved
+# state lies on the temporary disk only while its group runs (the first
+# group's about 34 GB, jamba's 25 GB; 80 GB were free on the H100's host)
+MESH_TRAIN_GROUPS = (("dense", "moe", "mla", "xlstm"), ("mamba",))
 # phase 8's bars for the loss, the grad norm and each leaf's gradient
 MESH_TRAIN_BARS = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3,
                    "min_cosine": 0.999}
@@ -3319,11 +3604,18 @@ MESH_TRAIN_BARS = {"loss_rel": 1e-3, "grad_norm_rel": 1e-3,
 # psum left out). The qwen2-moe cut's least is 0.8608, layers.1.mixer.bkv:
 # the K half of a qkv bias has an exactly zero gradient (softmax ignores a
 # shift shared by every key), so AdamW makes its rounding noise a full move
-# in both runs. The reference check's params bar
+# in both runs. The cuts of item 15c (3 steps; their faults after one
+# step, the sLSTM's after three): deepseek-v2's least 0.9973 (embed.tok),
+# its fault 0.2773; jamba's 0.9973 (embed.tok), its fault 0.4479 after
+# three steps; xlstm-125m's 0.99864 (layers.2.mixer.w_f; its sLSTM b_i,
+# with an exactly zero gradient, reported apart), its fault 0.98547
+# (layers.3.mixer.r_o), under 0.99 and at gradient cosine 0.99405 under
+# the 0.999 bar. The reference check's params bar
 # (tests/distributed_checks.py:229), max abs 5e-3, is reported and gates
 # nothing: six AdamW steps at lr 3e-4 move an entry by about 1.6e-3 at
 # most, so two runs of any sign lie within it.
-MESH_TRAIN_MOVE_BARS = {"dense": 0.95, "moe": 0.8}
+MESH_TRAIN_MOVE_BARS = {"dense": 0.95, "moe": 0.8, "mla": 0.95,
+                        "mamba": 0.95, "xlstm": 0.99}
 MESH_TRAIN_PARAMS_MAX_ABS = 5e-3
 # (c): the FSDP + TP leaf whose gradient block is zeroed on one rank at a
 # time, in a step of its own; each rank holds a quarter of it
@@ -3332,14 +3624,22 @@ TRAIN_WRAPPERS = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
                                                  BWD_KERNELS]
 
 
-def mesh_train_cases() -> list:
-    """(name, config, global batch, steps): tacc-100m whole, then the
-    qwen2-moe cut at phase 17's capacity factor, at which no assignment
-    drops."""
+def mesh_train_cases(names=None) -> list:
+    """(name, config, global batch, steps): tacc-100m whole, the qwen2-moe
+    cut at phase 17's capacity factor, at which no assignment drops, and
+    the cuts of MLA (``mla``), Mamba (``mamba``) and the xLSTM mixers
+    (``xlstm``); those of ``names`` only, in this order, when given."""
     moe = with_capacity(dataclasses.replace(
         get_config(MOE_ARCH), n_layers=MESH_TRAIN_MOE_LAYERS), MESH_CAPACITY)
-    return [("dense", get_config("tacc-100m"), TRAIN_BATCH, MESH_TRAIN_STEPS),
-            ("moe", moe, MESH_TRAIN_MOE_BATCH, MESH_TRAIN_MOE_STEPS)]
+    tp = (MESH_TRAIN_TP_BATCH, MESH_TRAIN_TP_STEPS)
+    cases = [("dense", get_config("tacc-100m"), TRAIN_BATCH,
+              MESH_TRAIN_STEPS),
+             ("moe", moe, MESH_TRAIN_MOE_BATCH, MESH_TRAIN_MOE_STEPS),
+             ("mla", dataclasses.replace(get_config(MLA_ARCH), n_layers=1),
+              *tp),
+             ("mamba", jamba_layer0(get_config(JAMBA_ARCH)), *tp),
+             ("xlstm", xlstm_period(get_config(XLSTM_ARCH)), *tp)]
+    return [c for c in cases if names is None or c[0] in names]
 
 
 def mesh_train_setup(cfg, batch: int, steps: int):
@@ -3352,14 +3652,14 @@ def mesh_train_setup(cfg, batch: int, steps: int):
         batches
 
 
-def mesh_train_reference(work: str) -> dict:
-    """Phase 18 (a): each case in this one process from the seed's state:
-    each step's loss and grad norm; step 1's gradients and the params after
-    the last step (and, for tacc-100m, after step 1, which (c)'s faulted
-    steps are held to) saved under ``work`` for the ranks to read; the
-    memory given back before they start."""
+def mesh_train_reference(work: str, names) -> dict:
+    """Phase 18 (a): each case of ``names`` in this one process from the
+    seed's state: each step's loss and grad norm; step 1's gradients and
+    the params after the last step (and after step 1 where one of (c)'s
+    faulted runs takes one step) saved under ``work`` for the ranks to
+    read; the memory given back before they start."""
     out = {}
-    for name, cfg, batch, steps in mesh_train_cases():
+    for name, cfg, batch, steps in mesh_train_cases(names):
         t0 = time.perf_counter()
         ocfg, batches = mesh_train_setup(cfg, batch, steps)
         torch.cuda.reset_peak_memory_stats()
@@ -3380,11 +3680,14 @@ def mesh_train_reference(work: str) -> dict:
             if i == 0:
                 torch.save({k: v.cpu() for k, v in step.grads.items()},
                            os.path.join(work, f"{name}_grads.pt"))
-                step.grads = None
-                if name == "dense":
+                if any(n == 1 for _, _, n in
+                       mesh_train_fault_runs(name, steps)):
                     torch.save({k: v.cpu() for k, v in
                                 state["params"].items()},
                                os.path.join(work, f"{name}_params1.pt"))
+            # a step's kept gradients would live through the next one's
+            # forward and backward
+            step.grads = None
         torch.save({k: v.cpu() for k, v in state["params"].items()},
                    os.path.join(work, f"{name}_params.pt"))
         rec.update(params=sum(t.numel() for t in state["params"].values()),
@@ -3406,6 +3709,20 @@ def _owner(mesh, spec) -> bool:
                if a not in split)
 
 
+# the elements of a leaf taken to f64 at a time by the parts below: a rank
+# never holds a whole block of deepseek-v2's vocab (0.5e9 entries) in f64
+PARTS_PIECE = 1 << 24
+
+
+def _pieces(*ts: torch.Tensor):
+    """Aligned pieces of ``PARTS_PIECE`` elements of the flattened ``ts``,
+    each on the card in f64 (``ts[0]``'s device)."""
+    flat = [t.reshape(-1) for t in ts]
+    dev = flat[0].device
+    for i in range(0, max(flat[0].numel(), 1), PARTS_PIECE):
+        yield [t[i:i + PARTS_PIECE].to(dev).double() for t in flat]
+
+
 def mesh_grad_parts(cfg, grads, plan, mesh, path: str) -> dict:
     """Per leaf, this rank's block against the same block of the single
     process's gradient: [a.b, a.a, b.b] in f64, zeros where another rank
@@ -3413,13 +3730,13 @@ def mesh_grad_parts(cfg, grads, plan, mesh, path: str) -> dict:
     ref = torch.load(path, mmap=True)
     out = {}
     for k, g in grads.items():
+        out[k] = [0.0, 0.0, 0.0]
         if not _owner(mesh, plan[k]):
-            out[k] = [0.0, 0.0, 0.0]
             continue
-        r = shard_leaf(cfg, k, ref[k], plan[k], mesh).cuda().double()
-        a = g.double()
-        out[k] = [float((a * r).sum()), float((a * a).sum()),
-                  float((r * r).sum())]
+        for a, r in _pieces(g, shard_leaf(cfg, k, ref[k], plan[k], mesh)):
+            for j, v in enumerate(((a * r).sum(), (a * a).sum(),
+                                   (r * r).sum())):
+                out[k][j] += float(v)
     return out
 
 
@@ -3434,26 +3751,39 @@ def mesh_move_parts(cfg, params, plan, mesh, path: str) -> dict:
                      "cuda", mesh=mesh, plan=plan)
     out = {}
     for k, p in params.items():
+        base = p0.pop(k)
+        out[k] = [0.0] * 5
         if not _owner(mesh, plan[k]):
-            out[k] = [0.0] * 5
             continue
-        base = p0.pop(k).double()
-        r = shard_leaf(cfg, k, ref[k], plan[k], mesh).cuda().double() - base
-        d = p.double() - base
-        out[k] = [float((d * r).sum()), float((d * d).sum()),
-                  float((r * r).sum()), float((d - r).abs().max()),
-                  float(r.abs().max())]
+        for q, b, want in _pieces(p, base, shard_leaf(cfg, k, ref[k],
+                                                      plan[k], mesh)):
+            d, r = q - b, want - b
+            part = [(d * r).sum(), (d * d).sum(), (r * r).sum()]
+            out[k][:3] = [x + float(v) for x, v in zip(out[k][:3], part)]
+            out[k][3] = max(out[k][3], float((d - r).abs().max()))
+            out[k][4] = max(out[k][4], float(r.abs().max()))
+        del base
     return out
 
 
-def moved(parts: list) -> dict:
+def rounding_only(cfg) -> set:
+    """The leaves whose exact gradient is zero, so that in both runs their
+    gradient is rounding and AdamW makes it a full move: each sLSTM
+    layer's input-gate bias ``b_i``. A shift of every step's input-gate
+    pre-activation moves the stabiliser m by as much, which leaves i_s,
+    f_s and h = o c / n as they were."""
+    return {f"layers.{i}.mixer.b_i" for i, spec in enumerate(cfg.layer_specs)
+            if spec.mixer == "slstm"}
+
+
+def moved(parts: list, skip=()) -> dict:
     """Every rank's :func:`mesh_move_parts` of one run put together: the
-    least cosine of a leaf's move to the single process's and its leaf,
-    the largest difference as a share of the single process's largest move
-    in that leaf, and the largest difference (the reference check's
-    measure)."""
+    least cosine of a leaf's move to the single process's and its leaf
+    (``skip`` left out), the largest difference as a share of the single
+    process's largest move in that leaf, and the largest difference (the
+    reference check's measure)."""
     cos, share = {}, {}
-    for k in parts[0]:
+    for k in (k for k in parts[0] if k not in skip):
         s = [sum(p[k][j] for p in parts) for j in range(3)]
         cos[k] = _cosine(*s)
         top = max(p[k][4] for p in parts)
@@ -3464,16 +3794,41 @@ def moved(parts: list) -> dict:
             "params_max_abs": max(p[k][3] for p in parts for k in p)}
 
 
+# the MLA case's faulted leaf: one rank's block of it zeroed in the state
+MESH_TRAIN_MLA_FAULT_LEAF = "layers.0.mixer.w_uq"
+
+
+def _rank_rows_only(r: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sLSTM fault: this rank's rows of a recurrent matrix in place,
+    zeros where the gather would put the other ranks' (no gather)."""
+    live = mesh.live((axis,))
+    n, i, rows = mesh.size(live), mesh.axis_index(live), r.shape[1]
+    return F.pad(r, (0, 0, i * rows, (n - 1 - i) * rows))
+
+
+def _partial_dt_bc(uc: torch.Tensor, w: torch.Tensor, mesh, axis: str
+                   ) -> torch.Tensor:
+    """The Mamba fault: this rank's partial (dt_low, B, C), its sum over
+    ``model`` left out."""
+    return (uc.float() @ w.to(uc.dtype).float()).to(uc.dtype).float()
+
+
 @contextlib.contextmanager
 def train_fault(kind: str, mesh, rank: int = 0):
     """A fault planted in the mesh step for (c): "zero" zeroes ``rank``'s
     block of the fault leaf's gradient before the update; "skip_psum"
     leaves out the psum over the batch axes of every gradient whose leaf
     is not split over them (``train.step._sum_over_batch``), so each data
-    rank updates its replicas from its own rows."""
+    rank updates its replicas from its own rows; "skip_x_proj_psum" leaves
+    out the sum of Mamba's ``x_proj`` partials over ``model``
+    (``models.mamba._dt_bc``); "r_block" has each rank use its rows of the
+    sLSTM's recurrent matrices without the gather
+    (``models.xlstm._gather_recurrent``). "zero_w_uq" plants nothing here:
+    :func:`mesh_train_faults` zeroes ``rank``'s block of
+    ``MESH_TRAIN_MLA_FAULT_LEAF`` in the state."""
+    from repro_torch.models import mamba as MB
+    from repro_torch.models import xlstm as XL
     from repro_torch.train import step as STEP
-    name = "adamw_update" if kind == "zero" else "_sum_over_batch"
-    real = getattr(STEP, name)
 
     def zero(grads, *a, **kw):
         if dist.get_rank() == rank:
@@ -3481,21 +3836,43 @@ def train_fault(kind: str, mesh, rank: int = 0):
                 grads[MESH_TRAIN_FAULT_LEAF])
         return real(grads, *a, **kw)
 
-    def skip(grads, *a, **kw):
-        return grads
-
-    setattr(STEP, name, zero if kind == "zero" else skip)
+    module, name, fake = {
+        "zero": (STEP, "adamw_update", zero),
+        "skip_psum": (STEP, "_sum_over_batch", lambda grads, *a, **kw: grads),
+        "skip_x_proj_psum": (MB, "_dt_bc", _partial_dt_bc),
+        "r_block": (XL, "_gather_recurrent", _rank_rows_only),
+        "zero_w_uq": (None, None, None)}[kind]
+    if module is None:
+        yield
+        return
+    real = getattr(module, name)
+    setattr(module, name, fake)
     try:
         yield
     finally:
-        setattr(STEP, name, real)
+        setattr(module, name, real)
+
+
+# the faults of item 15c's cases (mesh_train_fault_runs), each held at
+# step 1 to the gradient bar, which it must miss, and to its case's move bar
+TP_FAULTS = ("zero_w_uq", "skip_x_proj_psum", "r_block")
 
 
 def mesh_train_fault_runs(name: str, steps: int) -> list:
     """(c)'s runs of a case, (fault, rank, steps): for tacc-100m each
-    rank's block of the fault leaf zeroed in a step of its own; for both
-    cases the batch psum left out over the case's steps."""
+    rank's block of the fault leaf zeroed in a step of its own; for it and
+    the MoE cut the batch psum left out over the case's steps; for the
+    cuts of item 15c each mixer's hazard over the case's steps: rank 0's
+    block of MLA's ``w_uq`` zeroed, Mamba's ``x_proj`` sum over ``model``
+    left out (one step each), the sLSTM's recurrent rows used without
+    their gather (the case's steps)."""
     world = math.prod(MESH_TRAIN[0])
+    # one step misses every bar for MLA's and Mamba's faults; the sLSTM's
+    # moves part from the single process's only over the case's steps
+    tp = {"mla": ("zero_w_uq", 0, 1), "mamba": ("skip_x_proj_psum", None, 1),
+          "xlstm": ("r_block", None, steps)}
+    if name in tp:
+        return [tp[name]]
     zero = [("zero", r, 1) for r in range(world)] if name == "dense" else []
     return zero + [("skip_psum", None, steps)]
 
@@ -3521,6 +3898,8 @@ def mesh_train_faults(mesh, name: str, cfg, batch: int, steps: int,
             keep_grads=True, flags=RunFlags(distributed=True, token_axes=axes))
         rec = {"fault": kind, "rank": rank, "steps": steps, "loss": [],
                "grad_norm": []}
+        if kind == "zero_w_uq" and dist.get_rank() == rank:
+            state["params"][MESH_TRAIN_MLA_FAULT_LEAF].zero_()
         with train_fault(kind, mesh, rank or 0):
             for i, b in enumerate(batches[:steps]):
                 state, m = step(state, {k: batch_rows(v, mesh, axes)
@@ -3532,6 +3911,10 @@ def mesh_train_faults(mesh, name: str, cfg, batch: int, steps: int,
                     rec["grad_parts"] = mesh_grad_parts(
                         cfg, {leaf: step.grads[leaf]}, plan, mesh,
                         os.path.join(work, f"{name}_grads.pt"))[leaf]
+                elif i == 0 and kind in TP_FAULTS:
+                    rec["grad_parts"] = mesh_grad_parts(
+                        cfg, step.grads, plan, mesh,
+                        os.path.join(work, f"{name}_grads.pt"))
                 step.grads = None
         state["opt"] = None
         rec["move_parts"] = mesh_move_parts(
@@ -3586,13 +3969,16 @@ def mesh_train_case(mesh, name: str, cfg, batch: int, steps: int,
             held = {fn: fn.launches for fn in TRAIN_WRAPPERS}
             parts = mesh_grad_parts(cfg, step.grads, plan, mesh,
                                     os.path.join(work, f"{name}_grads.pt"))
-            step.grads = None
             for fn in TRAIN_WRAPPERS:     # the check launched no kernel
                 if fn.launches != held[fn]:
                     raise AssertionError(f"{fn.__name__} launched outside "
                                          f"the steps")
+        # kept, a step's gradients (a rank's 3.2 GB of jamba's cut) would
+        # live through the next step's forward and backward, beside its own
+        step.grads = None
     launches = {fn.__name__: fn.launches for fn in TRAIN_WRAPPERS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     params_held = sum(t.numel() for t in state["params"].values())
     state["opt"] = None
     move = mesh_move_parts(cfg, state["params"], plan, mesh,
@@ -3602,14 +3988,19 @@ def mesh_train_case(mesh, name: str, cfg, batch: int, steps: int,
            "expected_launches": expected_train_launches(cfg, steps),
            "dropped": int(MOE.moe_ep.dropped), "init_s": init_s,
            "params_held": params_held, "peak_gb": peak_gb,
+           "peak_reserved_gb": reserved_gb,
            "rows": list(rows[0]["tokens"].shape)}
     del state, step, m
     return out
 
 
-def mesh_train_rank(rank: int, world: int, store: str, work: str) -> None:
-    """One rank of phase 18, a process of its own on the one card; writes
-    its results to ``work``/rank<r>.json."""
+def mesh_train_rank(rank: int, world: int, store: str, work: str,
+                    names) -> None:
+    """One rank of phase 18, a process of its own on the one card, over the
+    cases of ``names``; writes its results to ``work``/rank<r>.json."""
+    # the four ranks' f32 states and gradient sums fill most of the card:
+    # segments that grow in place strand less of it between allocations
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     torch.cuda.set_device(0)
     torch.set_num_threads(max(1, os.cpu_count() // world))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3621,7 +4012,7 @@ def mesh_train_rank(rank: int, world: int, store: str, work: str) -> None:
         mesh = make_mesh(*MESH_TRAIN)
         out = {"rank": rank, "coords": mesh.coords}
         t0 = time.perf_counter()
-        for name, cfg, batch, steps in mesh_train_cases():
+        for name, cfg, batch, steps in mesh_train_cases(names):
             out[name] = mesh_train_case(mesh, name, cfg, batch, steps, work)
             gc.collect()
             torch.cuda.empty_cache()
@@ -3657,11 +4048,23 @@ def mesh_train_results(name: str, ref: dict, ranks: list) -> dict:
     leaves = cases[0]["grad_parts"]
     sums = {k: [sum(c["grad_parts"][k][j] for c in cases) for j in range(3)]
             for k in leaves}
-    cos = {k: _cosine(*v) for k, v in sums.items()}
+    whole = [math.sqrt(sum(v[j] for v in sums.values())) for j in (1, 2)]
+    share = {k: [math.sqrt(v[j]) / max(w, 1e-300)
+                 for j, w in zip((1, 2), whole)] for k, v in sums.items()}
+    skip = rounding_only(next(c for n, c, _, _ in mesh_train_cases((name,))))
+    cos = {k: _cosine(*v) for k, v in sums.items() if k not in skip}
     out = {"loss_rel_max": loss_rel, "grad_norm_rel_max": gn_rel,
            "min_cosine": min(cos.values()),
            "worst_cosines": sorted(cos.items(), key=lambda kv: kv[1])[:5],
-           **moved([c["move_parts"] for c in cases]), "leaves": len(cos)}
+           "least_gradient_shares": sorted(
+               share.items(), key=lambda kv: max(kv[1]))[:5],
+           "rounding_only": {k: {"cosine": _cosine(*sums[k]),
+                                 "gradient_share": share[k],
+                                 **moved([c["move_parts"] for c in cases],
+                                         set(leaves) - {k})}
+                             for k in sorted(skip)},
+           **moved([c["move_parts"] for c in cases], skip),
+           "leaves": len(cos)}
     out["faults"] = []
     for j, f in enumerate(cases[0]["faults"]):
         runs = [c["faults"][j] for c in cases]
@@ -3669,6 +4072,12 @@ def mesh_train_results(name: str, ref: dict, ranks: list) -> dict:
         if f["fault"] == "zero":
             g = [sum(r["grad_parts"][i] for r in runs) for i in range(3)]
             leaf = {"fault_leaf_cosine": _cosine(*g)}
+        elif f["fault"] in TP_FAULTS:
+            g = {k: _cosine(*[sum(r["grad_parts"][k][i] for r in runs)
+                              for i in range(3)])
+                 for k in runs[0]["grad_parts"] if k not in skip}
+            worst = min(g, key=g.get)
+            leaf = {"min_cosine": g[worst], "min_cosine_leaf": worst}
         out["faults"].append({
             "fault": f["fault"], "rank": f["rank"], "steps": f["steps"],
             **leaf, "loss_rel_max": max(
@@ -3677,7 +4086,7 @@ def mesh_train_results(name: str, ref: dict, ranks: list) -> dict:
             "grad_norm_rel_max": max(
                 abs(x - a) / abs(a) for r in runs
                 for x, a in zip(r["grad_norm"], ref["grad_norm"])),
-            **moved([r["move_parts"] for r in runs])})
+            **moved([r["move_parts"] for r in runs], skip)})
     return out
 
 
@@ -3703,6 +4112,10 @@ def mesh_train_failures(res: dict, ranks: list) -> list:
                     bars["min_cosine"]:
                 fails.append(f"{name}: rank {f['rank']}'s zeroed block "
                              f"kept cosine {f['fault_leaf_cosine']}")
+            if f["fault"] in TP_FAULTS and not f["min_cosine"] < \
+                    bars["min_cosine"]:
+                fails.append(f"{name}: fault {f['fault']} kept every "
+                             f"gradient leaf at cosine {f['min_cosine']}")
             if not f["min_move_cosine"] < move:
                 fails.append(f"{name}: fault {f['fault']} {f['rank']} "
                              f"moved within the bar, at "
@@ -3710,7 +4123,7 @@ def mesh_train_failures(res: dict, ranks: list) -> list:
     for rank in ranks:
         for name in res:
             c = rank[name]
-            if c["launches"] != c["expected_launches"] or not all(
+            if c["launches"] != c["expected_launches"] or not any(
                     v > 0 for v in c["launches"].values()):
                 fails.append(f"rank {rank['rank']} {name} launched "
                              f"{c['launches']}")
@@ -3753,23 +4166,32 @@ def phase_mesh_train() -> dict:
     before = allocated_bytes()
     torch.cuda.empty_cache()
     kernels = mesh_train_kernels()
-    work = tempfile.mkdtemp(prefix="mesh_train_")
     t0 = time.perf_counter()
-    try:
-        single = mesh_train_reference(work)
-        t_ref = time.perf_counter() - t0
-        disk = shutil.disk_usage(work)
-        gc.collect()
-        torch.cuda.empty_cache()
-        world = math.prod(MESH_TRAIN[0])
-        mp.spawn(mesh_train_rank, args=(world, os.path.join(work, "store"),
-                                        work), nprocs=world, join=True)
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    world = math.prod(MESH_TRAIN[0])
+    single, ranks = {}, [{"seconds": 0.0} for _ in range(world)]
+    t_ref, disk, t_group, card_used = 0.0, {}, {}, {}
+    for names in MESH_TRAIN_GROUPS:
+        work = tempfile.mkdtemp(prefix="mesh_train_")
+        try:
+            t1 = time.perf_counter()
+            single.update(mesh_train_reference(work, names))
+            t_ref += time.perf_counter() - t1
+            disk["+".join(names)] = shutil.disk_usage(work).free / 1e9
+            gc.collect()
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            card_used["+".join(names)] = (total - free) / 1e9
+            mp.spawn(mesh_train_rank, args=(
+                world, os.path.join(work, "store"), work, names),
+                nprocs=world, join=True)
+            for r in range(world):
+                with open(os.path.join(work, f"rank{r}.json")) as f:
+                    got = json.load(f)
+                got["seconds"] += ranks[r]["seconds"]
+                ranks[r].update(got)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        t_group["+".join(names)] = time.perf_counter() - t1
     res = {name: mesh_train_results(name, single[name], ranks)
            for name in single}
     fails = mesh_train_failures(res, ranks)
@@ -3783,21 +4205,28 @@ def phase_mesh_train() -> dict:
                             "steps": steps}
                      for name, cfg, batch, steps in mesh_train_cases()},
            "reduced": {"moe": f"layers 0-{MESH_TRAIN_MOE_LAYERS - 1} of "
-                              f"24, capacity factor {MESH_CAPACITY}"},
+                              f"24, capacity factor {MESH_CAPACITY}",
+                       "mla": "layer 0 of 60 (MLA + dense FFN)",
+                       "mamba": "layer 0 of 72 (Mamba + dense FFN)",
+                       "xlstm": "layers 0-3 of 12 (one period: 3 mLSTM, "
+                                "1 sLSTM)"},
            "single_process": single, "results": res,
            "ranks": [{"rank": r["rank"], "coords": r["coords"],
                       "seconds": r["seconds"],
                       **{name: {k: r[name][k] for k in (
                           "steps", "launches",
                           "expected_launches", "dropped", "init_s",
-                          "params_held", "peak_gb", "rows", "faults_s")}
+                          "params_held", "peak_gb", "peak_reserved_gb",
+                          "rows", "faults_s")}
                          for name in single}} for r in ranks],
            "launches": ranks[0]["dense"]["launches"],
            "kernels": kernels, "bars": MESH_TRAIN_BARS,
            "move_bars": MESH_TRAIN_MOVE_BARS,
            "reference_params_max_abs": MESH_TRAIN_PARAMS_MAX_ABS,
            "fault_leaf": MESH_TRAIN_FAULT_LEAF,
-           "tmp_free_gb_after_reference": disk.free / 1e9,
+           "mla_fault_leaf": MESH_TRAIN_MLA_FAULT_LEAF,
+           "tmp_free_gb_after_reference": disk,
+           "card_used_gb_before_ranks": card_used, "group_s": t_group,
            "reference_s": t_ref, "seconds": time.perf_counter() - t0,
            "failures": fails}
     after = allocated_bytes()
@@ -3915,6 +4344,28 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                      **{k: c.get(k) for k in keys if k != "floor_ms"},
                      "shape": c["shape"], "dtype": fl["dtype"],
                      **{k: c[k] for k in ("f32", "dw") if k in c}})
+    # K1b at D = 192 (MLA's q/k width, bf16): phase 7's timed case, its
+    # launches training deepseek-v2's layer 0 over (data 2, model 2)
+    d192 = bwd["flash_d192"][0]
+    for name, fn, src, what in BWD_KERNELS[:2]:
+        part = "dq" if name == "flash_bwd_dq" else "dkdv"
+        by_rank = [r["mla"]["launches"][name] for r in mt["ranks"]]
+        rows.append({
+            "name": f"{name} (D = 192)", "route": "cuda", "source": src,
+            "replaces": what, "launches": by_rank[0],
+            "launches_in": "train deepseek-v2 layer 0 over (data 2, model "
+                           "2), one rank (phase 18)",
+            "launches_by_rank": by_rank,
+            "max_abs_err": (d192["dq_err"] if part == "dq" else
+                            max(d192["dk_err"], d192["dv_err"])),
+            "ms": d192[part]["ms"], "plain_ms": d192["plain_ms"],
+            "bound_ms": d192[part]["bound_ms"],
+            "bound_by": d192[part]["bound_by"],
+            "library_ms": d192["library_ms"],
+            "library_backend": d192["library_backend"],
+            "whole_ms": d192["ms"], "shape": d192["q"],
+            "dtype": d192["dtype"],
+            "v_zero_columns": d192["v_zero_columns"]})
     for row in rows:
         if row["name"] in tc["demo"]["launches"]:
             row.update(tcloud_launches={
@@ -3953,28 +4404,40 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
 
 
 def main() -> None:
-    dev = phase_device()
-    ptxas = phase_build()
-    cases = phase_kernels(ptxas)
+    start, seconds = time.perf_counter(), {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    dev = timed("1 device", phase_device)
+    ptxas = timed("2 build", phase_build)
+    cases = timed("3 kernels", phase_kernels, ptxas)
+    floor = cases["rmsnorm"][0]["floor_ms"]
     cfg = get_config("tacc-100m")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                          "cuda")
-    phase_consistency(cfg, params)
-    served = phase_serve(cfg, params)
-    phase_profile(cfg, params, served)
-    bwd = phase_kernels_bwd(ptxas)
-    phase_train_consistency(cfg, params)
-    trained = phase_train(cfg)
+    timed("4 consistency", phase_consistency, cfg, params)
+    served = timed("5 serve", phase_serve, cfg, params)
+    timed("6 profile", phase_profile, cfg, params, served)
+    bwd = timed("7 kernels_bwd", phase_kernels_bwd, ptxas)
+    timed("8 train_consistency", phase_train_consistency, cfg, params)
+    trained = timed("9 train", phase_train, cfg)
     del params
-    cluster = phase_cluster()
-    moe = phase_moe_serve(cases["rmsnorm"][0]["floor_ms"])
-    mla = phase_mla_serve(cases["rmsnorm"][0]["floor_ms"])
-    xl = phase_xlstm_serve()
-    jb = phase_jamba_serve(cases["rmsnorm"][0]["floor_ms"])
-    pg = phase_paged_serve(cases["rmsnorm"][0]["floor_ms"])
-    tc = phase_tcloud()
-    ms = phase_mesh_serve()
-    mt = phase_mesh_train()
+    cluster = timed("10 cluster", phase_cluster)
+    moe = timed("11 moe_serve", phase_moe_serve, floor)
+    mla = timed("12 mla_serve", phase_mla_serve, floor)
+    xl = timed("13 xlstm_serve", phase_xlstm_serve)
+    jb = timed("14 jamba_serve", phase_jamba_serve, floor)
+    pg = timed("15 paged_serve", phase_paged_serve, floor)
+    tc = timed("16 tcloud", phase_tcloud)
+    ms = timed("17 mesh_serve", phase_mesh_serve)
+    mt = timed("18 mesh_train", phase_mesh_train)
+    emit({"phase_seconds": seconds, "card": card(),
+          "total_s": time.perf_counter() - start})
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
                      pg, tc, ms, mt))
     emit({"ok": True, "device": dev})

@@ -35,8 +35,10 @@
 // pads V to it. At D = 192 a bf16 tile row is three 64-column swizzle atoms
 // (one TMA box each), O is 96 f32 registers a thread and P V one
 // wgmma m64n192k16 per 16 keys; Q and the two K and V stages take 121 KB
-// of shared memory. The f32 kernel takes 165 KB there. The backward
-// kernels stay at 64 and 128.
+// of shared memory. The f32 kernel takes 165 KB there. The bf16 backward
+// kernels run at 64, 128 and 192 (MLA trains through them), the f32 ones
+// at 64 and 128: the f32 K1b-dkdv tile set at 192 is over a block's
+// shared memory.
 //
 // The tensor maps carry the real strides of q, k and v (innermost stride
 // 1), so the strided k/v views of the fused kv projection are read in
@@ -869,7 +871,8 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
 
 // The backward entries' shape checks: what the wrapper checks, again.
 bool bwd_ok(int B, int S, int H, int KV, int D, int dtype) {
-  return B > 0 && S > 0 && KV > 0 && H % KV == 0 && (D == 64 || D == 128) &&
+  return B > 0 && S > 0 && KV > 0 && H % KV == 0 &&
+         (D == 64 || D == 128 || (D == 192 && dtype == 1)) &&
          (dtype == 0 || dtype == 1) && B <= 65535 && H <= 65535;
 }
 
@@ -1290,11 +1293,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
 //   are read in place; rows past S read as zeros. K1b-dq streams K/V
 //   through a two-stage mbarrier ring; K1b-dkdv loads K/V once and streams
 //   Q and dO of its (head, q tile) pairs through six stages (four at
-//   D = 128), with lse and Delta staged beside them, so at the training
-//   shape every load is in flight before the first product.
+//   D = 128, three at 192), with lse and Delta staged beside them, so at
+//   the training shape every load is in flight before the first product.
 // - Registers: K1b-dkdv gives dV to warpgroup 0 and dK to warpgroup 1
 //   (both form S^T), so no thread holds two D-wide accumulators, and
-//   neither kernel spills at D = 64 or 128.
+//   neither kernel spills at D = 64 or 128. At D = 192 (MLA's q/k width)
+//   a tile row is three 64-column swizzle atoms, as in the forward, and a
+//   thread holds 96 accumulator floats; the products at n = 192 are the
+//   forward's m64n192k16 P V form. MLA pads V to 192 with zeros, so dO's
+//   padded columns are zeros and dV's come out as exact zeros.
 // - Masks by select, and P as exp2 of scores prescaled by log2(e).
 //
 // What is still serial (H100 SXM, training shape): K1b-dq spends most of
@@ -1317,6 +1324,7 @@ struct DqLayout {
   static constexpr int kDelta = 6 * kTileBytes;
   static constexpr int kBar = kDelta + kTile * 4;
   static constexpr int kBytes = kBar + 5 * 8 + 1024;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 // K1b-dq: one warpgroup per (64-row q tile, head, batch); grid = (ceil(S /
@@ -1510,10 +1518,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 // kStages stages of Q and of dO, kStages stages of (64 lse, 64 Delta) f32,
 // then the mbarriers (K + V, stage[kStages]). Six stages at D = 64 hold
 // every (head, q tile) pair of the training shape's longest block, so its
-// loads are all issued before the first product.
+// loads are all issued before the first product. At D = 192 a tile is 24
+// KB, and four stages would take 245,760 bytes, over the 232,448 a block
+// may use: three take 199,200.
 template <int D>
 struct DkdvLayout {
-  static constexpr int kStages = D == 64 ? 6 : 4;
+  static constexpr int kStages = D == 64 ? 6 : D == 128 ? 4 : 3;
   static constexpr int kTileBytes = kTile * D * 2;
   static constexpr int kK = 0;
   static constexpr int kV = kTileBytes;
@@ -1522,6 +1532,7 @@ struct DkdvLayout {
   static constexpr int kRows = kDO + kStages * kTileBytes;
   static constexpr int kBar = kRows + kStages * 2 * kTile * 4;
   static constexpr int kBytes = kBar + (1 + kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
 constexpr int kDkdvThreads = 2 * kThreads;  // warpgroup 0: dV; 1: dK
@@ -1925,7 +1936,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// K1b-dq. q, o, dO (B, S, H, D) and k, v (B, S, KV, D) of dtype; lse (from
+// K1b-dq, at D = 64 or 128, and 192 in bfloat16 (bwd_ok). q, o, dO
+// (B, S, H, D) and k, v (B, S, KV, D) of dtype; lse (from
 // the forward) and delta (written here) (B, H, S) f32; dq (B, S, H, D)
 // contiguous. strides: element strides (batch, seq, head) of q, k, v, o,
 // then dO; the head dim has stride 1. bfloat16 reads them as they are
@@ -1957,6 +1969,9 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_bwd_dq_wgmma<64>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
                                    KV, strides, causal, scale, st);
+  if (D == 192)
+    return launch_bwd_dq_wgmma<192>(q, k, v, o, dO, l, dl, dq, len, B, S, H,
+                                    KV, strides, causal, scale, st);
   return launch_bwd_dq_wgmma<128>(q, k, v, o, dO, l, dl, dq, len, B, S, H, KV,
                                   strides, causal, scale, st);
 }
@@ -1991,6 +2006,9 @@ int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_bwd_dkdv_wgmma<64>(q, k, v, dO, l, dl, dk, dv, len, B, S, H,
                                      KV, strides, causal, scale, st);
+  if (D == 192)
+    return launch_bwd_dkdv_wgmma<192>(q, k, v, dO, l, dl, dk, dv, len, B, S,
+                                      H, KV, strides, causal, scale, st);
   return launch_bwd_dkdv_wgmma<128>(q, k, v, dO, l, dl, dk, dv, len, B, S, H,
                                     KV, strides, causal, scale, st);
 }

@@ -15,8 +15,9 @@ each is laid out.
 Layout is JAX's at the public function: q (B, S, H, D), k/v (B, S, KV, D)
 with H a multiple of KV; head h reads KV head h // (H // KV). The forward
 kernels are built for head dims 64, 128 and 192 (MLA's q/k width, with V
-zero-padded to it by ``models/mla.py``), the backward kernels for 64 and
-128; :func:`flash_attention` and :func:`flash_attention_bwd` run a smaller
+zero-padded to it by ``models/mla.py``), the backward kernels for 64, 128
+and, in bf16, 192 (:data:`BWD_HEAD_DIMS`);
+:func:`flash_attention` and :func:`flash_attention_bwd` run a smaller
 head dim (the smoke configs' 16) zero-padded to the next of them, with the
 softmax scale of the true one: the padded terms add exact zeros, so the
 result is the unpadded function. ``lengths``
@@ -49,10 +50,11 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 192)
-# the backward kernels' head dims: no path trains an MLA model on one card
-# (deepseek-v2's AdamW state alone is far beyond 80 GB)
-BWD_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernels' head dims by dtype: MLA trains in bf16 at 192; the
+# f32 K1b-dkdv tiles at 192 are over a block's shared memory (ROADMAP
+# Queue 2, R9's f32 half), and no config trains in f32 on the card
+BWD_HEAD_DIMS = {torch.bfloat16: (64, 128, 192), torch.float32: (64, 128)}
 
 
 def _mask(S: int, causal: bool, lengths: Optional[torch.Tensor],
@@ -418,10 +420,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel_bwd(q, k, v, o, lse, do, causal, lengths):
     D = q.shape[-1]
     Dk = _kernel_head_dim(D)
-    if Dk not in BWD_HEAD_DIMS:
+    dims = BWD_HEAD_DIMS.get(q.dtype, ())
+    if Dk not in dims:
         raise NotImplementedError(
-            f"the backward kernels run head dims {BWD_HEAD_DIMS}, not {Dk} "
-            f"(ROADMAP Queue 2, R9: K1b at head dim 192)")
+            f"the {q.dtype} backward kernels run head dims {dims}, not {Dk} "
+            f"(ROADMAP Queue 2, R9: K1b f32 at head dim 192)")
     if q.dim() == 4 and Dk != D:
         q, k, v, o, do = _pad_head_dim(Dk, q, k, v, o, do)
     q, k, v, o, do, lse = _bwd_inputs(q, k, v, o, do, lse)

@@ -118,7 +118,12 @@ def tp_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     """:func:`self_attention` with its heads split over ``axis``
     (:func:`tp_heads`): ``x`` the same on every rank, the flash kernel on
     this rank's heads, the output projection's partial sums added
-    (``layers.row_parallel``), then ``bo``."""
+    (``layers.row_parallel``), then ``bo``. Where the plan keeps the query
+    heads whole (``wq`` not in ``tp_split``: heads that ``axis`` does not
+    divide), every rank runs :func:`self_attention` on the whole
+    leaves."""
+    if "wq" not in tp_split:
+        return self_attention(cfg, p, x, positions, lengths=lengths)[0]
     cfg_loc, local = tp_heads(cfg, p, mesh, axis, tp_split)
     q, k, v = project_qkv(cfg_loc, local, pvary(x, axis, mesh), positions)
     o = flash_attention(q, k, v, causal=True, lengths=lengths)

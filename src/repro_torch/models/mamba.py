@@ -17,16 +17,29 @@ each row's length (``mamba_prefill_cache``); here each row's state is read
 from the sequence pass's own scan at ``lengths - 1`` (zeros for an empty
 row), the same state without a second scan over the (B, S, d_inner,
 d_state) operands.
+
+Over a mesh (``mesh``; tensor parallelism over its ``model`` axis, as
+GSPMD partitions the reference under ``DEFAULT_RULES``' ``dinner``), the
+leaves are this rank's block of d_inner: ``w_in`` its [u | z] columns
+(stored grouped, ``params.grouped_columns``), the conv, ``dt_b``,
+``a_log``, ``d_skip`` and ``x_proj``'s rows its channels, ``dt_w`` their
+columns, ``w_out`` their rows. The conv and the scan run on the rank's
+channels, with its state (B, d_inner / n, d_state) and no collective in
+the time loop. Two sums cross the ranks: ``x_proj``'s partial (dt_low, B,
+C), summed in f32 before ``dt_w`` (:func:`_dt_bc`), and ``w_out``'s
+(``layers.row_parallel``). A cache is the rank's block of d_inner.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import TP_AXIS, row_parallel
 from repro_torch.models.params import mamba_dims
+from repro_torch.parallel.collectives import pvary
 
 Cache = Dict[str, torch.Tensor]
 
@@ -45,12 +58,24 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return acc
 
 
-def _ssm_inputs(cfg: ModelConfig, p: Mapping, uc: torch.Tensor
+def _dt_bc(uc: torch.Tensor, w: torch.Tensor, mesh, axis: str
+           ) -> torch.Tensor:
+    """``uc @ x_proj`` (dt_low, B, C) in f32 from the activation dtype's
+    product. Over ``mesh`` each rank holds its channels' rows: the
+    partials are summed in f32 and rounded once (``row_parallel``), and the
+    sum, the same on every rank, enters each rank's channels (``pvary``)."""
+    if mesh is None:
+        return (uc @ w.to(uc.dtype)).float()
+    return pvary(row_parallel(uc, w, mesh, axis).float(), axis, mesh)
+
+
+def _ssm_inputs(cfg: ModelConfig, p: Mapping, uc: torch.Tensor, mesh=None,
+                axis: str = TP_AXIS
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """uc: (B, S, di) post-conv activations -> (dA, dBu (B, S, di, ds),
-    C (B, S, ds)) in f32."""
+    """uc: (B, S, di) post-conv activations (this rank's channels over
+    ``mesh``) -> (dA, dBu (B, S, di, ds), C (B, S, ds)) in f32."""
     di, ds, dc, dtr = mamba_dims(cfg)
-    dt_bc = (uc @ p["x_proj"].to(uc.dtype)).float()
+    dt_bc = _dt_bc(uc, p["x_proj"], mesh, axis)
     dt_r, Bm, Cm = dt_bc[..., :dtr], dt_bc[..., dtr:dtr + ds], \
         dt_bc[..., dtr + ds:]
     dt = F.softplus(dt_r @ p["dt_w"].float() + p["dt_b"].float())
@@ -99,14 +124,20 @@ def gather_window(u: torch.Tensor, lengths: torch.Tensor, w: int
 def mamba_mixer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, *,
                 lengths: Optional[torch.Tensor] = None,
-                want_cache: bool = False, n_chunks: int = 8
+                want_cache: bool = False, n_chunks: int = 8, mesh=None,
+                axis: str = TP_AXIS
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """The sequence pass (train / prefill). x: (B, S, D). Returns (y, the
-    prefill cache after ``lengths`` tokens (all S without) or None)."""
-    di, ds, dc, dtr = mamba_dims(cfg)
+    """The sequence pass (train / prefill). x: (B, S, D), the same on every
+    rank over ``mesh``, where ``p`` is this rank's block (module
+    docstring). Returns (y, the prefill cache after ``lengths`` tokens (all
+    S without) or None)."""
+    _, ds, dc, _ = mamba_dims(cfg)
     B, S, _ = x.shape
     dt = x.dtype
+    if mesh is not None:
+        x = pvary(x, axis, mesh)
     u, z = (x @ p["w_in"].to(dt)).chunk(2, -1)
+    di = u.shape[-1]
     uc = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
     n = n_chunks_for(S, n_chunks)
     c = S // n
@@ -118,7 +149,8 @@ def mamba_mixer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
         ssm = torch.zeros_like(h0)
     ys = []
     for i in range(n):
-        dA, dBu, Cm = _ssm_inputs(cfg, p, uc[:, i * c:(i + 1) * c])
+        dA, dBu, Cm = _ssm_inputs(cfg, p, uc[:, i * c:(i + 1) * c], mesh,
+                                  axis)
         cumA, h = _scan(dA, dBu)
         h = h + cumA * h0[:, None]
         h0 = h[:, -1]
@@ -130,11 +162,32 @@ def mamba_mixer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
         ys.append(torch.einsum("bsdn,bsn->bsd", h, Cm).to(dt))
     y = torch.cat(ys, 1) if len(ys) > 1 else ys[0]
     y = y + uc * p["d_skip"].to(dt)
-    y = (y * F.silu(z)) @ p["w_out"].to(dt)
+    y = _out(y * F.silu(z), p["w_out"], mesh, axis)
     if not want_cache:
         return y, None
     return y, {"conv": gather_window(u, last + 1, dc - 1).to(torch.bfloat16),
                "ssm": ssm}
+
+
+def _out(h: torch.Tensor, w: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``h @ w_out``; over ``mesh`` the partials of the rank's channels
+    summed (``row_parallel``)."""
+    if mesh is None:
+        return h @ w.to(h.dtype)
+    return row_parallel(h, w, mesh, axis)
+
+
+def tp_mamba_mixer(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None, *,
+                   lengths: Optional[torch.Tensor] = None, mesh,
+                   axis: str = TP_AXIS,
+                   tp_split: FrozenSet[str] = frozenset()) -> torch.Tensor:
+    """The training plan's sequence pass: tensor-parallel over ``axis``
+    where the plan splits d_inner (``w_in`` in ``tp_split``), else on the
+    whole leaves, which every rank holds (d_inner that ``axis`` does not
+    divide)."""
+    return mamba_mixer(cfg, p, x, lengths=lengths, axis=axis,
+                       mesh=mesh if "w_in" in tp_split else None)[0]
 
 
 def mamba_prefill_cache(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
@@ -154,19 +207,22 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, device: torch.device
 
 
 def mamba_decode(cfg: ModelConfig, p: Mapping, x: torch.Tensor, cache: Cache,
-                 lengths: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Cache]:
+                 lengths: Optional[torch.Tensor] = None, *, mesh=None,
+                 axis: str = TP_AXIS) -> Tuple[torch.Tensor, Cache]:
     """One token. x: (B, 1, D); cache: {conv (B, dc-1, di) bf16, ssm (B, di,
-    ds) f32}. The window's conv is one product plus the bias, as the
-    reference's decode sums it. Returns (y (B, 1, D), the new cache)."""
+    ds) f32}, this rank's block of d_inner over ``mesh`` (as ``p``). The
+    window's conv is one product plus the bias, as the reference's decode
+    sums it. Returns (y (B, 1, D), the new cache)."""
     dt = x.dtype
+    if mesh is not None:
+        x = pvary(x, axis, mesh)
     u, z = (x[:, 0] @ p["w_in"].to(dt)).chunk(2, -1)            # (B, di)
     window = torch.cat([cache["conv"].to(dt), u[:, None]], 1)    # (B, dc, di)
     uc = F.silu(torch.einsum("bcd,dc->bd", window, p["conv_w"].to(dt))
                 + p["conv_b"].to(dt))
-    dA, dBu, Cm = _ssm_inputs(cfg, p, uc[:, None])
+    dA, dBu, Cm = _ssm_inputs(cfg, p, uc[:, None], mesh, axis)
     h = dA[:, 0] * cache["ssm"] + dBu[:, 0]                     # (B, di, ds)
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0]).to(dt)
     y = y + uc * p["d_skip"].to(dt)
-    y = ((y * F.silu(z)) @ p["w_out"].to(dt))[:, None]
+    y = _out(y * F.silu(z), p["w_out"], mesh, axis)[:, None]
     return y, {"conv": window[:, 1:].to(torch.bfloat16), "ssm": h}

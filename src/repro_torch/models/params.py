@@ -311,7 +311,17 @@ def serving_plan(cfg: ModelConfig, mesh, ep_axis: str = "model"
     ``w_in``/``w_out`` split along the experts (axis 0) over ``ep_axis``, as
     its ``shard_map`` hands them to each rank (``P(ep_axis, None, None)``),
     when the axis has more than one rank and divides the padded experts;
-    every other leaf whole (``()``)."""
+    every other leaf whole (``()``).
+
+    The recurrent mixers' ``dinner`` leaves stay whole here, where
+    ``DEFAULT_RULES`` split them over ``model``: on a live ``model`` axis
+    the Mamba and mLSTM mixers, whose state cache splits d_inner
+    (``parallel.sharding.cache_specs``), compute on this rank's block cut
+    from the whole leaves at first use (:func:`tp_block`), and the sLSTM,
+    whose state is whole on every rank, runs whole. Their weights are a
+    small share of a served model (jamba's Mamba layer, 0.42e9 of its
+    2.1e9 parameters a layer with its FFN), and the serving draw keeps
+    its axis-0 cut."""
     n = dict(zip(mesh.axis_names, mesh.axis_sizes)).get(ep_axis, 1)
     out: Dict[str, Spec] = {}
     for k, d in model_defs(cfg).items():
@@ -348,12 +358,15 @@ def tp_split(plan: Mapping[str, Spec], prefix: str, names: Iterable[str],
 def halves(cfg: ModelConfig, name: str) -> int:
     """For a leaf whose last dim is two halves the model reads apart
     (attention's fused ``wkv``/``bkv`` as (2, KV, HD), a gated FFN's
-    ``w_in``/``b_in`` as [gate | up], the shared expert's too), the width
-    of a unit of one half a rank must hold whole (a head, a hidden unit);
-    0 for any other leaf."""
+    ``w_in``/``b_in`` as [gate | up], the shared expert's too, Mamba's
+    ``w_in`` and the mLSTM's ``w_up`` as [u | z]), the width of a unit of
+    one half a rank must hold whole (a head, a hidden unit, a channel); 0
+    for any other leaf."""
     sub, leaf = name.split(".")[-2:]
     if sub == "mixer" and leaf in ("wkv", "bkv"):
         return cfg.head_dim
+    if sub == "mixer" and leaf in ("w_in", "w_up"):
+        return 1
     if sub == "ffn" and cfg.ffn_gated and leaf in (
             "w_in", "b_in", "shared_w_in", "shared_b_in"):
         return 1
@@ -381,6 +394,21 @@ def grouped_columns(cfg: ModelConfig, name: str, shape: Sequence[int],
     per = half // n
     return torch.cat([torch.arange(r * per, (r + 1) * per) + h * half
                       for r in range(n) for h in (0, 1)])
+
+
+def tp_block(cfg: ModelConfig, prefix: str, p: Mapping[str, torch.Tensor],
+             mesh) -> Dict[str, torch.Tensor]:
+    """This rank's block over :data:`TP_AXIS` of each whole leaf
+    ``<prefix>.<name>`` of ``p``, as :func:`train_plan` splits it over
+    that axis (in :func:`grouped_columns`' order): what a tensor-parallel
+    mixer computes with when the leaves are held whole (serving)."""
+    plan = train_plan(cfg, mesh)
+    out = {}
+    for k, v in p.items():
+        spec = tuple(e if TP_AXIS in entry_axes(e) else None
+                     for e in plan[f"{prefix}.{k}"])
+        out[k] = shard_leaf(cfg, f"{prefix}.{k}", v, spec, mesh)
+    return out
 
 
 def shard_leaf(cfg: ModelConfig, name: str, t: torch.Tensor, spec: Spec,

@@ -40,9 +40,21 @@ their compute dtype and gathers them before its forward, inside the remat
 region, so the backward gathers them again and the gathered copy is not
 kept; the gathers' backward sums the gradients over the ranks and leaves
 each its block, in f32. On a live ``model`` axis the embedding, the
-unembedding, attention, the dense FFN and the MoE run tensor-parallel
-(``models/layers.py``, ``models/attention.py``, ``moe_ep``); the other
-mixers have no tensor parallelism yet and raise (ROADMAP item 15c).
+unembedding, every mixer (``TP_MIXERS``: attention, MLA, Mamba, mLSTM,
+sLSTM), the dense FFN and the MoE run tensor-parallel
+(``models/layers.py``, ``models/attention.py``, ``models/mla.py``,
+``models/mamba.py``, ``models/xlstm.py``, ``moe_ep``); a mixer whose
+leaves the plan keeps whole (a dim ``model`` does not divide) computes on
+them whole.
+
+Serving over a mesh (no plan) keeps every leaf whole, as
+``params.serving_plan`` does, but for the MoE experts. On a live
+``model`` axis the mixers whose cache ``parallel.sharding.cache_specs``
+splits along d_inner (``SPLIT_STATE``: Mamba, mLSTM) compute on this
+rank's block of their leaves, cut from the whole ones once
+(``params.tp_block``), with their state cache in that block; a prefill's
+cache is gathered whole, as the attention caches come whole from a
+prefill, and the engine keeps each rank's block.
 """
 from __future__ import annotations
 
@@ -63,9 +75,9 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as XL
 from repro_torch.models.params import (TP_AXIS, check_spec, compute_dtype,
-                                       model_defs, tp_split)
+                                       model_defs, tp_block, tp_split)
 from repro_torch.parallel.collectives import all_gather
-from repro_torch.parallel.sharding import entry_axes
+from repro_torch.parallel.sharding import entry_axes, layer_cache_specs
 
 Cache = Dict[str, torch.Tensor]
 Aux = Dict[str, torch.Tensor]
@@ -144,6 +156,17 @@ MIXERS = {
               _state_cache(XL.slstm_init_cache)),
 }
 
+# per mixer, its sequence pass under a training plan on a live ``model``
+# axis: ``(cfg, p, x, positions, *, lengths, mesh, tp_split) -> y``, on
+# this rank's blocks where the plan splits them (``tp_split``)
+TP_MIXERS = {"attn": A.tp_self_attention, "mla": MLA.tp_mla_self_attention,
+             "mamba": MB.tp_mamba_mixer, "mlstm": XL.tp_mlstm_mixer,
+             "slstm": XL.tp_slstm_mixer}
+
+# the mixers whose serving state splits d_inner over ``model``
+# (``parallel.sharding.cache_specs``), and so compute on their block of it
+SPLIT_STATE = ("mamba", "mlstm")
+
 
 def _param_dict(params: Mapping[str, torch.Tensor], prefix: str,
                 device: torch.device, trainable: bool = False
@@ -181,20 +204,6 @@ def fsdp_gather(cfg: ModelConfig, pd: Mapping[str, torch.Tensor],
     return out
 
 
-def check_tp(cfg: ModelConfig, mesh) -> None:
-    """Raises where ``cfg`` cannot train with its heads split over a live
-    ``model`` axis of ``mesh``: MLA, Mamba and the xLSTM mixers have no
-    tensor parallelism yet."""
-    if mesh is None or not mesh.live((TP_AXIS,)):
-        return
-    bad = sorted({s.mixer for s in cfg.layer_specs} - {"attn"})
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: the {', '.join(bad)} mixer(s) have no tensor "
-            f"parallelism over '{TP_AXIS}' yet (ROADMAP Queue 1 item 15c); "
-            f"train on a mesh whose '{TP_AXIS}' axis has size 1")
-
-
 SUBS = ("mixer_norm", "mixer", "ffn_norm", "ffn")
 
 
@@ -211,6 +220,7 @@ class Block(nn.Module):
         super().__init__()
         check_spec(spec)
         self.cfg, self.spec, self.prefix, self.plan = cfg, spec, prefix, plan
+        self._served: Optional[Tuple[object, Dict[str, torch.Tensor]]] = None
         for sub in SUBS:
             pd = _param_dict(params, f"{prefix}.{sub}", device, trainable)
             if len(pd):
@@ -234,6 +244,34 @@ class Block(nn.Module):
             return frozenset()
         return tp_split(self.plan, f"{self.prefix}.{sub}",
                         getattr(self, sub), mesh)
+
+    def _split_state(self, mesh) -> bool:
+        """Serving (no plan) on a live ``model`` axis a mixer whose state
+        splits d_inner (``SPLIT_STATE``)."""
+        return (self.plan is None and mesh is not None
+                and bool(mesh.live((TP_AXIS,)))
+                and self.spec.mixer in SPLIT_STATE)
+
+    def _mixer_block(self, mesh) -> Dict[str, torch.Tensor]:
+        """This rank's block of the mixer's whole leaves over ``model``
+        (``params.tp_block``), cut once per mesh."""
+        if self._served is None or self._served[0] is not mesh:
+            self._served = (mesh, tp_block(
+                self.cfg, f"{self.prefix}.mixer", self.mixer, mesh))
+        return self._served[1]
+
+    def _whole_cache(self, cache: Cache, flags: RunFlags, mesh) -> Cache:
+        """A prefill cache of this rank's block of d_inner, gathered whole
+        along each dim ``cache_specs`` splits over ``model``."""
+        specs = layer_cache_specs(self.cfg, self.spec, flags.token_axes,
+                                  flags.decode_seq_axes)
+        out = {}
+        for k, t in cache.items():
+            for d, e in enumerate(specs[k]):
+                if TP_AXIS in entry_axes(e):
+                    t = all_gather(t, TP_AXIS, mesh, dim=d)
+            out[k] = t
+        return out
 
     def _apply_ffn(self, p: Mapping, h: torch.Tensor, flags: RunFlags, mesh
                    ) -> Tuple[torch.Tensor, Optional[Aux]]:
@@ -278,13 +316,18 @@ class Block(nn.Module):
         p = self._use(mesh)
         h = L.apply_norm(self.cfg, p["mixer_norm"], x)
         if self._tp(mesh):
-            check_tp(self.cfg, mesh)
             if want_cache:
                 raise NotImplementedError("a training plan keeps no cache")
-            y_mix = A.tp_self_attention(
+            y_mix = TP_MIXERS[self.spec.mixer](
                 self.cfg, p["mixer"], h, positions, lengths=lengths,
                 mesh=mesh, tp_split=self._tp_split("mixer", mesh))
             cache = None
+        elif self._split_state(mesh):
+            y_mix, cache = MIXERS[self.spec.mixer][0](
+                self.cfg, self._mixer_block(mesh), h, positions,
+                lengths=lengths, want_cache=want_cache, mesh=mesh)
+            if cache is not None:
+                cache = self._whole_cache(cache, flags, mesh)
         else:
             y_mix, cache = MIXERS[self.spec.mixer][0](
                 self.cfg, p["mixer"], h, positions, lengths=lengths,
@@ -297,19 +340,22 @@ class Block(nn.Module):
                ) -> Tuple[torch.Tensor, Cache]:
         """One layer, one decode token. Updates ``cache`` in place; an
         attention or MLA cache is this rank's slice of the sequence when
-        ``flags.decode_seq_axes`` split it."""
+        ``flags.decode_seq_axes`` split it, a Mamba or mLSTM state cache
+        its block of d_inner on a live ``model`` axis."""
         if self.plan is not None:
             raise NotImplementedError("a training plan does not decode")
         p = self._use(mesh)
         h = L.apply_norm(self.cfg, p["mixer_norm"], x)
         decode = MIXERS[self.spec.mixer][1]
-        kw = {}
+        kw, mixer = {}, p["mixer"]
         if self.spec.mixer in ("attn", "mla"):
             kw = dict(seq_axes=flags.decode_seq_axes or None,
                       batch_axes=flags.token_axes, mesh=mesh)
         if self.spec.mixer == "mla":
             kw["absorbed"] = flags.mla_absorbed
-        y_mix, cache = decode(self.cfg, p["mixer"], h, cache, lengths, **kw)
+        if self._split_state(mesh):
+            kw, mixer = dict(mesh=mesh), self._mixer_block(mesh)
+        y_mix, cache = decode(self.cfg, mixer, h, cache, lengths, **kw)
         return self._ffn(p, x, h, y_mix, flags, mesh)[0], cache
 
 

@@ -55,20 +55,26 @@ def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-def _exchange(mesh, t: torch.Tensor, out_numel: int, run) -> torch.Tensor:
-    """``run(buffer, out)`` on ``t`` (staged to the host under gloo), into
-    a new tensor of ``out_numel`` elements on ``t``'s device. Staging copies
-    through pinned host buffers (PyTorch's caching host allocator), so
-    each copy is one DMA; the stream is synchronised once, before gloo
-    reads the buffer."""
+def _exchange(mesh, t: torch.Tensor, out_numel: int, run, copies: int = 1
+              ) -> torch.Tensor:
+    """``run(buffer, out)`` on ``copies`` copies of ``t`` stacked along a
+    new dim 0 (``t`` itself when 1; staged to the host under gloo), into a
+    new tensor of ``out_numel`` elements on ``t``'s device. Staging copies
+    through pinned host buffers (PyTorch's caching host allocator), one
+    DMA a copy, so the copies take no room on the card; the stream is
+    synchronised once, before gloo reads the buffer."""
     staged = stages(mesh.backend, t.device)
+    src = t.detach()
     if staged:
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t.detach(), non_blocking=True)
+        buf = torch.empty((copies,) + tuple(t.shape), dtype=t.dtype,
+                          pin_memory=True)
+        for c in range(copies):
+            buf[c].copy_(src, non_blocking=True)
         torch.cuda.current_stream(t.device).synchronize()
         out = torch.empty(out_numel, dtype=t.dtype, pin_memory=True)
     else:
-        buf = t.detach().contiguous()
+        buf = (src.contiguous() if copies == 1
+               else src.expand(copies, *t.shape).contiguous())
         out = torch.empty(out_numel, dtype=t.dtype, device=t.device)
     run(buf, out)
     STATS["collectives"] += 1
@@ -80,20 +86,51 @@ def _exchange(mesh, t: torch.Tensor, out_numel: int, run) -> torch.Tensor:
     return out
 
 
-def _reduce(t: torch.Tensor, axes, mesh, op) -> torch.Tensor:
-    """All-reduce over ``axes``. Under gloo, one ``all_to_all`` of n copies
-    and a sum (or max) in the ranks' order, which every rank takes alike:
-    gloo's all_reduce takes several rounds, 4.3-5.4 ms against its
-    all_to_all's 1.2-1.9 ms at 4 ranks on one host
-    (tools/mesh_collectives_breakdown.py)."""
+# under gloo a reduction sends n copies of its buffer and gets n back; a
+# buffer of more elements goes in pieces of this many, so that a rank never
+# holds n copies of a whole one (deepseek-v2's vocab blocks of `tok` and
+# `unembed` are 2.1 GB of f32 gradient a rank, which 4 ranks on one card
+# cannot each hold five times)
+REDUCE_PIECE = 1 << 25
+
+
+def _reduce(t: torch.Tensor, axes, mesh, op, inplace: bool = False
+            ) -> torch.Tensor:
+    """All-reduce over ``axes``, into ``t`` itself when ``inplace`` (``t``
+    contiguous). Under gloo, one ``all_to_all`` of n copies and a sum (or
+    max) in the ranks' positions, which every rank takes alike, a piece of
+    ``REDUCE_PIECE`` elements at a time: gloo's all_reduce takes several
+    rounds, 4.3-5.4 ms against its all_to_all's 1.2-1.9 ms at 4 ranks on
+    one host (tools/mesh_collectives_breakdown.py). A piece is on the host
+    before its sum overwrites it, so in place needs no buffer of ``t``'s
+    size."""
     axes = mesh.live(_axes(axes))
     if not axes:
         return t
     if mesh.backend == "gloo":
-        n = mesh.size(axes)
-        got = _all_to_all(t.reshape(1, -1).expand(n, -1), axes, mesh)
-        red = got.sum(0) if op == dist.ReduceOp.SUM else got.amax(0)
-        return red.reshape(t.shape)
+        n, group = mesh.size(axes), mesh.group(axes)[0]
+        order = _order(mesh, axes)
+        back = (None if order == sorted(order)
+                else torch.argsort(torch.tensor(order)))
+
+        def run(buf, out):
+            dist.all_to_all_single(out, buf.reshape(-1), group=group)
+        flat = t.view(-1) if inplace else t.reshape(-1)
+        out = flat if inplace else torch.empty_like(flat)
+        for i in range(0, max(flat.numel(), 1), REDUCE_PIECE):
+            piece = flat[i:i + REDUCE_PIECE]
+            got = _exchange(mesh, piece, n * piece.numel(), run,
+                            copies=n).reshape(n, -1)
+            if back is not None:
+                got = got[back]
+            out[i:i + REDUCE_PIECE] = (got.sum(0) if op == dist.ReduceOp.SUM
+                                       else got.amax(0))
+        return out.reshape(t.shape)
+    if inplace:
+        dist.all_reduce(t, op=op, group=mesh.group(axes)[0])
+        STATS["collectives"] += 1
+        STATS["bytes"] += t.numel() * t.element_size()
+        return t
 
     def run(buf, out):
         out.copy_(buf.reshape(-1))
@@ -255,6 +292,13 @@ def psum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     if not mesh.live(_axes(axes)):
         return t
     return _PSum.apply(t, axes, mesh)
+
+
+def psum_(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """:func:`psum` into ``t`` itself (contiguous), with no gradient: a
+    gradient summed over the batch (``train/step.py``) needs no second
+    buffer of its size. Returns ``t``."""
+    return _reduce(t.detach(), axes, mesh, dist.ReduceOp.SUM, inplace=True)
 
 
 def pvary(t: torch.Tensor, axes, mesh) -> torch.Tensor:

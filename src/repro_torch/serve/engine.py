@@ -8,8 +8,10 @@ Greedy or temperature sampling.
 
 Over a mesh of ranks (``flags`` and ``mesh``, as the reference's engine
 takes ``flags``), every rank runs the same requests and picks the same
-tokens: each holds its experts (``moe_ep``) and its slice of every
-attention and latent cache along the sequence, per
+tokens: each holds its experts (``moe_ep``), its slice of every
+attention and latent cache along the sequence and its block of every
+Mamba and mLSTM state along d_inner (the mixers compute on their block of
+d_inner, ``models/transformer.py``), per
 ``cache_specs(cfg, flags.token_axes, flags.decode_seq_axes)``, and a
 prefill's row cache is spliced in as this rank's slice.
 """
@@ -67,11 +69,6 @@ class ServeEngine:
         if mesh is not None and mesh.live(flags.token_axes):
             raise ValueError(f"the engine's slots are not split over "
                              f"{flags.token_axes}: every rank holds them all")
-        if mesh is not None and mesh.live(("model",)) and any(
-                s.mixer not in ("attn", "mla") for s in cfg.layer_specs):
-            raise NotImplementedError(
-                "a recurrent layer's state splits d_inner over 'model', "
-                "which needs tensor parallelism (ROADMAP Queue 1 item 15c)")
         self.device = resolve_device(device)
         self.flags, self.mesh = flags, mesh
         self.cfg = cfg

@@ -79,6 +79,22 @@ def global_norm(leaves: Iterable[torch.Tensor], *, mesh=None,
     return torch.sqrt(sum(psum(v, axes, mesh) for axes, v in groups.items()))
 
 
+# the elements of a leaf the update takes at a time: its f32 temporaries
+# are a few times the piece, not the leaf (a rank's block of deepseek-v2's
+# vocab is 0.26e9 entries); every op is elementwise, so the pieces give the
+# values the whole leaf does
+ADAM_PIECE = 1 << 26
+
+
+def _pieces(leaf: torch.Tensor) -> list:
+    """Slices of ``leaf`` along dim 0 of at most ``ADAM_PIECE`` elements
+    each (a whole-leaf slice for a small or 0-d leaf)."""
+    if leaf.dim() == 0 or leaf.numel() <= ADAM_PIECE:
+        return [(...,)]
+    rows = max(1, ADAM_PIECE // max(leaf[0].numel(), 1))
+    return [slice(i, i + rows) for i in range(0, leaf.shape[0], rows)]
+
+
 @torch.no_grad()
 def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig, *,
                  mesh=None, plan: Optional[Mapping] = None
@@ -98,17 +114,18 @@ def adamw_update(grads: Tree, opt: Dict, params: Tree, cfg: OptConfig, *,
     stepf = step.to(torch.float32)
     b1c = 1 - cfg.b1 ** stepf
     b2c = 1 - cfg.b2 ** stepf
-    for name, p in params.items():
-        m, v = opt["m"][name], opt["v"][name]
-        g = grads[name].float() * scale
-        m1 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v1 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        u = (m1 / b1c) / (torch.sqrt(v1 / b2c) + cfg.eps)
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
-        pf = p.float()
-        p.copy_(pf - lr * (u + decay * pf))
-        m.copy_(m1)
-        v.copy_(v1)
+    for name, leaf in params.items():
+        decay = cfg.weight_decay if leaf.dim() >= 2 else 0.0
+        for sl in _pieces(leaf):
+            p, m, v = leaf[sl], opt["m"][name][sl], opt["v"][name][sl]
+            g = grads[name][sl].float() * scale
+            m1 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+            v1 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+            u = (m1 / b1c) / (torch.sqrt(v1 / b2c) + cfg.eps)
+            pf = p.float()
+            p.copy_(pf - lr * (u + decay * pf))
+            m.copy_(m1)
+            v.copy_(v1)
     opt["step"] = step
     stats = {"grad_norm": gnorm, "lr": lr,
              "param_norm": global_norm(params.values(), mesh=mesh,

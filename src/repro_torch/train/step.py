@@ -16,11 +16,12 @@ over ``model``), each rank takes its rows of the batch
 the global batch's mean (``train.loss.cross_entropy`` over the mesh), the
 gradients of FSDP leaves come out of their gathers' backward summed over
 the batch axes they are split over, in f32, and every other gradient is
-summed over the batch axes it is not split over (one psum per set of axes).
+summed over the batch axes it is not split over (in buckets, in place).
 Clipping and the norms read the whole state's norm (``train/optimizer.py``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -31,8 +32,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.params import (AxisName, init_params, model_defs,
                                        param_specs, train_plan)
 from repro_torch.models.transformer import (AUX_KEYS, RunFlags, Transformer,
-                                            check_tp, train_logits)
-from repro_torch.parallel.collectives import psum
+                                            train_logits)
+from repro_torch.parallel.collectives import REDUCE_PIECE, psum_
 from repro_torch.parallel.sharding import Spec, spec_axes, train_batch_axes
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt
@@ -109,22 +110,38 @@ def _split_micro(batch: Mapping[str, torch.Tensor], m: int
 def _sum_over_batch(grads: list, names: list, plan: Mapping, batch_axes,
                     mesh) -> list:
     """Each gradient summed over the batch axes its leaf is not split over
-    (an FSDP leaf's gather summed it over the others), in f32, one psum of
-    the concatenated gradients for each set of axes."""
+    (an FSDP leaf's gather summed it over the others), in f32 and in place.
+    For each set of axes the gradients go in buckets of consecutive leaves
+    of at most ``REDUCE_PIECE`` elements, each bucket concatenated and
+    summed in one psum, and a larger leaf alone: so a rank never holds a
+    second copy of more than one bucket (``grads`` is taken over)."""
     groups: Dict[Tuple[str, ...], list] = {}
     for i, name in enumerate(names):
         axes = tuple(a for a in mesh.live(batch_axes)
                      if a not in spec_axes(plan[name]))
         if axes:
             groups.setdefault(axes, []).append(i)
-    out = list(grads)
     for axes, idx in groups.items():
-        flat = psum(torch.cat([grads[i].float().reshape(-1) for i in idx]),
-                    axes, mesh)
-        for i, part in zip(idx, flat.split([grads[i].numel()
-                                            for i in idx])):
-            out[i] = part.reshape(grads[i].shape)
-    return out
+        buckets, size = [[]], 0
+        for i in idx:
+            n = grads[i].numel()
+            if buckets[-1] and size + n > REDUCE_PIECE:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(i)
+            size += n
+        for bucket in buckets:
+            if len(bucket) == 1:
+                i = bucket[0]
+                grads[i] = psum_(grads[i].float().contiguous(), axes, mesh)
+                continue
+            shapes = [grads[i].shape for i in bucket]
+            flat = torch.cat([grads[i].float().reshape(-1) for i in bucket])
+            psum_(flat, axes, mesh)
+            for i, part, shape in zip(bucket, flat.split(
+                    [math.prod(s) for s in shapes]), shapes):
+                grads[i] = part.reshape(shape)
+    return grads
 
 
 def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
@@ -149,7 +166,6 @@ def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
     (this rank's blocks, summed over the ranks) as ``train_step.grads``.
     """
     plan = None if mesh is None else train_plan(cfg, mesh)
-    check_tp(cfg, mesh)
     batch_axes = () if mesh is None else train_batch_axes(mesh)
     built: Dict[str, Any] = {}
 
@@ -201,8 +217,8 @@ def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
         else:
             grads, stats = grad_fn(model, batch)
         if mesh is not None:
-            grads = _sum_over_batch(list(grads), names, plan, batch_axes,
-                                    mesh)
+            grads = list(grads)
+            grads = _sum_over_batch(grads, names, plan, batch_axes, mesh)
         grads = dict(zip(names, grads))
         if keep_grads:
             train_step.grads = grads

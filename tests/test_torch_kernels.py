@@ -531,7 +531,8 @@ def test_flash_small_head_dims_run_padded_with_their_own_scale(monkeypatch,
 def test_flash_head_dims_match_the_source():
     """The wrapper's head dims are the kernel source's instantiations, read
     from its text: the forward entries at 64, 128 and 192 (MLA's q/k
-    width) in both dtypes, the backward ones at 64 and 128."""
+    width) in both dtypes, the bf16 backward ones at 64, 128 and 192, the
+    f32 backward ones at 64 and 128."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     src = (build.CSRC / "flash_attention.cu").read_text()
 
@@ -541,17 +542,20 @@ def test_flash_head_dims_match_the_source():
     assert fa.HEAD_DIMS == (64, 128, 192)
     assert dims(r"launch_wgmma<(\d+)>\(") == fa.HEAD_DIMS
     assert dims(r"launch_fwd_f32<(\d+), (?:true|false)>\(") == fa.HEAD_DIMS
-    assert dims(r"launch_bwd_dq_wgmma<(\d+)>\(") == fa.BWD_HEAD_DIMS
-    assert dims(r"launch_bwd_dkdv_(?:wgmma|f32)<(\d+)>\(") == \
-        fa.BWD_HEAD_DIMS == (64, 128)
-    assert "(D == 64 || D == 128)" in src[src.index("bool bwd_ok("):]
+    bf16, f32 = fa.BWD_HEAD_DIMS[torch.bfloat16], fa.BWD_HEAD_DIMS[torch.float32]
+    assert bf16 == (64, 128, 192) and f32 == (64, 128)
+    for kind in ("dq", "dkdv"):
+        assert dims(rf"launch_bwd_{kind}_wgmma<(\d+)>\(") == bf16
+        assert dims(rf"launch_bwd_{kind}_f32<(\d+)>\(") == f32
+    assert "(D == 64 || D == 128 || (D == 192 && dtype == 1))" in \
+        src[src.index("bool bwd_ok("):]
 
 
 @pytest.mark.parametrize("D", [160, 192])
 def test_flash_bwd_kernels_refuse_head_dim_192_naming_the_roadmap(D):
-    """A head dim the forward runs at 192 has no backward kernel: the
-    kernel path raises, naming the ROADMAP item, before any launch; the
-    plain backward (CPU tensors) serves every head dim."""
+    """In f32 a head dim the forward runs at 192 has no backward kernel
+    (bf16 has one): the kernel path raises, naming the ROADMAP item, before
+    any launch; the plain backward (CPU tensors) serves every head dim."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     rng = np.random.default_rng(D)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 8, 2, D),

@@ -54,7 +54,6 @@ OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=50)
 MICRO, STEPS = 2, 2
 MOE_ARCH = "qwen2-moe-a2.7b"
 EP8 = dict(capacity_factor=8.0, n_experts=8, pad_to=8)
-NO_TP = ("deepseek-v2-236b", "jamba-1.5-large-398b", "xlstm-125m")
 
 
 # -- spawning ranks ----------------------------------------------------------
@@ -256,14 +255,11 @@ def _ranks_22(rank, tree, batches, ckpt, archs):
         STEPS, state_to_jax(cfg, out["train"]["state"], mesh=mesh),
         block=True)
     dist.barrier()
-    # every config with tensor parallelism, one step on this mesh; the
-    # mixers without it on a mesh whose model axis has size 1
-    fsdp = make_mesh((4, 1), ("data", "model"))
+    # every config, one step on this mesh
     out["archs"] = {}
     for arch, whole in archs.items():
         c = _smoke(arch)
-        res = _train(fsdp if arch in NO_TP else mesh, c, whole,
-                     _batches(c, 16)[:1])
+        res = _train(mesh, c, whole, _batches(c, 16)[:1])
         out["archs"][arch] = {"metrics": res["metrics"],
                               "grads": res["grads"]}
     return out
@@ -527,18 +523,18 @@ def test_grouped_wkv_holds_whole_heads(ranks_22, reference):
 
 @pytest.mark.parametrize("arch", sorted(list_archs()))
 def test_every_config_trains_on_a_mesh(ranks_22, arch):
-    """Each config's smoke model in f32, one step of 8 rows of 16 tokens:
-    those with attention on (data 2, model 2), tensor-parallel (biases,
-    LayerNorm, qk-norm, GELU, the parallel block, vision and frame
-    inputs, MoE); MLA, Mamba and the xLSTM mixers on (data 4, model 1),
-    FSDP only. Loss and grad norm within rel 1e-5 of the port's single
-    process, and every gradient leaf within rel 1e-5, or within 1e-8 where
-    the leaf's gradient is zero but for rounding (the mLSTM's input-gate
-    bias, whose shift the stabiliser cancels, reads 1e-11 in both)."""
+    """Each config's smoke model in f32, one step of 8 rows of 16 tokens
+    on (data 2, model 2), tensor-parallel (biases, LayerNorm, qk-norm,
+    GELU, the parallel block, vision and frame inputs, MoE, and the MLA,
+    Mamba, mLSTM and sLSTM mixers). Loss and grad norm within rel 1e-5 of
+    the port's single process, and every gradient leaf within rel 1e-5,
+    or within 1e-8 where the leaf's gradient is zero but for rounding (the
+    mLSTM's input-gate bias, whose shift the stabiliser cancels, reads
+    1e-11 in both)."""
     cfg = _smoke(arch)
     single = _single(cfg, _tensors(ranks_22["archs"][arch]),
                      _batches(cfg, 16)[:1])
-    shape = (4, 1) if arch in NO_TP else MESH22[0]
+    shape = MESH22[0]
     plan = train_plan(cfg, Mesh.view(shape, ("data", "model"), 0))
     res = [r["archs"][arch] for r in ranks_22["res"]]
     for r in res:
@@ -575,14 +571,6 @@ def test_an_unread_leaf_gets_a_zero_gradient():
     for k in ("loss", "grad_norm"):
         assert abs(ours["metrics"][0][k] - float(jm[k])) \
             <= 1e-5 * abs(float(jm[k])), k
-
-
-@pytest.mark.parametrize("arch", NO_TP)
-def test_mixers_without_tp_raise_on_a_model_axis(arch):
-    cfg = get_config(arch, smoke=True)
-    view = Mesh.view((2, 2), ("data", "model"), 0)
-    with pytest.raises(NotImplementedError, match="15c"):
-        build_train_step(cfg, OptConfig(), mesh=view)
 
 
 # -- moe_ep's gradient -------------------------------------------------------
