@@ -219,7 +219,23 @@ Phases, each printing one JSON line and raising on failure:
    same mesh through moe_ep at capacity factor 8 against (a)'s dense
    oracle at (b)'s bars, no assignment dropped. K1, K1b, K2, K2b, K3 and
    K3b are also held to their plain versions and timed at a rank's local
-   shapes in (b).
+   shapes in (b);
+19. tools: the ported tools of ROADMAP items 16a-16e. (a) The tuning
+   table (``kernels/autotune.py``): with an empty table every phase-3
+   shape's plan is the default rule's (``key_splits``, ``pick_variant``);
+   under probe tables K1 f32 at the serving shape runs at splits 1, 2 and
+   8 (8 leaves the first q tiles' runs of keys empty) and K2 and K3 at
+   (512, 768) as ``wide``, and under the committed table each entry runs
+   at its bucket's shape: each as the table says (the wrapper's record)
+   and within phase 3's bar of its plain version. (b) The kernel bench
+   (``benchmarks_torch/bench_kernels_torch.py``) at its points, held to
+   the committed ``BENCH_kernels_torch.json`` as its ``--check`` holds it;
+   a line a point. (c) ``examples/quickstart_torch.py``'s training, 5
+   steps of 2 microbatches, on the card and on the CPU from one seed:
+   each step's loss and grad norm within rel 1e-3, every kernel launched
+   as the code counts. (d) The serving bench at the smoke config (every
+   forward kernel launched, every request finished) and the checkpoint
+   bench at d_model 256.
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -234,8 +250,9 @@ phase 16's demo and submitted spec file, each forward kernel's launches
 summed over phase 17's ranks, every kernel's launches on each rank of
 phase 18's tacc-100m run with its numbers at the local shapes there, a
 row for each of K1b-dq and K1b-dkdv at D = 192 with its launches on
-each rank of phase 18's deepseek-v2 run and its numbers from phase 7;
-before it one line with each phase's wall seconds; and the last line
+each rank of phase 18's deepseek-v2 run and its numbers from phase 7,
+every kernel's launches in phase 19's quickstart training and serving
+bench; before it one line with each phase's wall seconds; and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -1440,9 +1457,11 @@ CLUSTER_STEPS, CLUSTER_CKPT_EVERY = 60, 15
 MEMORY_SLACK_BYTES = 100e6
 
 
-def _load_example():
-    path = os.path.join(ROOT, "examples", "train_cluster_torch.py")
-    spec = importlib.util.spec_from_file_location("train_cluster_torch", path)
+def _load_script(relpath: str):
+    """A script of the repo (an example or a bench) loaded by path."""
+    path = os.path.join(ROOT, relpath)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1638,7 +1657,7 @@ def phase_cluster() -> dict:
     """Phase 10: the cluster path. The service's runtimes build their
     kernels' inputs from the spec; every kernel's count is zeroed just
     before the service starts and read when it has ended."""
-    ex = _load_example()
+    ex = _load_script("examples/train_cluster_torch.py")
     curve = jax_curve_start(ex)
     serve_k1 = serve_job_flash_case(get_config("tacc-100m", smoke=True))
     wrappers = [fn for fn, _, _ in KERNELS] + [fn for _, fn, _, _ in
@@ -4240,9 +4259,183 @@ def phase_mesh_train() -> dict:
     return out
 
 
+# -- phase 19 --------------------------------------------------------------
+
+# the ported tools: the tuning table, the kernel bench, the examples, the
+# serving and checkpoint benches
+TOOLS_MICROBATCHES, TOOLS_TRAIN_STEPS = 2, 5
+TOOLS_CKPT_D_MODEL = 256
+# K1 f32 at the serving shape under probe tables: splits 8 leaves the first
+# q tiles' runs of keys empty past the causal diagonal
+TOOLS_PROBE_SPLITS = (1, 2, 8)
+TOOLS_PROBE_NORM = ((MAX_SEQ, 768), "wide")
+
+
+def tools_table(bench, cases: dict) -> dict:
+    """Phase 19 (a): with an empty table every phase-3 shape's plan is the
+    default rule's; under probe tables and under the committed table each
+    choice launches as the table says and meets phase 3's bar against the
+    plain version (``bench.run_point``, untimed)."""
+    from repro_torch.kernels import autotune as AT
+    empty = AT.AutotuneTable()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    departed = []
+    for c in cases["flash_attention"] + cases["flash_attention_d192"]:
+        (B, S, H, D), dt = c["q"], getattr(torch, c["dtype"])
+        plan = AT.plan_key_splits(B, S, H, bench.FA._kernel_head_dim(D), dt,
+                                  sms, empty)
+        if plan != (bench.FA.key_splits(B, S, H, dt, sms), False):
+            departed.append((c["q"], c["dtype"], plan))
+    norms = 0
+    for c in cases["rmsnorm"] + cases["rmsnorm_residual"]:
+        (N, D), dt = c["x"], getattr(torch, c["dtype"])
+        vector = ((D * torch.finfo(dt).bits // 8) % 16 == 0
+                  and c["x_offset_bytes"] % 16 == 0)
+        plan = AT.plan_rmsnorm_rows(N, D, dt, vector, empty)
+        norms += 1
+        if plan != (bench.RMS.variant_for(D, vector), False):
+            departed.append((c["x"], c["dtype"], plan))
+    runs = []
+
+    def run(point, table, want, label):
+        r = bench.run_point(point, torch.device("cuda"), table, timed=False)
+        r.update(label=label, want=want,
+                 ok=(r["choice"] == want and r["from_table"]
+                     and not bench.violations(point.name, r)))
+        runs.append(r)
+    serve_f32 = dict(B=1, S=MAX_SEQ, H=12, KV=4, D=64, dtype=torch.float32)
+    for n in TOOLS_PROBE_SPLITS:
+        probe = AT.AutotuneTable()
+        probe.record("flash_attention", torch.float32, (1, 12, MAX_SEQ, 64),
+                     [n])
+        run(bench.Point(f"probe splits={n}", "flash", serve_f32, {}), probe,
+            f"splits={n}", "probe")
+    (N, D), name = TOOLS_PROBE_NORM
+    probe = AT.AutotuneTable()
+    probe.record("rmsnorm", torch.bfloat16, (N, D),
+                 [bench.RMS.VARIANTS.index(name)])
+    for kind in ("rmsnorm", "rmsnorm_residual"):
+        run(bench.Point(f"probe {kind} {name}", kind,
+                        dict(N=N, D=D, dtype=torch.bfloat16), {}),
+            probe, name, "probe")
+    committed = AT.AutotuneTable.load()
+    for key, choice in sorted(committed.entries.items()):
+        for point, want in bench.entry_points(key, choice):
+            run(point, committed, want, "committed")
+    out = {"empty_table_shapes": len(cases["flash_attention"])
+           + len(cases["flash_attention_d192"]) + norms,
+           "empty_table_departed": departed,
+           "committed_entries": committed.entries,
+           "runs": [{k: r[k] for k in ("label", "kind", "choice", "want",
+                                       "from_table", "max_err", "tol",
+                                       "err_unit", "exact", "ok")}
+                    for r in runs]}
+    if departed or not all(r["ok"] for r in runs):
+        raise AssertionError(f"the tuning table's plans: {out}")
+    return out
+
+
+def tools_bench(bench) -> dict:
+    """Phase 19 (b): the kernel bench's snapshot at its points, held to the
+    committed ``BENCH_kernels_torch.json`` as ``--check`` holds it."""
+    snap = bench.snapshot(device="cuda", verbose=False)
+    for name, r in snap["points"].items():
+        print(f"bench {name}: max_err {r['max_err']:.4g} (tol {r['tol']:g} "
+              f"{r['err_unit']}) device_ms {r['device_ms']:.6g} cold_ms "
+              f"{r['cold_ms']:.6g} bound_ms {r['bound_ms']:.6g} "
+              f"frac_of_bound {r['frac_of_bound']:.4g} {r['choice']}",
+              flush=True)
+    if not os.path.exists(bench.DEFAULT_OUT):
+        raise AssertionError(f"no committed snapshot at {bench.DEFAULT_OUT}")
+    with open(bench.DEFAULT_OUT, encoding="utf-8") as f:
+        committed = json.load(f)
+    bad = bench.check(snap, committed)
+    return {"snapshot": snap, "violations": bad}
+
+
+def tools_microbatches(quickstart) -> dict:
+    """Phase 19 (c): quickstart's training, 2 microbatches a step, on the
+    card and on the CPU from the same seed: each step's loss and grad norm
+    within phase 8's rel 1e-3; every kernel launched as the code counts
+    (each microbatch a forward and backward)."""
+    wrappers = TRAIN_WRAPPERS
+    for fn in wrappers:
+        fn.launches = 0
+    cfg, _, card_m = quickstart.train("cuda", TOOLS_TRAIN_STEPS, verbose=False)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    _, _, cpu_m = quickstart.train("cpu", TOOLS_TRAIN_STEPS, verbose=False)
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(card_m, cpu_m)]
+           for k in ("loss", "grad_norm")}
+    expected = expected_train_launches(cfg, TOOLS_TRAIN_STEPS *
+                                       TOOLS_MICROBATCHES)
+    out = {"steps": TOOLS_TRAIN_STEPS, "microbatches": TOOLS_MICROBATCHES,
+           "loss_card": [m["loss"] for m in card_m],
+           "loss_cpu": [m["loss"] for m in cpu_m],
+           "grad_norm_card": [m["grad_norm"] for m in card_m],
+           "grad_norm_cpu": [m["grad_norm"] for m in cpu_m],
+           "rel": rel, "bars": {k: TRAIN_CONSISTENCY_BARS[f"{k}_rel"]
+                                for k in rel},
+           "launches": launches, "expected_launches": expected}
+    if not (all(np.isfinite(out["loss_card"]))
+            and all(max(rel[k]) < out["bars"][k] for k in rel)
+            and launches == expected):
+        raise AssertionError(f"microbatches on the card: {out}")
+    return out
+
+
+def tools_benches(serving, preemption) -> dict:
+    """Phase 19 (d): the serving bench at the smoke config (every forward
+    kernel must launch) and the checkpoint bench at d_model 256."""
+    wrappers = [fn for fn, _, _ in KERNELS]
+    for fn in wrappers:
+        fn.launches = 0
+    served = serving.run_bench(device="cuda")
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    n_requests, max_new = 12, 8
+    rows = serving.rows(served, n_requests, max_new)
+    for line in rows:
+        print(f"serving bench: {line}", flush=True)
+    for eng, res, _ in served.values():
+        if not (all(r.done and len(r.tokens) == max_new for r in res)
+                and all(s.request is None for s in eng._slots)):
+            raise AssertionError("the serving bench left a request unfinished "
+                                 "or a slot held")
+    if not all(launches.values()):
+        raise AssertionError(f"the serving bench launched a kernel no time: "
+                             f"{launches}")
+    n, ts, ta, tw, tr = preemption.measure_ckpt(TOOLS_CKPT_D_MODEL, "cuda")
+    return {"serving": rows, "serving_launches": launches,
+            "serving_steps": {k: e._steps for k, (e, _, _) in served.items()},
+            "ckpt": {"d_model": TOOLS_CKPT_D_MODEL, "state_bytes": n,
+                     "save_s": ts, "async_submit_s": ta, "async_wait_s": tw,
+                     "restore_s": tr}}
+
+
+def phase_tools(cases: dict) -> dict:
+    """Phase 19: (a) the tuning table, (b) the kernel bench and its gate,
+    (c) microbatches on the card, (d) the serving and checkpoint benches."""
+    bench = _load_script("benchmarks_torch/bench_kernels_torch.py")
+    out = {"phase": "tools", "card": card()}
+    t0 = time.perf_counter()
+    out["table"] = tools_table(bench, cases)
+    out["bench"] = tools_bench(bench)
+    out["microbatches"] = tools_microbatches(
+        _load_script("examples/quickstart_torch.py"))
+    out["benches"] = tools_benches(
+        _load_script("benchmarks_torch/bench_serving_torch.py"),
+        _load_script("benchmarks_torch/bench_preemption_torch.py"))
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if out["bench"]["violations"]:
+        raise AssertionError(f"the kernel bench's gate: "
+                             f"{out['bench']['violations']}")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
-                jb: dict, pg: dict, tc: dict, ms: dict, mt: dict) -> dict:
+                jb: dict, pg: dict, tc: dict, ms: dict, mt: dict,
+                tl: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -4264,7 +4457,10 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     summed over the 4 ranks serving qwen2-moe-a2.7b over a mesh (phase
     17); and every kernel with a rank's launches training tacc-100m over
     the (data 2, model 2) mesh, by rank, and its numbers at a rank's local
-    shapes there (phase 18: q (8, 128, 6, 64), rows (1024, 768))."""
+    shapes there (phase 18: q (8, 128, 6, 64), rows (1024, 768)); and every
+    kernel with its launches in quickstart's training on the card (phase
+    19 (c), 2 microbatches a step), the forward kernels also in the
+    serving bench's (phase 19 (d))."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -4400,6 +4596,13 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                                        "model 2), one rank (phase 18)",
                 mesh_train_shape={k: c.get(k) for k in ("q", "x") + keys
                                   if k in c})
+        if name in tl["microbatches"]["launches"]:
+            row.update(tools_launches={
+                "quickstart_train": tl["microbatches"]["launches"][name],
+                "serving_bench": tl["benches"]["serving_launches"].get(name)},
+                tools_launches_in="quickstart's 5 training steps, 2 "
+                                  "microbatches, and the serving bench "
+                                  "(phase 19)")
     return {"kernels": rows}
 
 
@@ -4436,10 +4639,11 @@ def main() -> None:
     tc = timed("16 tcloud", phase_tcloud)
     ms = timed("17 mesh_serve", phase_mesh_serve)
     mt = timed("18 mesh_train", phase_mesh_train)
+    tl = timed("19 tools", phase_tools, cases)
     emit({"phase_seconds": seconds, "card": card(),
           "total_s": time.perf_counter() - start})
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc, ms, mt))
+                     pg, tc, ms, mt, tl))
     emit({"ok": True, "device": dev})
 
 

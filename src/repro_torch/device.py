@@ -5,6 +5,7 @@ where there is none raises: the port never carries on quietly on the CPU.
 """
 from __future__ import annotations
 
+import subprocess
 from typing import Union
 
 import torch
@@ -19,3 +20,15 @@ def resolve_device(device: DeviceLike) -> torch.device:
             "device 'cuda' was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
     return d
+
+
+def card(device: DeviceLike = "cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them (a card set below
+    its limit runs slower under load), or ``cpu``."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()

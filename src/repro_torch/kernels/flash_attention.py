@@ -23,7 +23,9 @@ softmax scale of the true one: the padded terms add exact zeros, so the
 result is the unpadded function. ``lengths``
 (B,) int32 masks keys at or past lengths[b]. Masked scores are -1e30, so a
 row with no valid key averages V. ``p`` is rounded to v.dtype before the PV
-product. ``flash_attention.launches`` counts the forward kernel's launches.
+product. ``flash_attention.launches`` counts the forward kernel's launches
+and ``flash_attention.splits`` names the key split the last one ran
+(:func:`key_splits`, or the tuning table's entry for the shape).
 
 Gradients: :func:`flash_attention` goes through :class:`FlashAttentionFn`.
 When a gradient is needed its forward asks the kernel for the row
@@ -46,7 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 192)
@@ -205,7 +207,9 @@ KEY_SPLITS = 4
 def key_splits(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> int:
     """How many blocks share each 64-row q tile's keys in the f32 kernel on
     a card with ``sms`` SMs: :data:`KEY_SPLITS` where one block per q tile
-    would leave SMs idle, else 1 (and always 1 in bf16)."""
+    would leave SMs idle, else 1 (and always 1 in bf16). The default rule
+    of ``autotune.plan_key_splits``, which a tuning-table entry for the
+    shape overrides."""
     if dtype != torch.float32 or B * H * -(-S // 64) >= sms:
         return 1
     return KEY_SPLITS
@@ -277,8 +281,9 @@ def _forward_at(q, k, v, causal, lengths, want_lse, scale):
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if want_lse else None)
     # each run of keys' unnormalised o, row max and denominator
-    splits = key_splits(B, S, H, q.dtype, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+    splits, _ = autotune.plan_key_splits(
+        B, S, H, D, q.dtype,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     scratch = (torch.empty(splits * B * H * S * (D + 2), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
@@ -292,6 +297,7 @@ def _forward_at(q, k, v, causal, lengths, want_lse, scale):
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.splits = splits
     return o, lse
 
 
@@ -472,3 +478,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.splits = None

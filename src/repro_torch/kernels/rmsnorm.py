@@ -6,7 +6,10 @@ three variants (:data:`VARIANTS`): one warp per row for rows up to
 :data:`WARP_MAX_WIDTH` and one block per row up to :data:`MAX_WIDTH`, both
 with 16-byte accesses, and for a row or base that is not 16-byte aligned
 one block per row with one element per access. :func:`pick_variant`
-chooses; the source's header says why the design is what it is.
+chooses, unless the tuning table (``kernels/autotune.py``) holds a variant
+for the shape that the call can take; the backward always takes
+:func:`pick_variant`'s. The source's header says why the design is what it
+is.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors it
 launches its kernel or raises. ``rmsnorm.launches`` and
@@ -30,7 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 16384          # kMaxWidth in csrc/rmsnorm.cu: llama3-405b's d_model
@@ -88,15 +91,25 @@ def pick_variant(x: torch.Tensor, *others: torch.Tensor) -> int:
     and every base is 16-byte aligned, the warp layout up to WARP_MAX_WIDTH
     and the wide one up to MAX_WIDTH; else the scalar instantiation. Raises
     for a width no variant takes."""
-    D = x.shape[-1]
+    return variant_for(x.shape[-1], vector_access(x, *others))
+
+
+def variant_for(D: int, vector: bool) -> int:
+    """:func:`pick_variant`'s rule for rows of D, given whether the
+    16-byte variants take the call (:func:`vector_access`)."""
     if not 0 < D <= MAX_WIDTH:
         raise ValueError(f"rows of {D} are outside the kernels' widths "
                          f"1..{MAX_WIDTH}")
-    vector = (D * x.element_size() % 16 == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x, *others)))
     if not vector:
         return 2
     return 1 if D > WARP_MAX_WIDTH else 0
+
+
+def vector_access(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """Whether the 16-byte variants take these tensors: a row of ``x`` a
+    multiple of 16 bytes and every base 16-byte aligned."""
+    return (x.shape[-1] * x.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *others)))
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -145,7 +158,7 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
         return rmsnorm_plain(x, w, eps)
     _check(x, w)
     x, w = x.contiguous(), w.contiguous()
-    variant = pick_variant(x, w)
+    variant, _ = autotune.plan_rmsnorm_variant(x, w)
     y = torch.empty_like(x)
     D = x.shape[-1]
     if x.numel() == 0:
@@ -178,7 +191,7 @@ def _rmsnorm_residual_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
         return rmsnorm_residual_plain(x, r, w, eps)
     _check(x, w, r)
     x, r, w = x.contiguous(), r.contiguous(), w.contiguous()
-    variant = pick_variant(x, r, w)
+    variant, _ = autotune.plan_rmsnorm_variant(x, r, w)
     y = torch.empty_like(x)
     s = torch.empty_like(x)
     D = x.shape[-1]

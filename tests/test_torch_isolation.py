@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither jax nor the JAX package (nor
-do chip_smoke.py and the port's cluster example), its entry points refuse
-to fall back to the CPU, and chip_smoke.py refuses to run without a CUDA
-card."""
+do chip_smoke.py, the port's examples and its benches), its entry points
+refuse to fall back to the CPU, and chip_smoke.py refuses to run without a
+CUDA card."""
 import ast
 import os
 import pkgutil
@@ -16,6 +16,10 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLE = ROOT / "examples" / "train_cluster_torch.py"
+# scripts loaded by path: the examples and the benches of the port
+SCRIPTS = [EXAMPLE, ROOT / "examples" / "quickstart_torch.py",
+           ROOT / "examples" / "serve_batch_torch.py"] + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py"))
 
 
 def _port_modules():
@@ -47,9 +51,10 @@ def test_importing_every_port_module_loads_no_jax():
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "spec = importlib.util.spec_from_file_location(\n"
-        f"    'train_cluster_torch', {str(EXAMPLE)!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for path in {[str(p) for p in SCRIPTS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        path.rsplit('/', 1)[1][:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n")
@@ -68,7 +73,7 @@ def _imported(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", EXAMPLE],
+                         [ROOT / "chip_smoke.py"] + SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     top = {name.split(".")[0] for name in _imported(path)}
@@ -90,10 +95,12 @@ def test_entry_points_raise_without_a_card(tmp_path):
     from repro_torch.train import OptConfig, init_train_state
     cfg = get_config("tacc-100m", smoke=True)
     params = init_params(cfg, torch.Generator(), device="cpu")
-    spec = importlib.util.spec_from_file_location("train_cluster_torch",
-                                                  EXAMPLE)
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    scripts = {}
+    for path in SCRIPTS:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        scripts[path.stem] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(scripts[path.stem])
+    example = scripts["train_cluster_torch"]
 
     def provision_on_the_card():
         svc = TACC(str(tmp_path / "svc"))
@@ -114,7 +121,17 @@ def test_entry_points_raise_without_a_card(tmp_path):
                                       pages_per_seq=1),
                  lambda: tcloud_main(["--cluster-root",
                                       str(tmp_path / "tcloud"), "demo"]),
-                 lambda: example.main(["--smoke", "--steps", "3"])):
+                 lambda: example.main(["--smoke", "--steps", "3"]),
+                 lambda: scripts["quickstart_torch"].main(["--steps", "1"]),
+                 lambda: scripts["serve_batch_torch"].main(["--steps", "1"]),
+                 lambda: scripts["bench_kernels_torch"].main([]),
+                 lambda: scripts["bench_kernels_torch"].main(["--tune"]),
+                 lambda: scripts["bench_kernels_torch"].main([
+                     "--check", "--baseline", str(tmp_path / "none.json")]),
+                 lambda: scripts["bench_serving_torch"].main([]),
+                 lambda: scripts["bench_serving_torch"].run_bench(),
+                 lambda: scripts["bench_preemption_torch"].main([]),
+                 lambda: scripts["bench_preemption_torch"].measure_ckpt(64)):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 
