@@ -53,6 +53,8 @@ import torch                                                    # noqa: E402
 from repro_torch.configs import get_config, list_archs          # noqa: E402
 from repro_torch.device import card, resolve_device             # noqa: E402
 from repro_torch.kernels import autotune                        # noqa: E402
+from repro_torch.launch.count import (                          # noqa: E402
+    H100_SMS, HBM_BYTES_PER_S, PEAK_FLOPS)
 from repro_torch.models.attention import (                      # noqa: E402
     decode_attention_ref, write_kv_cache)
 from repro_torch.parallel.decode_attn import (                  # noqa: E402
@@ -62,11 +64,6 @@ from repro_torch.parallel.decode_attn import (                  # noqa: E402
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 RMS = importlib.import_module("repro_torch.kernels.rmsnorm")
 DEFAULT_OUT = os.path.join(ROOT, "BENCH_kernels_torch.json")
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W), as
-# chip_smoke.py uses them
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-H100_SMS = 132
 COLD_BYTES = 100e6         # twice the H100's 50 MB L2
 FRAC_LIMIT = 1.05          # a cold time this far under the bound is wrong
 WARM_ITERS = 50
@@ -248,10 +245,6 @@ def _bar_share(g: torch.Tensor, ref: torch.Tensor, rel: float) -> float:
     return float(d.max()) / scale / rel
 
 
-def _causal_pairs(B: int, S: int) -> int:
-    return B * S * (S + 1) // 2
-
-
 def _sms(device: torch.device) -> int:
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).multi_processor_count
@@ -280,10 +273,8 @@ class FlashKind:
         return err, err, FLASH_TOL[out.dtype], "abs", {}
 
     def work(self, d):
-        el = torch.finfo(d["dtype"]).bits // 8
-        B, S, H, KV, D = d["B"], d["S"], d["H"], d["KV"], d["D"]
-        nbytes = el * (2 * B * S * H * D + 2 * B * S * KV * D)
-        return nbytes, 4.0 * H * D * _causal_pairs(B, S), d["dtype"]
+        return FA.flash_work(d["B"], d["S"], d["H"], d["KV"], d["D"],
+                             d["dtype"])
 
     def plan(self, d, device, table):
         n, hit = autotune.plan_key_splits(
@@ -318,12 +309,8 @@ class FlashBwdKind(FlashKind):
         return share, err, 1.0, "share of phase 7's bar", {}
 
     def work(self, d):
-        el = torch.finfo(d["dtype"]).bits // 8
-        B, S, H, KV, D = d["B"], d["S"], d["H"], d["KV"], d["D"]
-        qb, kb, rows = B * S * H * D * el, B * S * KV * D * el, B * H * S * 4
-        # q o dO dq, k v dk dv, lse delta (phase 7's count)
-        return (4 * qb + 4 * kb + 2 * rows,
-                2.0 * D * H * _causal_pairs(B, S) * 5, d["dtype"])
+        return FA.flash_bwd_work(d["B"], d["S"], d["H"], d["KV"], d["D"],
+                                 d["dtype"])
 
     def plan(self, d, device, table):
         return "splits=1", False
@@ -365,11 +352,7 @@ class NormKind:
         return err, _max_abs(y, ry), tol, unit, exact
 
     def work(self, d):
-        el = torch.finfo(d["dtype"]).bits // 8
-        n = d["N"] * d["D"]
-        rows = 4 if self.residual else 2            # x (r) in, y (s) out
-        return el * rows * n + 4 * d["D"], (5.0 if self.residual else 4.0) \
-            * n, F32
+        return RMS.norm_work(d["N"], d["D"], d["dtype"], self.residual)
 
     def plan(self, d, device, table):
         v, hit = autotune.plan_rmsnorm_rows(d["N"], d["D"], d["dtype"],
@@ -407,10 +390,7 @@ class NormBwdKind(NormKind):
                 "share of phase 7's bar", {})
 
     def work(self, d):
-        el = torch.finfo(d["dtype"]).bits // 8
-        n = d["N"] * d["D"]
-        rows = 4 if self.residual else 3            # x dy (ds) in, dx out
-        return el * rows * n + 8 * d["D"], 8.0 * n, F32
+        return RMS.norm_bwd_work(d["N"], d["D"], d["dtype"], self.residual)
 
     def plan(self, d, device, table):
         return RMS.VARIANTS[RMS.variant_for(d["D"], _vector(d))], False

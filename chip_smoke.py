@@ -235,7 +235,25 @@ Phases, each printing one JSON line and raising on failure:
    each step's loss and grad norm within rel 1e-3, every kernel launched
    as the code counts. (d) The serving bench at the smoke config (every
    forward kernel launched, every request finished) and the checkpoint
-   bench at d_model 256.
+   bench at d_model 256;
+20. dryrun: the dry run (``repro_torch.launch.dryrun``, ROADMAP item 16f)
+   against the card's own counts. (a) tacc-100m at full width, one
+   process: phase 9's train step (16 x 128, remat="full"), a prefill of
+   (8, 512) and one decode step, each run on the card under the counter
+   (``launch/count.py``) and traced on the meta device: FLOPs by dtype and
+   each kernel's calls and work equal, each kernel's launches on the card
+   equal to its calls; the train state's bytes (params and AdamW) within
+   1% of the growth of ``torch.cuda.memory_allocated()`` while it is
+   built; each predicted peak within 25% of ``max_memory_allocated()``
+   above the call's start. (b) Phase 18's five cases: one rank's step
+   traced on ``Mesh.view((2, 2), ..., dry=True)`` at the case's rows must
+   tally the collectives of every live rank's step after the first, kind
+   by kind, count and bytes; the dry peak printed beside each rank's
+   ``peak_gb`` (gloo's staging has no place in it). (c) The two cells of
+   the reference's tiny check (tests/distributed_checks.py:235) on the
+   production mesh's 16 x 16 view: internlm2-1.8b ``train_4k`` and
+   qwen2-moe-a2.7b ``decode_32k``, each ``ok`` with FLOPs above 0, with
+   its H100 roofline row and whether a rank's peak fits the card.
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -252,7 +270,8 @@ phase 18's tacc-100m run with its numbers at the local shapes there, a
 row for each of K1b-dq and K1b-dkdv at D = 192 with its launches on
 each rank of phase 18's deepseek-v2 run and its numbers from phase 7,
 every kernel's launches in phase 19's quickstart training and serving
-bench; before it one line with each phase's wall seconds; and the last line
+bench and in phase 20 (a)'s counted train step, prefill and decode step;
+before it one line with each phase's wall seconds; and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -287,7 +306,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import tcloud as TC
 from repro_torch.core.executor import TorchTrainRuntime
 from repro_torch.core.schema import ResourceSpec, RuntimeEnv, TaskSpec
-from repro_torch.data import SyntheticLM, to_torch
+from repro_torch.data import SyntheticLM, input_specs, to_torch
 from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  flash_attention_bwd_plain,
                                  flash_attention_plain, flash_bwd_dkdv,
@@ -303,10 +322,16 @@ from repro_torch.kernels.flash_attention import _forward as flash_forward
 from repro_torch.kernels.flash_attention import _in_place as flash_in_place
 from repro_torch.kernels.rmsnorm import (REDUCE_LANES, REDUCERS, bwd_blocks,
                                          launch_empty, pick_variant)
-from repro_torch.launch.mesh import make_mesh
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+from repro_torch.launch import dryrun as DRY
+from repro_torch.launch.count import (H100_MEMORY_BYTES, HBM_BYTES_PER_S,
+                                      PEAK_FLOPS)
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import (Transformer, cast_for_compute, decode_step,
-                                init_params, init_serving_params, model_defs,
-                                prefill, state_from_jax, train_logits)
+                                init_cache, init_params, init_serving_params,
+                                model_defs, prefill, state_from_jax,
+                                train_logits)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -325,10 +350,6 @@ from repro_torch.serve import ServeEngine
 from repro_torch.train import (OptConfig, TrainConfig, build_train_step,
                                cross_entropy, init_train_state)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s,
-# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 MAX_BATCH, MAX_SEQ = 8, 512
 N_REQUESTS, MAX_NEW = 16, 32
@@ -3119,7 +3140,15 @@ def serve_stepwise(engine, prompts) -> tuple:
 
 
 def _mean_stats(rows) -> dict:
-    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
+    """Each count of ``rows`` (copies of ``collectives.STATS``) averaged,
+    and ``by_kind``'s kind by kind."""
+    out = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]
+           if k != "by_kind"}
+    kinds = sorted({kind for r in rows for kind in r["by_kind"]})
+    out["by_kind"] = {kind: {f: float(np.mean([
+        r["by_kind"].get(kind, {}).get(f, 0) for r in rows]))
+        for f in ("count", "bytes", "interpod_bytes")} for kind in kinds}
+    return out
 
 
 def _shard_cache(cache, specs, mesh) -> dict:
@@ -4432,10 +4461,210 @@ def phase_tools(cases: dict) -> dict:
     return out
 
 
+# -- phase 20 --------------------------------------------------------------
+
+DRY_PREFILL = (8, 512)          # (a)'s prefill: rows, tokens
+DRY_STATE_BAR = 0.01            # state bytes against the allocator's growth
+DRY_PEAK_BAR = 0.25             # predicted peak against the measured one
+# the reference's tiny dry-run check (tests/distributed_checks.py:235-245)
+DRY_CELLS = (("internlm2-1.8b", "train_4k"), ("qwen2-moe-a2.7b",
+                                              "decode_32k"))
+# each wrapper's counter record: the backward kernels count as one call
+DRY_NAMES = {"flash_attention": "flash_attention",
+             "flash_bwd_dq": "flash_attention_bwd",
+             "flash_bwd_dkdv": "flash_attention_bwd",
+             "rmsnorm": "rmsnorm", "rmsnorm_residual": "rmsnorm_residual",
+             "rmsnorm_bwd": "rmsnorm_bwd",
+             "rmsnorm_residual_bwd": "rmsnorm_residual_bwd"}
+
+
+def dry_compare(card_rec: dict, meta_rec: dict, launches: dict,
+                measured_peak: int) -> dict:
+    """(a)'s comparison of one call on the card with its dry run: FLOPs by
+    dtype and each kernel's record equal, each wrapper's launches equal to
+    its kernel's calls, and the predicted peak (the storages the call
+    made, ``peak_bytes_est`` less the arguments) against the allocator's."""
+    mem = meta_rec["memory"]
+    predicted = mem["peak_bytes_est"] - mem["argument_bytes"]
+    calls = {k: v["calls"] for k, v in meta_rec["kernels"].items()}
+    want = {fn: calls.get(DRY_NAMES[fn], 0) for fn in launches}
+    return {"flops_by_dtype": {"card": card_rec["flops_by_dtype"],
+                               "meta": meta_rec["flops_by_dtype"]},
+            "flops_equal": (card_rec["flops_by_dtype"]
+                            == meta_rec["flops_by_dtype"]),
+            "bytes_accessed": {"card": card_rec["bytes_accessed"],
+                               "meta": meta_rec["bytes_accessed"]},
+            "kernels_equal": card_rec["kernels"] == meta_rec["kernels"],
+            "kernels": meta_rec["kernels"],
+            "launches": launches, "launches_equal_calls": launches == want,
+            "peak_predicted_bytes": predicted,
+            "peak_measured_bytes": measured_peak,
+            "peak_rel": abs(predicted - measured_peak) / max(measured_peak,
+                                                             1),
+            "trace_s": meta_rec["trace_s"], "card_s": card_rec["trace_s"]}
+
+
+def dry_on_card(fn, *args) -> tuple:
+    """``fn(*args)`` once to warm (kernels loaded, cuBLAS's workspace,
+    K2b's scratch), then once counted: (its record, each wrapper's
+    launches in it, the allocator's peak above its start)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for fn_ in TRAIN_WRAPPERS:
+        fn_.launches = 0
+    rec, _ = DRY.measure(fn, *args, track="cuda")
+    torch.cuda.synchronize()
+    launches = {fn_.__name__: fn_.launches for fn_ in TRAIN_WRAPPERS}
+    return rec, launches, torch.cuda.max_memory_allocated() - start
+
+
+def dryrun_one_process() -> dict:
+    """Phase 20 (a)."""
+    cfg = get_config("tacc-100m")
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    state = init_train_state(
+        cfg, ocfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - a0
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = {k: torch.from_numpy(v).long().cuda()
+             for k, v in data.batch(0).items()}
+    step = build_train_step(cfg, ocfg, TrainConfig(), remat="full")
+    card_rec, launches, peak = dry_on_card(step, state, batch)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ms, mb, _ = DRY.train_args(cfg, ocfg, shape)
+    meta_rec, _ = DRY.measure(build_train_step(cfg, ocfg, TrainConfig(),
+                                               remat="full"), ms, mb)
+    state_bytes = sum(DRY.storage_bytes(ms).values())
+    out = {"train": dict(dry_compare(card_rec, meta_rec, launches, peak),
+                         state_bytes=state_bytes, state_grown_bytes=grown,
+                         state_rel=abs(state_bytes - grown) / grown,
+                         memory=meta_rec["memory"])}
+    params = cast_for_compute(cfg, state["params"], "cuda")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, params, device="cuda")
+    meta_model = Transformer(cfg, DRY.serving_params(cfg), device="meta")
+    rows, seq = DRY_PREFILL
+    toks = torch.from_numpy(SyntheticLM(cfg, rows, seq, seed=0).batch(0)[
+        "tokens"]).long().cuda()
+    lengths = torch.full((rows,), seq, dtype=torch.int32, device="cuda")
+    mbatch = DRY.as_batch(input_specs(cfg, ShapeConfig(
+        "prefill", seq, rows, "prefill")), rows, "meta")
+    mlen = torch.zeros(rows, dtype=torch.int32, device="meta")
+    cache = init_cache(cfg, rows, seq, "cuda")
+    mcache, mtok, _ = DRY.decode_args(
+        cfg, ShapeConfig("decode", seq, rows, "decode"), None, (), ())
+    with torch.inference_mode():
+        card_rec, launches, peak = dry_on_card(
+            lambda t, n: prefill(model, {"tokens": t}, n), toks, lengths)
+        meta_rec, _ = DRY.measure(
+            lambda b, n: prefill(meta_model, b, n), mbatch, mlen)
+        out["prefill"] = dry_compare(card_rec, meta_rec, launches, peak)
+        card_rec, launches, peak = dry_on_card(
+            lambda c, t: decode_step(model, c, t), cache, toks[:, 0])
+        meta_rec, _ = DRY.measure(
+            lambda c, t: decode_step(meta_model, c, t), mcache, mtok)
+        out["decode"] = dry_compare(card_rec, meta_rec, launches, peak)
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_mesh_cases(mt: dict) -> dict:
+    """Phase 20 (b): each case of phase 18 dry on rank 0's view of (data
+    2, model 2), its tally against every live rank's at step 2."""
+    out = {}
+    ocfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    for name, cfg, batch, steps in mesh_train_cases():
+        view = Mesh.view(*MESH_TRAIN, 0, dry=True)
+        state, rows, facts = DRY.train_args(
+            cfg, ocfg, ShapeConfig(name, TRAIN_SEQ, batch, "train"), view)
+        step = build_train_step(
+            cfg, ocfg, TrainConfig(), remat="full", mesh=view,
+            keep_grads=True, flags=RunFlags(
+                distributed=True, token_axes=train_batch_axes(view)))
+        rec, _ = DRY.measure(DRY.quiet_moe(step), state, rows)
+        live = [r[name]["steps"][1]["by_kind"] for r in mt["ranks"]]
+        out[name] = {"dry": rec["collectives"], "live_by_rank": live,
+                     "equal": all(t == rec["collectives"] for t in live),
+                     "rows": facts["rows"], "trace_s": rec["trace_s"],
+                     "dry_peak_gb": rec["memory"]["peak_bytes_est"] / 1e9,
+                     "peak_gb_by_rank": [r[name]["peak_gb"]
+                                         for r in mt["ranks"]]}
+    return out
+
+
+def dryrun_production() -> dict:
+    """Phase 20 (c)."""
+    roof = _load_script("benchmarks_torch/roofline_torch.py")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for arch, shape in DRY_CELLS:
+        rec = DRY.run_cell(arch, shape, "single")
+        row = roof.analyse_cell(rec) if rec["status"] == "ok" else None
+        out[f"{arch}__{shape}"] = {
+            "status": rec["status"], "error": rec.get("error"),
+            "flops": rec.get("full", {}).get("flops", 0.0),
+            "trace_s": rec.get("full", {}).get("trace_s"),
+            "memory": rec.get("full", {}).get("memory"),
+            "collectives": rec.get("full", {}).get("collectives"),
+            "roofline": row,
+            "fits_card": (None if row is None else
+                          rec["full"]["memory"]["peak_bytes_est"] <= total)}
+    out["card_total_memory_bytes"] = total
+    out["assumed_memory_bytes"] = H100_MEMORY_BYTES
+    return out
+
+
+def phase_dryrun(mt: dict) -> dict:
+    """Phase 20: (a), (b) and (c), each bar checked after the line is
+    printed."""
+    t0 = time.perf_counter()
+    one = dryrun_one_process()
+    t1 = time.perf_counter()
+    mesh = dryrun_mesh_cases(mt)
+    t2 = time.perf_counter()
+    prod = dryrun_production()
+    out = {"phase": "dryrun", "card": card(), "one_process": one,
+           "mesh_cases": mesh, "production": prod,
+           "bars": {"state_rel": DRY_STATE_BAR, "peak_rel": DRY_PEAK_BAR},
+           "seconds": {"one_process": t1 - t0, "mesh_cases": t2 - t1,
+                       "production": time.perf_counter() - t2}}
+    emit(out)
+    bad = []
+    for kind, c in one.items():
+        for k in ("flops_equal", "kernels_equal", "launches_equal_calls"):
+            if not c[k]:
+                bad.append(f"(a) {kind}: {k}")
+        if c["peak_rel"] > DRY_PEAK_BAR:
+            bad.append(f"(a) {kind}: peak {c['peak_predicted_bytes']} "
+                       f"against {c['peak_measured_bytes']}")
+    if one["train"]["state_rel"] > DRY_STATE_BAR:
+        bad.append(f"(a) state bytes {one['train']['state_bytes']} against "
+                   f"{one['train']['state_grown_bytes']}")
+    bad += [f"(b) {name}: tallies differ" for name, c in mesh.items()
+            if not c["equal"]]
+    bad += [f"(c) {cell}: {c['status']} {c['error']}"
+            for cell, c in prod.items() if isinstance(c, dict)
+            and (c["status"] != "ok" or not c["flops"] > 0)]
+    if bad:
+        raise AssertionError(f"phase 20: {bad}")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
                 jb: dict, pg: dict, tc: dict, ms: dict, mt: dict,
-                tl: dict) -> dict:
+                tl: dict, dr: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -4460,7 +4689,8 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     shapes there (phase 18: q (8, 128, 6, 64), rows (1024, 768)); and every
     kernel with its launches in quickstart's training on the card (phase
     19 (c), 2 microbatches a step), the forward kernels also in the
-    serving bench's (phase 19 (d))."""
+    serving bench's (phase 19 (d)); and every kernel with its launches in
+    phase 20 (a)'s counted train step, prefill and decode step."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -4603,6 +4833,14 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 tools_launches_in="quickstart's 5 training steps, 2 "
                                   "microbatches, and the serving bench "
                                   "(phase 19)")
+        one = dr["one_process"]
+        if name in one["train"]["launches"]:
+            row.update(dryrun_launches={
+                k: one[k]["launches"][name]
+                for k in ("train", "prefill", "decode")},
+                dryrun_launches_in="tacc-100m's counted train step, prefill "
+                                   "and decode step, each equal to the dry "
+                                   "run's calls (phase 20 (a))")
     return {"kernels": rows}
 
 
@@ -4640,10 +4878,11 @@ def main() -> None:
     ms = timed("17 mesh_serve", phase_mesh_serve)
     mt = timed("18 mesh_train", phase_mesh_train)
     tl = timed("19 tools", phase_tools, cases)
+    dr = timed("20 dryrun", phase_dryrun, mt)
     emit({"phase_seconds": seconds, "card": card(),
           "total_s": time.perf_counter() - start})
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc, ms, mt, tl))
+                     pg, tc, ms, mt, tl, dr))
     emit({"ok": True, "device": dev})
 
 

@@ -177,3 +177,10 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic attention (SSM / hybrid archs)."""
+    if shape.name == "long_500k":
+        return cfg.supports_long_context
+    return True

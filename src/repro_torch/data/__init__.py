@@ -1,6 +1,6 @@
 """Data pipelines. Port of ``repro/data``: the synthetic LM stream and the
 cluster traces the simulator replays."""
-from repro_torch.data.synthetic import SyntheticLM, to_torch
+from repro_torch.data.synthetic import SyntheticLM, input_specs, to_torch
 from repro_torch.data.trace import (SCALE_PRESETS, Incident,
                                     ReliabilityConfig, StreamTrace, Trace,
                                     TraceConfig, TraceJob, TraceReader,

@@ -6,8 +6,9 @@ with occasional uniform noise), which a model can learn. Batches are a pure
 function of (seed, step), so a restarted job resumes the exact stream, and
 each host's rows are a disjoint slice of the global batch. VLM batches
 carry precomputed patch embeddings, audio batches frame embeddings derived
-from the tokens through a fixed random table. ``input_specs`` (JAX shape
-structs for the dry run) is not ported.
+from the tokens through a fixed random table. ``input_specs`` gives the
+dry run (``launch/dryrun.py``) every model input of a cell as a tensor on
+the ``meta`` device, with the reference's keys, shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.train.loss import IGNORE
 
 
@@ -84,3 +85,31 @@ def to_torch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         if k in out:
             out[k] = out[k].long()
     return out
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                opt_cfg=None) -> Dict[str, torch.Tensor]:
+    """Meta tensors standing for every model input of one dry-run cell
+    (``repro/data/synthetic.py`` ``input_specs``): train and prefill take
+    whole-sequence batches, decode one new token per sequence (the cache is
+    built apart). Token ids and labels are int32, embeddings f32, as in
+    the reference."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = dict(dtype=torch.int32, device="meta")
+    f32 = dict(dtype=torch.float32, device="meta")
+    if shape.kind in ("train", "prefill"):
+        out: Dict[str, torch.Tensor] = {}
+        if cfg.input_mode == "embeds":
+            out["frame_embeds"] = torch.empty(B, S, cfg.d_model, **f32)
+        elif cfg.input_mode == "tokens+vision":
+            vt = cfg.vision_tokens
+            out["tokens"] = torch.empty(B, S - vt, **i32)
+            out["vision_embeds"] = torch.empty(B, vt, cfg.d_model, **f32)
+        else:
+            out["tokens"] = torch.empty(B, S, **i32)
+        if shape.kind == "train":
+            out["labels"] = torch.empty(B, S, **i32)
+        return out
+    if cfg.input_mode == "embeds":
+        return {"tokens": torch.empty(B, 1, cfg.d_model, **f32)}
+    return {"tokens": torch.empty(B, **i32)}

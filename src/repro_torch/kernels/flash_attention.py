@@ -39,6 +39,12 @@ package has no backward kernel: its gradient is XLA's autodiff of
 ``repro/models/attention.py`` ``flash_attention_xla``, which these hold to.
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` count their
 launches.
+
+On ``meta`` tensors (``launch/dryrun.py``) each wrapper runs its CUDA path
+up to the launch, and allocates what that path allocates (outputs, the
+f32 key-split scratch, planned for the H100's SMs), but launches nothing.
+:func:`flash_work` and :func:`flash_bwd_work` give a call's bytes and
+FLOPs, which a counter (``launch/count.py``) records once a call.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
+from repro_torch.launch import count
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 192)
@@ -215,10 +222,42 @@ def key_splits(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> int:
     return KEY_SPLITS
 
 
+def _causal_pairs(B: int, S: int, causal: bool) -> int:
+    """(query, key) pairs a call scores: each query's keys up to its own
+    under ``causal``, else every key."""
+    return B * S * (S + 1) // 2 if causal else B * S * S
+
+
+def flash_work(B: int, S: int, H: int, KV: int, D: int, dtype: torch.dtype,
+               causal: bool = True) -> count.Work:
+    """(bytes, FLOPs, dtype) of one forward: q and o at H heads, k and v at
+    KV heads, each moved once; QK^T and PV over the scored pairs."""
+    el = torch.finfo(dtype).bits // 8
+    return (el * (2 * B * S * H * D + 2 * B * S * KV * D),
+            4.0 * H * D * _causal_pairs(B, S, causal), dtype)
+
+
+def flash_bwd_work(B: int, S: int, H: int, KV: int, D: int,
+                   dtype: torch.dtype, causal: bool = True) -> count.Work:
+    """(bytes, FLOPs, dtype) of one backward (K1b-dq and K1b-dkdv): q, o,
+    dO and dq at H heads, k, v, dk and dv at KV heads, lse and delta; five
+    products over the scored pairs (QK^T again, dO V^T, dS K, dS^T Q and
+    P^T dO)."""
+    el = torch.finfo(dtype).bits // 8
+    qb, kb, rows = B * S * H * D * el, B * S * KV * D * el, B * H * S * 4
+    return (4 * qb + 4 * kb + 2 * rows,
+            2.0 * D * H * _causal_pairs(B, S, causal) * 5, dtype)
+
+
+def _work(fn, q, k, causal) -> count.Work:
+    B, S, H, D = q.shape
+    return fn(B, S, H, k.shape[2], D, q.dtype, causal)
+
+
 def _check(q, k, v, lengths) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cpu, cuda or meta "
+                         f"tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k/v must be (B,S,H,D) and (B,S,KV,D), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -268,9 +307,18 @@ def _forward(q, k, v, causal, lengths, want_lse):
                        1.0 / math.sqrt(D))
 
 
+def _fwd(q, k, v, causal, lengths, want_lse):
+    """:func:`_forward`, or on CPU tensors the plain version's (o made
+    contiguous, as the kernel's is: the model's reshape of it is then a
+    view on every device)."""
+    if q.device.type == "cpu":
+        o, lse = _plain_forward(q, k, v, causal, lengths)
+        return o.contiguous(), lse
+    return _forward(q, k, v, causal, lengths, want_lse)
+
+
 def _forward_at(q, k, v, causal, lengths, want_lse, scale):
     _check(q, k, v, lengths)
-    lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
     # project_qkv's k/v are strided views of the fused kv projection: both
     # kernels read them in place
@@ -280,12 +328,17 @@ def _forward_at(q, k, v, causal, lengths, want_lse, scale):
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)   # contiguous
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if want_lse else None)
-    # each run of keys' unnormalised o, row max and denominator
+    # each run of keys' unnormalised o, row max and denominator; a dry
+    # run plans the H100's splits
+    meta = q.device.type == "meta"
     splits, _ = autotune.plan_key_splits(
-        B, S, H, D, q.dtype,
+        B, S, H, D, q.dtype, count.H100_SMS if meta else
         torch.cuda.get_device_properties(q.device).multi_processor_count)
     scratch = (torch.empty(splits * B * H * S * (D + 2), dtype=torch.float32,
                            device=q.device) if splits > 1 else None)
+    if meta:
+        return o, lse
+    lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -348,10 +401,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     default 1/sqrt(head dim)."""
     lengths = None if lengths is None else lengths.contiguous()
     _check_bwd(q, k, v, lengths, (o, do), (lse,))
-    lib = build.load("flash_attention", _SIGNATURES)
     B, S, H, D = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return dq, delta
+    lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -377,10 +432,12 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     heads inside one block."""
     lengths = None if lengths is None else lengths.contiguous()
     _check_bwd(q, k, v, lengths, (do,), (lse, delta))
-    lib = build.load("flash_attention", _SIGNATURES)
     D = q.shape[-1]
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
               for _ in range(2))
+    if q.device.type == "meta":
+        return dk, dv
+    lib = build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dk.data_ptr(),
@@ -417,6 +474,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv): :func:`flash_attention_bwd_plain` for CPU tensors,
     else K1b-dq then K1b-dkdv on the inputs :func:`_bwd_inputs` gives (a
     small head dim zero-padded, as the forward runs it)."""
+    c = count.ACTIVE
+    if c is None:
+        return _bwd(q, k, v, o, lse, do, causal, lengths)
+    with c.kernel("flash_attention_bwd", _work(flash_bwd_work, q, k, causal)):
+        return _bwd(q, k, v, o, lse, do, causal, lengths)
+
+
+def _bwd(q, k, v, o, lse, do, causal, lengths):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          lengths=lengths)
@@ -452,10 +517,12 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, lengths):
         want = any(ctx.needs_input_grad[:3])
-        if q.device.type == "cpu":
-            o, lse = _plain_forward(q, k, v, causal, lengths)
+        c = count.ACTIVE
+        if c is None:
+            o, lse = _fwd(q, k, v, causal, lengths, want)
         else:
-            o, lse = _forward(q, k, v, causal, lengths, want)
+            with c.kernel("flash_attention", _work(flash_work, q, k, causal)):
+                o, lse = _fwd(q, k, v, causal, lengths, want)
         if want:
             ctx.save_for_backward(q, k, v, o, lse, lengths)
             ctx.causal = causal

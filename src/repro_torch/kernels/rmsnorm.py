@@ -25,6 +25,12 @@ the code (:data:`REDUCE_LANES`). The JAX package has no backward kernel;
 these hold to ``jax.grad`` of ``repro/kernels/ref.py`` ``rmsnorm_ref`` and
 of the model's unfused ``x + y; norm``. ``rmsnorm_bwd.launches`` and
 ``rmsnorm_residual_bwd.launches`` count their launches.
+
+On ``meta`` tensors (``launch/dryrun.py``) each wrapper runs its CUDA path
+up to the launch and allocates its outputs (and the backward its dw
+scratch) without launching. :func:`norm_work` and :func:`norm_bwd_work`
+give a call's bytes and FLOPs, which a counter (``launch/count.py``)
+records once a call.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import autotune, build
+from repro_torch.launch import count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 16384          # kMaxWidth in csrc/rmsnorm.cu: llama3-405b's d_model
@@ -127,9 +134,34 @@ _SIGNATURES = {
 }
 
 
+def norm_work(N: int, D: int, dtype: torch.dtype, residual: bool
+              ) -> count.Work:
+    """(bytes, FLOPs, dtype) of one forward over N rows of D: x (and r) in,
+    y (and s) out, w; the norm's f32 operations."""
+    el = torch.finfo(dtype).bits // 8
+    rows = 4 if residual else 2
+    return (el * rows * N * D + 4 * D, (5.0 if residual else 4.0) * N * D,
+            torch.float32)
+
+
+def norm_bwd_work(N: int, D: int, dtype: torch.dtype, residual: bool
+                  ) -> count.Work:
+    """(bytes, FLOPs, dtype) of one backward: x (or s), dy (and ds) in, dx
+    out, w in and dw out in f32."""
+    el = torch.finfo(dtype).bits // 8
+    rows = 4 if residual else 3
+    return el * rows * N * D + 8 * D, 8.0 * N * D, torch.float32
+
+
+def _work(fn, x: torch.Tensor, residual: bool) -> count.Work:
+    D = x.shape[-1]
+    return fn(x.numel() // max(D, 1), D, x.dtype, residual)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, *others: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cpu or cuda tensors, got {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cpu, cuda or meta tensors, got "
+                         f"{x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm takes float32 or bfloat16, got {x.dtype}")
     D = x.shape[-1]
@@ -149,7 +181,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
             ) -> torch.Tensor:
     """x: (..., D); w: (D,) float32. Returns rmsnorm(x) * w in x.dtype,
     differentiable in x and w."""
-    return RMSNormFn.apply(x, w, eps)
+    c = count.ACTIVE
+    if c is None:
+        return RMSNormFn.apply(x, w, eps)
+    with c.kernel("rmsnorm", _work(norm_work, x, False)):
+        return RMSNormFn.apply(x, w, eps)
 
 
 def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
@@ -161,7 +197,7 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
     variant, _ = autotune.plan_rmsnorm_variant(x, w)
     y = torch.empty_like(x)
     D = x.shape[-1]
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":
         return y
     lib = build.load("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -182,7 +218,11 @@ def rmsnorm_residual(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, r: (..., D). Returns (rmsnorm(s) * w, s) with s = x + r in x.dtype,
     differentiable in x, r and w."""
-    return RMSNormResidualFn.apply(x, r, w, eps)
+    c = count.ACTIVE
+    if c is None:
+        return RMSNormResidualFn.apply(x, r, w, eps)
+    with c.kernel("rmsnorm_residual", _work(norm_work, x, True)):
+        return RMSNormResidualFn.apply(x, r, w, eps)
 
 
 def _rmsnorm_residual_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
@@ -195,7 +235,7 @@ def _rmsnorm_residual_fwd(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     y = torch.empty_like(x)
     s = torch.empty_like(x)
     D = x.shape[-1]
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":
         return y, s
     lib = build.load("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -256,7 +296,11 @@ def _bwd_scratch(lib, device: torch.device, stream: int, D: int, blocks: int
 def _bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
          ds: Optional[torch.Tensor], eps: float
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of K2b (``ds`` None) or K3b on CUDA tensors: (dx, dw)."""
+    """One launch of K2b (``ds`` None) or K3b on CUDA tensors: (dx, dw).
+    On CPU tensors the plain version's."""
+    if x.device.type == "cpu":
+        return (rmsnorm_bwd_plain(x, w, dy, eps) if ds is None else
+                rmsnorm_residual_bwd_plain(x, w, dy, ds, eps))
     others = (dy,) if ds is None else (dy, ds)
     _check(x, w, *others)
     x, w = x.contiguous(), w.contiguous()
@@ -268,6 +312,9 @@ def _bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if N == 0:
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":     # the scratch a launch would take
+        torch.empty(BWD_BLOCKS * D, dtype=torch.float32, device=x.device)
+        return dx, dw
     entry = "rmsnorm_bwd" if ds is None else "rmsnorm_residual_bwd"
     lib = build.load("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -290,9 +337,11 @@ def _bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in x.dtype, dw f32) of rmsnorm at x for the cotangent dy."""
-    if x.device.type == "cpu":
-        return rmsnorm_bwd_plain(x, w, dy, eps)
-    return _bwd(x, w, dy, None, eps)
+    c = count.ACTIVE
+    if c is None:
+        return _bwd(x, w, dy, None, eps)
+    with c.kernel("rmsnorm_bwd", _work(norm_bwd_work, x, False)):
+        return _bwd(x, w, dy, None, eps)
 
 
 rmsnorm_bwd.launches = 0
@@ -304,9 +353,11 @@ def rmsnorm_residual_bwd(s: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dt, dw) of rmsnorm_residual from its saved sum s and the cotangents
     of (y, s); dt is the gradient of both x and r."""
-    if s.device.type == "cpu":
-        return rmsnorm_residual_bwd_plain(s, w, dy, ds, eps)
-    return _bwd(s, w, dy, ds, eps)
+    c = count.ACTIVE
+    if c is None:
+        return _bwd(s, w, dy, ds, eps)
+    with c.kernel("rmsnorm_residual_bwd", _work(norm_bwd_work, s, True)):
+        return _bwd(s, w, dy, ds, eps)
 
 
 rmsnorm_residual_bwd.launches = 0

@@ -12,7 +12,10 @@ mesh's order). It exposes what the sharding plans read of a JAX mesh
 A mesh is built only when the job's world size equals the product of its
 shape; one process without ``torch.distributed`` is a world of 1. The
 process group's backend is the caller's: ``nccl`` when each rank has its own
-card, ``gloo`` on the CPU and when ranks share one card.
+card, ``gloo`` on the CPU and when ranks share one card. :meth:`Mesh.view`
+is one rank's view of a mesh without a job; with ``dry`` its backend is
+``"dry"``, under which the collectives exchange nothing
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -72,15 +75,18 @@ class Mesh:
         # axes (in mesh order) -> (this rank's group, its members' global
         # ranks in ascending order, which is the group's rank order)
         self.groups: Dict[Axes, Tuple[object, List[int]]] = {}
+        self._spans: Dict[Axes, bool] = {}
 
     @classmethod
     def view(cls, shape: Sequence[int], axis_names: Sequence[str],
-             rank: int) -> "Mesh":
+             rank: int, dry: bool = False) -> "Mesh":
         """Rank ``rank``'s view of a mesh, without a job: its coordinates,
-        plans and blocks, but no process group, so no collective."""
+        plans and blocks, but no process group, so no collective; with
+        ``dry``, collectives that return empty results of their shapes
+        (backend ``"dry"``)."""
         mesh = cls.__new__(cls)
         mesh._layout(tuple(int(s) for s in shape), tuple(axis_names), rank)
-        mesh.backend = None
+        mesh.backend = "dry" if dry else None
         return mesh
 
     @property
@@ -96,6 +102,25 @@ class Mesh:
         order given."""
         sizes = self.sizes
         return tuple(a for a in axes if sizes.get(a, 1) > 1)
+
+    def members(self, axes: Sequence[str]) -> List[int]:
+        """The global ranks of this rank's group over ``axes``: those at
+        its coordinates on every other axis, in ascending order."""
+        live = set(self.live(axes))
+        return [r for r in range(math.prod(self.axis_sizes))
+                if all(c == self.coords[a] for a, c in
+                       self.coords_of(r).items() if a not in live)]
+
+    def spans_pods(self, axes: Sequence[str]) -> bool:
+        """Whether this rank's group over ``axes`` has members in more than
+        one pod (a mesh without a ``pod`` axis is one pod)."""
+        axes = self.live(axes)
+        if "pod" not in axes:
+            return False
+        if axes not in self._spans:
+            self._spans[axes] = len({self.coords_of(r)["pod"]
+                                     for r in self.members(axes)}) > 1
+        return self._spans[axes]
 
     def size(self, axes: Sequence[str]) -> int:
         sizes = self.sizes
@@ -128,18 +153,22 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     return Mesh(shape, axis_names)
 
 
+# (shape, axes) of each mesh, by multi_pod: 16x16 = 256 ranks, 2 pods =
+# 512; the tiny ones, 8 ranks for CPU integration tests (same axis names)
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+TINY_MESHES = {False: ((2, 4), ("data", "model")),
+               True: ((2, 2, 2), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16x16 = 256 ranks; multi-pod: 2 pods = 512."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*PRODUCTION_MESHES[multi_pod])
 
 
 def make_tiny_mesh(*, multi_pod: bool = False) -> Mesh:
     """8 ranks for CPU integration tests (same axis names)."""
-    shape = (2, 2, 2) if multi_pod else (2, 4)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*TINY_MESHES[multi_pod])
 
 
 def make_local_mesh() -> Mesh:

@@ -121,9 +121,21 @@ def tp_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     (``layers.row_parallel``), then ``bo``. Where the plan keeps the query
     heads whole (``wq`` not in ``tp_split``: heads that ``axis`` does not
     divide), every rank runs :func:`self_attention` on the whole
-    leaves."""
+    leaves. Where it splits their columns but not whole heads (tacc-100m's
+    12 query heads over 16 ranks, 48 columns each), every rank gathers
+    the split leaves whole, used alike on every rank (``invariant``: each
+    keeps its block of their gradient), and runs :func:`self_attention`
+    on them."""
     if "wq" not in tp_split:
         return self_attention(cfg, p, x, positions, lengths=lengths)[0]
+    n = mesh.size(mesh.live((axis,)))
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if H % n or (KV % n and n % KV):
+        whole = dict(p)
+        for k in sorted(tp_split):      # one order on every rank
+            whole[k] = all_gather(p[k], axis, mesh, dim=0 if k == "wo"
+                                  else -1, invariant=True)
+        return self_attention(cfg, whole, x, positions, lengths=lengths)[0]
     cfg_loc, local = tp_heads(cfg, p, mesh, axis, tp_split)
     q, k, v = project_qkv(cfg_loc, local, pvary(x, axis, mesh), positions)
     o = flash_attention(q, k, v, causal=True, lengths=lengths)

@@ -86,7 +86,12 @@ def route(cfg: ModelConfig, x: torch.Tensor, router_w: torch.Tensor
     if moe.norm_topk:
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     E = padded_experts(moe)
-    aux = {"f_sum": torch.bincount(top_i.flatten(), minlength=E).float(),
+    # each expert's assignments: bincount's counts, by a scatter whose
+    # output size is E (a dry run on meta cannot size bincount's)
+    picks = top_i.flatten()
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+        0, picks, torch.ones_like(picks))
+    aux = {"f_sum": counts.float(),
            "p_sum": probs.sum(0),
            # the unpadded logits, as the reference's
            "z_sum": torch.logsumexp(logits, -1).square().sum(),
@@ -146,6 +151,12 @@ def dispatch_routed(cfg: ModelConfig, p: Mapping, flat: torch.Tensor,
     read of the per-expert counts (counted by ``dispatch_routed.host_syncs``),
     then each non-empty expert's products on its own rows."""
     N, k = idx.shape
+    if flat.device.type == "meta":
+        raise NotImplementedError(
+            "dispatch_routed reads the per-expert counts on the host, which "
+            "a meta tensor does not hold: a dry run reaches the MoE through "
+            "moe_ep (RunFlags(distributed=True)); a dispatch without the "
+            "host read is ROADMAP R8's grouped GEMM")
     E = padded_experts(cfg.moe)
     order = torch.argsort(idx.flatten(), stable=True)
     counts = torch.bincount(idx.flatten(), minlength=E).tolist()

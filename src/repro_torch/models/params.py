@@ -336,13 +336,17 @@ def serving_plan(cfg: ModelConfig, mesh, ep_axis: str = "model"
 TP_AXIS = "model"
 
 
-def train_plan(cfg: ModelConfig, mesh) -> Dict[str, Spec]:
+def train_plan(cfg: ModelConfig, mesh,
+               rules: Optional[Mapping[str, AxisName]] = None
+               ) -> Dict[str, Spec]:
     """The layout a rank holds to train on ``mesh``: every leaf under
-    :func:`param_specs` (FSDP over ``data`` on the embed dim of matrices,
-    TP over ``model``), as JAX's ``state_shardings`` places params and both
-    AdamW moments. A leaf whose last dim is two halves (:func:`halves`)
-    is stored grouped: see :func:`grouped_columns`."""
-    return param_specs(model_defs(cfg), mesh)
+    :func:`param_specs` with ``rules`` (by default :data:`DEFAULT_RULES`:
+    FSDP over ``data`` on the embed dim of matrices, TP over ``model``;
+    :data:`POD_FSDP_RULES` adds ``pod`` to the FSDP axes), as JAX's
+    ``state_shardings`` places params and both AdamW moments. A leaf whose
+    last dim is two halves (:func:`halves`) is stored grouped: see
+    :func:`grouped_columns`."""
+    return param_specs(model_defs(cfg), mesh, rules)
 
 
 def tp_split(plan: Mapping[str, Spec], prefix: str, names: Iterable[str],
@@ -455,6 +459,28 @@ def shard_params(cfg: ModelConfig, params: Mapping[str, torch.Tensor], mesh,
     if set(plan) != set(params):
         raise ValueError(f"the plan does not name {cfg.name}'s params")
     return {k: local_shard(v, plan[k], mesh) for k, v in params.items()}
+
+
+def param_count(defs: Mapping[str, ParamDef]) -> int:
+    """Parameters in a flat ``{name: ParamDef}`` (``repro/models/params.py``
+    ``param_count``)."""
+    return sum(math.prod(d.shape) for d in defs.values())
+
+
+def abstract_params(defs: Mapping[str, ParamDef], *, mesh=None,
+                    plan: Optional[Mapping[str, Spec]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``{name: f32 tensor on the meta device}``: each leaf's shape, or with
+    ``mesh`` and ``plan`` this rank's block of it (``block_slices``), for
+    the dry run (nothing is allocated)."""
+    out = {}
+    for k, d in defs.items():
+        shape = d.shape
+        if plan is not None:
+            shape = tuple(sl.stop - sl.start for sl in
+                          block_slices(d.shape, plan[k], mesh))
+        out[k] = torch.empty(shape, dtype=torch.float32, device="meta")
+    return out
 
 
 def _fan_in(d: ParamDef) -> int:

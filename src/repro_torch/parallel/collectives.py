@@ -28,21 +28,53 @@ rank, so its backward takes this rank's block (``all_gather_invariant``).
 
 ``STATS`` counts what the module ran, forward and backward: ``collectives``,
 the ``bytes`` each rank sent, and the ``staged_bytes`` copied to the host
-and back.
+and back, as the backend ran them (a psum under gloo is an all_to_all, in
+pieces); and ``by_kind``, each logical collective once whatever the
+backend: ``all-reduce`` (:func:`psum`, :func:`psum_`, :func:`pmax`,
+:func:`pvary`'s backward), ``all-gather``, ``reduce-scatter`` and
+``all-to-all``, each with its ``count``, the ``bytes`` of its result on
+this rank (the measure of the reference's dry run, which reads XLA's
+result types) and the ``interpod_bytes`` of those whose group spans pods.
+
+Under the ``dry`` backend (``Mesh.view(..., dry=True)``, the dry run's
+mesh) nothing is exchanged: each collective returns an empty tensor of its
+result's shape and dtype on the input's device, with the same gradient
+rules, and is tallied as a live one is.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
-STATS: Dict[str, int] = {"collectives": 0, "bytes": 0, "staged_bytes": 0}
+STATS: Dict[str, Any] = {"collectives": 0, "bytes": 0, "staged_bytes": 0,
+                         "by_kind": {}}
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 
 
 def reset_stats() -> None:
+    """Every count to 0, and a new ``by_kind`` (a copy of ``STATS`` taken
+    before keeps its own)."""
     for k in STATS:
-        STATS[k] = 0
+        STATS[k] = {} if k == "by_kind" else 0
+
+
+def _tally(kind: str, shape, dtype: torch.dtype, axes, mesh) -> None:
+    """One logical collective of ``kind`` over the live ``axes`` whose
+    result on this rank has ``shape`` and ``dtype``."""
+    e = STATS["by_kind"].setdefault(
+        kind, {"count": 0, "bytes": 0, "interpod_bytes": 0})
+    b = math.prod(shape) * dtype.itemsize
+    e["count"] += 1
+    e["bytes"] += b
+    if mesh.spans_pods(axes):
+        e["interpod_bytes"] += b
+
+
+def _dry(mesh) -> bool:
+    return mesh.backend == "dry"
 
 
 def stages(backend, device: torch.device) -> bool:
@@ -107,6 +139,9 @@ def _reduce(t: torch.Tensor, axes, mesh, op, inplace: bool = False
     axes = mesh.live(_axes(axes))
     if not axes:
         return t
+    _tally("all-reduce", t.shape, t.dtype, axes, mesh)
+    if _dry(mesh):
+        return t if inplace else torch.empty_like(t)
     if mesh.backend == "gloo":
         n, group = mesh.size(axes), mesh.group(axes)[0]
         order = _order(mesh, axes)
@@ -145,7 +180,8 @@ def _order(mesh, axes) -> list:
     return [mesh.axis_index(axes, mesh.coords_of(r)) for r in members]
 
 
-def _all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+def _all_to_all(t: torch.Tensor, axes, mesh, tally: bool = True
+                ) -> torch.Tensor:
     axes = mesh.live(_axes(axes))
     if not axes:
         return t
@@ -153,6 +189,10 @@ def _all_to_all(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     if t.shape[0] % n:
         raise ValueError(f"all_to_all over {axes} ({n} ranks) of dim "
                          f"{t.shape[0]}")
+    if tally:
+        _tally("all-to-all", t.shape, t.dtype, axes, mesh)
+    if _dry(mesh):
+        return torch.empty_like(t)
     order = _order(mesh, axes)
     blocks = t.reshape(n, -1)
     if order != sorted(order):
@@ -172,6 +212,10 @@ def _all_gather(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     if not axes:
         return t
     n = mesh.size(axes)
+    shape = (n * t.shape[0],) + tuple(t.shape[1:])
+    _tally("all-gather", shape, t.dtype, axes, mesh)
+    if _dry(mesh):
+        return t.new_empty(shape)
 
     def run(buf, out):
         dist.all_gather_into_tensor(out, buf.reshape(-1),
@@ -195,8 +239,12 @@ def _psum_scatter(t: torch.Tensor, axes, mesh) -> torch.Tensor:
         raise ValueError(f"psum_scatter over {axes} ({n} ranks) of dim "
                          f"{t.shape[0]}")
     shape = (t.shape[0] // n,) + tuple(t.shape[1:])
+    _tally("reduce-scatter", shape, t.dtype, axes, mesh)
+    if _dry(mesh):
+        return t.new_empty(shape)
     if mesh.backend == "gloo":
-        return _all_to_all(t, axes, mesh).reshape(n, *shape).sum(0)
+        return _all_to_all(t, axes, mesh, tally=False).reshape(
+            n, *shape).sum(0)
     order = _order(mesh, axes)
     blocks = t.reshape(n, -1)
     if order != sorted(order):

@@ -56,9 +56,9 @@ def state_shardings(cfg: ModelConfig, mesh,
                     ) -> Dict[str, Any]:
     """The spec tree of :func:`init_train_state`'s state on ``mesh``:
     params and both AdamW moments under ``param_specs``, ``step``
-    replicated (``()``), as the reference's ``state_shardings``. The
-    port's state is laid out under the default rules (:func:`train_plan`);
-    ``rules`` gives the specs the reference would use under others."""
+    replicated (``()``), as the reference's ``state_shardings``, under
+    ``rules`` (the default rules when None), as :func:`train_plan` lays
+    out the port's state."""
     plan = param_specs(model_defs(cfg), mesh, rules)
     return {"params": plan, "opt": {"m": plan, "v": plan, "step": ()}}
 
@@ -147,7 +147,8 @@ def _sum_over_batch(grads: list, names: list, plan: Mapping, batch_axes,
 def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
                      tcfg: TrainConfig = TrainConfig(), *,
                      remat: str = "full", flags: RunFlags = RunFlags(),
-                     mesh=None, keep_grads: bool = False
+                     mesh=None, keep_grads: bool = False,
+                     rules: Optional[Mapping[str, AxisName]] = None
                      ) -> Callable[[State, Mapping[str, torch.Tensor]],
                                    Tuple[State, Dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
@@ -164,8 +165,10 @@ def build_train_step(cfg: ModelConfig, ocfg: OptConfig,
     MoE FFN runs ``moe_ep`` under ``flags``, and the metrics are the global
     batch's on every rank. ``keep_grads`` keeps the last step's gradients
     (this rank's blocks, summed over the ranks) as ``train_step.grads``.
+    ``rules`` are the training plan's (``params.train_plan``; the default
+    rules when None).
     """
-    plan = None if mesh is None else train_plan(cfg, mesh)
+    plan = None if mesh is None else train_plan(cfg, mesh, rules)
     batch_axes = () if mesh is None else train_batch_axes(mesh)
     built: Dict[str, Any] = {}
 

@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLE = ROOT / "examples" / "train_cluster_torch.py"
-# scripts loaded by path: the examples and the benches of the port
+# scripts loaded by path: the examples and the benches of the port, the
+# roofline, compare and run tools among them
 SCRIPTS = [EXAMPLE, ROOT / "examples" / "quickstart_torch.py",
            ROOT / "examples" / "serve_batch_torch.py"] + sorted(
     (ROOT / "benchmarks_torch").glob("*.py"))
@@ -44,7 +45,8 @@ def test_importing_every_port_module_loads_no_jax():
             "repro_torch.parallel.sharding", "repro_torch.models.params",
             "repro_torch.models.transformer", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.moe",
-            "repro_torch.ckpt.checkpoint"} <= set(mods)
+            "repro_torch.ckpt.checkpoint", "repro_torch.launch.dryrun",
+            "repro_torch.launch.count"} <= set(mods)
     assert len(mods) > 20
     code = (
         "import importlib, importlib.util, sys\n"
@@ -131,7 +133,8 @@ def test_entry_points_raise_without_a_card(tmp_path):
                  lambda: scripts["bench_serving_torch"].main([]),
                  lambda: scripts["bench_serving_torch"].run_bench(),
                  lambda: scripts["bench_preemption_torch"].main([]),
-                 lambda: scripts["bench_preemption_torch"].measure_ckpt(64)):
+                 lambda: scripts["bench_preemption_torch"].measure_ckpt(64),
+                 lambda: scripts["run_torch"].main([])):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
 

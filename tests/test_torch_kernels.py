@@ -225,17 +225,39 @@ def test_rmsnorm_width_constants_match_the_source():
     assert rms.MAX_WIDTH % (consts["kWideThreads"] * 8) == 0
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device the wrappers do not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(*shape):
+    return torch.empty(*shape).as_subclass(_Elsewhere)
+
+
 def test_wrappers_take_the_plain_path_for_cpu_tensors_only():
     """A tensor off the CPU never reaches a plain version: a CUDA tensor
-    launches the kernel, anything else raises."""
-    q = torch.empty(1, 64, 2, 64, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    launches the kernel, a meta tensor (the dry run) gets the kernel's
+    empty outputs and launches nothing, anything else raises."""
+    q = _elsewhere(1, 64, 2, 64)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         flash_attention(q, q[:, :, :1], q[:, :, :1])
-    x, w = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    x, w = _elsewhere(4, 64), _elsewhere(64)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         rmsnorm(x, w)
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         rmsnorm_residual(x, x, w)
+    held = (flash_attention.launches, rmsnorm.launches,
+            rmsnorm_residual.launches)
+    q = torch.empty(1, 64, 2, 64, device="meta")
+    x, w = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
+    assert flash_attention(q, q[:, :, :1], q[:, :, :1]).shape == q.shape
+    assert rmsnorm(x, w).shape == x.shape
+    assert [t.shape for t in rmsnorm_residual(x, x, w)] == [x.shape] * 2
+    assert held == (flash_attention.launches, rmsnorm.launches,
+                    rmsnorm_residual.launches)
 
 
 def test_build_without_the_toolkit_raises_naming_nvcc():
@@ -647,21 +669,29 @@ def test_rmsnorm_residual_bwd_plain_vs_jax_grad_of_unfused(shape):
 
 def test_backward_wrappers_refuse_other_devices():
     """The backward kernels' wrappers, like the forward ones, launch on
-    CUDA tensors or raise; they never compute a plain version off the
-    CPU."""
+    CUDA tensors, give empty outputs on meta ones or raise; they never
+    compute a plain version off the CPU."""
+    q = _elsewhere(1, 64, 2, 64)
+    lse = _elsewhere(1, 2, 64)
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        fa.flash_bwd_dq(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    x, w = _elsewhere(4, 64), _elsewhere(64)
+    rms = _rms_module()
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        rms.rmsnorm_bwd(x, w, x)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        rms.rmsnorm_residual_bwd(x, w, x, x)
     q = torch.empty(1, 64, 2, 64, device="meta")
     lse = torch.empty(1, 2, 64, device="meta")
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fa.flash_bwd_dq(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fa.flash_attention_bwd(q, q, q, q, lse, q)
+    assert [t.shape for t in fa.flash_attention_bwd(q, q, q, q, lse, q)
+            ] == [q.shape] * 3
     x, w = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
-    rms = _rms_module()
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rms.rmsnorm_bwd(x, w, x)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rms.rmsnorm_residual_bwd(x, w, x, x)
+    dx, dw = rms.rmsnorm_residual_bwd(x, w, x, x)
+    assert (dx.shape, dw.shape, dw.dtype) == (x.shape, w.shape,
+                                              torch.float32)
 
 
 @pytest.mark.parametrize("rows,variant,blocks", [
