@@ -51,6 +51,7 @@ from repro_torch.models.layers import apply_ffn, tp_apply_ffn
 from repro_torch.models.params import padded_experts
 from repro_torch.parallel.collectives import (all_gather, all_to_all, psum,
                                               pvary)
+from repro_torch.spans import span
 
 Aux = Dict[str, torch.Tensor]
 
@@ -149,25 +150,29 @@ def dispatch_routed(cfg: ModelConfig, p: Mapping, flat: torch.Tensor,
                     idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same sum as :func:`dense_routed` by a dropless dispatch: one host
     read of the per-expert counts (counted by ``dispatch_routed.host_syncs``),
-    then each non-empty expert's products on its own rows."""
-    N, k = idx.shape
-    if flat.device.type == "meta":
-        raise NotImplementedError(
-            "dispatch_routed reads the per-expert counts on the host, which "
-            "a meta tensor does not hold: a dry run reaches the MoE through "
-            "moe_ep (RunFlags(distributed=True)); a dispatch without the "
-            "host read is ROADMAP R8's grouped GEMM")
-    E = padded_experts(cfg.moe)
-    order = torch.argsort(idx.flatten(), stable=True)
-    counts = torch.bincount(idx.flatten(), minlength=E).tolist()
-    dispatch_routed.host_syncs += 1
-    rows = flat[order // k]                     # assignments, by expert
-    outs = [expert_ffn(p["w_in"][e], p["w_out"][e], part)
-            for e, part in enumerate(rows.split(counts)) if len(part)]
-    back = torch.empty_like(order)
-    back[order] = torch.arange(order.numel(), device=order.device)
-    y = torch.cat(outs)[back].reshape(N, k, -1)     # each row's k outputs
-    return (y.float() * w.float()[..., None]).sum(1)
+    then each non-empty expert's products on its own rows. Under a
+    profiler, the call is the span ``moe.dispatch`` and the read inside it
+    ``moe.host_read``."""
+    with span("moe.dispatch"):
+        N, k = idx.shape
+        if flat.device.type == "meta":
+            raise NotImplementedError(
+                "dispatch_routed reads the per-expert counts on the host, "
+                "which a meta tensor does not hold: a dry run reaches the "
+                "MoE through moe_ep (RunFlags(distributed=True)); a dispatch "
+                "without the host read is ROADMAP R8's grouped GEMM")
+        E = padded_experts(cfg.moe)
+        order = torch.argsort(idx.flatten(), stable=True)
+        with span("moe.host_read"):
+            counts = torch.bincount(idx.flatten(), minlength=E).tolist()
+            dispatch_routed.host_syncs += 1
+        rows = flat[order // k]                     # assignments, by expert
+        outs = [expert_ffn(p["w_in"][e], p["w_out"][e], part)
+                for e, part in enumerate(rows.split(counts)) if len(part)]
+        back = torch.empty_like(order)
+        back[order] = torch.arange(order.numel(), device=order.device)
+        y = torch.cat(outs)[back].reshape(N, k, -1)  # each row's k outputs
+        return (y.float() * w.float()[..., None]).sum(1)
 
 
 dispatch_routed.host_syncs = 0

@@ -30,6 +30,7 @@ from repro_torch.models.transformer import (RunFlags, Transformer,
                                             cast_for_compute, decode_step,
                                             init_cache, prefill)
 from repro_torch.parallel.sharding import cache_specs, local_shard
+from repro_torch.spans import span
 
 
 @dataclass
@@ -55,7 +56,9 @@ class ServeEngine:
     Weight matrices are cast to ``cfg.dtype`` once here
     (:func:`~repro_torch.models.transformer.cast_for_compute`). ``timings``
     holds the host-clock seconds of every prefill and decode step; both end
-    by copying logits to the host, which waits for the device.
+    by copying logits to the host, which waits for the device. Under a
+    profiler, each prefill and decode step and their phases (uploads, the
+    model's call, the splice, sampling) are spans (:mod:`repro_torch.spans`).
     """
 
     def __init__(self, cfg: ModelConfig, params: Mapping[str, torch.Tensor],
@@ -107,23 +110,30 @@ class ServeEngine:
         slot = self._free_slot()
         if slot is None:
             return None
-        t0 = time.perf_counter()
-        prompt = list(prompt)[: self.max_seq - max_new - 1]
-        toks = torch.zeros((1, self.max_seq), dtype=torch.long)
-        toks[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
-        lengths = torch.tensor([len(prompt)], dtype=torch.int32,
-                               device=self.device)
-        logits, row_cache = prefill(
-            self.model, {"tokens": toks.to(self.device)}, lengths,
-            flags=self.flags, mesh=self.mesh)
-        self._splice(slot, row_cache)
-        req = GenerationResult(self._next_id, prompt)
-        self._next_id += 1
-        first = self._pick(logits[0].cpu().numpy())
-        req.tokens.append(first)
-        self._slots[slot] = _Slot(req, max_new - 1, first)
-        self.timings["prefill"].append(time.perf_counter() - t0)
-        return req
+        with span("engine.prefill", self._next_id):
+            t0 = time.perf_counter()
+            prompt = list(prompt)[: self.max_seq - max_new - 1]
+            with span("engine.upload"):
+                toks = torch.zeros((1, self.max_seq), dtype=torch.long)
+                toks[0, :len(prompt)] = torch.as_tensor(prompt,
+                                                        dtype=torch.long)
+                lengths = torch.tensor([len(prompt)], dtype=torch.int32,
+                                       device=self.device)
+                toks = toks.to(self.device)
+            with span("model.prefill"):
+                logits, row_cache = prefill(
+                    self.model, {"tokens": toks}, lengths,
+                    flags=self.flags, mesh=self.mesh)
+            with span("engine.splice"):
+                self._splice(slot, row_cache)
+            with span("engine.sample"):
+                req = GenerationResult(self._next_id, prompt)
+                self._next_id += 1
+                first = self._pick(logits[0].cpu().numpy())
+                req.tokens.append(first)
+                self._slots[slot] = _Slot(req, max_new - 1, first)
+            self.timings["prefill"].append(time.perf_counter() - t0)
+            return req
 
     def _splice(self, slot: int, row_cache: Dict) -> None:
         specs = self.specs or [None] * len(self.cache["layers"])
@@ -156,36 +166,42 @@ class ServeEngine:
         occupied = [s.request is not None for s in self._slots]
         if not any(occupied):
             return []
-        t0 = time.perf_counter()
-        tokens = torch.tensor([s.last_token for s in self._slots],
-                              dtype=torch.long, device=self.device)
-        prev_lengths = self.cache["lengths"]
-        logits, self.cache = decode_step(self.model, self.cache, tokens,
-                                         flags=self.flags, mesh=self.mesh)
-        # the dense decode advances every row's length; freed slots must not
-        # keep walking (they would run past max_seq and corrupt the position
-        # a future splice resumes from), so pin them in place
-        self.cache["lengths"] = torch.where(
-            torch.tensor(occupied, device=self.device),
-            self.cache["lengths"], prev_lengths)
-        logits = logits.cpu().numpy()
-        finished = []
-        self._steps += 1
-        for i, s in enumerate(self._slots):
-            if s.request is None:
-                continue
-            nxt = self._pick(logits[i])
-            s.request.tokens.append(nxt)
-            s.last_token = nxt
-            s.remaining -= 1
-            hit_eos = self.eos_id is not None and nxt == self.eos_id
-            if s.remaining <= 0 or hit_eos:
-                s.request.done = True
-                finished.append(s.request)
-                self._slots[i] = _Slot()
-                self.cache["lengths"][i] = 0
-        self.timings["decode"].append(time.perf_counter() - t0)
-        return finished
+        with span("engine.decode"):
+            t0 = time.perf_counter()
+            with span("engine.upload"):
+                tokens = torch.tensor([s.last_token for s in self._slots],
+                                      dtype=torch.long, device=self.device)
+            prev_lengths = self.cache["lengths"]
+            with span("model.decode"):
+                logits, self.cache = decode_step(
+                    self.model, self.cache, tokens, flags=self.flags,
+                    mesh=self.mesh)
+            # the dense decode advances every row's length; freed slots must
+            # not keep walking (they would run past max_seq and corrupt the
+            # position a future splice resumes from), so pin them in place
+            with span("engine.upload"):
+                mask = torch.tensor(occupied, device=self.device)
+            self.cache["lengths"] = torch.where(
+                mask, self.cache["lengths"], prev_lengths)
+            with span("engine.sample"):
+                logits = logits.cpu().numpy()
+                finished = []
+                self._steps += 1
+                for i, s in enumerate(self._slots):
+                    if s.request is None:
+                        continue
+                    nxt = self._pick(logits[i])
+                    s.request.tokens.append(nxt)
+                    s.last_token = nxt
+                    s.remaining -= 1
+                    hit_eos = self.eos_id is not None and nxt == self.eos_id
+                    if s.remaining <= 0 or hit_eos:
+                        s.request.done = True
+                        finished.append(s.request)
+                        self._slots[i] = _Slot()
+                        self.cache["lengths"][i] = 0
+            self.timings["decode"].append(time.perf_counter() - t0)
+            return finished
 
     def run(self, requests: List[List[int]], max_new: int = 16
             ) -> List[GenerationResult]:
