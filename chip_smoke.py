@@ -55,8 +55,10 @@ Phases, each printing one JSON line and raising on failure:
    batch 16, seq 128, lr 3e-4, remat="full"): the loss on batch 0 and on
    a batch never trained on, taken without a gradient before the first
    step and after the last, must fall by stated margins, and every
-   forward and backward kernel must launch as often as the code says; a
-   torch.profiler window over 3 steps;
+   forward and backward kernel must launch as often as the code says
+   (the unembedding's split once a vocab block of 2,048 a microbatch, in
+   every train phase after this one too); a torch.profiler window over 3
+   steps;
 10. cluster: the scenario of examples/train_cluster_torch.py at full
    width through the port's TACC on the card: tacc-100m trained 60 steps
    (global batch 16, seq 128, lr 3e-4, checkpoints every 15 steps to a
@@ -254,6 +256,22 @@ Phases, each printing one JSON line and raising on failure:
    production mesh's 16 x 16 view: internlm2-1.8b ``train_4k`` and
    qwen2-moe-a2.7b ``decode_32k``, each ``ok`` with FLOPs above 0, with
    its H100 roofline row and whether a rank's peak fits the card.
+21. unembed: the unembedding at internlm2-1.8b's train-cell microbatch, x
+   (16384, 2048) bf16 against w (92544, 2048) f32, with a real loss's
+   cotangent: that ``torch.mm`` takes bf16 CUDA operands to an f32
+   result; forward and backward ms and the allocator's peak of the f32
+   product and of ``layers.unembed_product`` (the tensor-core path); its
+   logits, dx and dw against the f32 product's (``UNEMBED_BARS``: logits
+   rel 1e-5, dx and dw one bf16 ulp of the largest) and both against f64
+   on 1024 rows (the tensor-core dx and dw at most 3 times as many bf16
+   values off the f64 result's rounding as the f32 product's); the split
+   kernel (``kernels/bf16x3.py``) launched once a vocab block (46) in
+   each tensor-core backward and never in the f32 one, without spills,
+   bit-equal to its plain version on two of the blocks the backward
+   splits (an interior one of 2,048 columns and the last, of 384) read in
+   place, on every f32 exponent, an odd width, an unaligned base and one
+   row, its terms adding back to the values; one vocab block's split
+   timed, kernel and plain.
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -270,8 +288,8 @@ phase 18's tacc-100m run with its numbers at the local shapes there, a
 row for each of K1b-dq and K1b-dkdv at D = 192 with its launches on
 each rank of phase 18's deepseek-v2 run and its numbers from phase 7,
 every kernel's launches in phase 19's quickstart training and serving
-bench and in phase 20 (a)'s counted train step, prefill and decode step;
-before it one line with each phase's wall seconds; and the last line
+bench and in phase 20 (a)'s counted train step, prefill and decode step,
+and the split's numbers and launches from phase 21; before it one line with each phase's wall seconds; and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -316,6 +334,7 @@ from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  rmsnorm_residual_bwd,
                                  rmsnorm_residual_bwd_plain,
                                  rmsnorm_residual_plain)
+from repro_torch.kernels import bf16x3
 from repro_torch.kernels.flash_attention import _plain_forward
 from repro_torch.kernels.flash_attention import _bwd_inputs as bwd_inputs
 from repro_torch.kernels.flash_attention import _forward as flash_forward
@@ -448,8 +467,8 @@ def kernel_name(mangled: str) -> str:
     keys split over blocks: ``flash_fwd_f32<float, 64, split>``),
     ``flash_fwd_f32_merge<float, 64>`` or ``flash_bwd_dq_f32<float, 64>``,
     the norm kernels as
-    ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, others by their
-    mangled name."""
+    ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, the split as
+    ``split_bf16x3_kernel<4>``, others by their mangled name."""
     m = re.search(r"(flash_(?:fwd|bwd_[a-z]+)_(?:wgmma|f32)(?:_merge)?)"
                   r"I(f?|\d+__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?", mangled)
     if m:
@@ -463,6 +482,9 @@ def kernel_name(mangled: str) -> str:
         return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
                 f"residual={m.group(3)}, V={m.group(4)}, NV={m.group(5)}, "
                 f"{'wide' if m.group(6) == '1' else 'warp'}>")
+    m = re.search(r"(split_bf16x3_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
     m = re.search(r"(empty_kernel)", mangled)
     return m.group(1) if m else mangled
 
@@ -1357,17 +1379,26 @@ BWD_KERNELS = [
     ("rmsnorm_residual_bwd", rmsnorm_residual_bwd,
      "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "XLA's gradient of src/repro/models/transformer.py:187-189"),
+    ("split_bf16x3", bf16x3.split_bf16x3,
+     "src/repro_torch/kernels/csrc/bf16x3.cu",
+     "none: XLA's gradient of src/repro/models/layers.py:148 multiplies "
+     "the f32 cotangent in f32; the port splits it for tensor cores"),
 ]
 
 
-def expected_train_launches(cfg, steps: int) -> dict:
+def expected_train_launches(cfg, steps: int, vocab: "int | None" = None
+                            ) -> dict:
     """Launches of each kernel in ``steps`` train steps, from the code:
     every block runs under remat="full", so its forward runs twice
     (forward, then recomputed in the backward) and its backward once: K1
     and K1b in each attention or MLA layer, K2 for each mixer norm and
     MLA's latent norms (serve_launches counts them), K3 for each FFN after
     its mixer; out_norm (K2) lies outside the blocks; K2b and K3b each
-    give dx and dw in one launch, with no separate dw reduction."""
+    give dx and dw in one launch, with no separate dw reduction. The
+    unembedding lies outside the blocks too: a bf16 model's backward
+    splits its cotangent once a ``layers.VOCAB_BLOCK`` of the ``vocab``
+    rows a rank holds (all of them when None). A step here is one
+    microbatch."""
     specs = cfg.layer_specs
     attn = sum(spec.mixer in ("attn", "mla") for spec in specs)
     norms = len(specs) + sum(1 + bool(cfg.mla.q_lora_rank) for spec in specs
@@ -1376,7 +1407,10 @@ def expected_train_launches(cfg, steps: int) -> dict:
     per_step = {"flash_attention": 2 * attn, "rmsnorm": 2 * norms + 1,
                 "rmsnorm_residual": 2 * ffn, "flash_bwd_dq": attn,
                 "flash_bwd_dkdv": attn, "rmsnorm_bwd": norms + 1,
-                "rmsnorm_residual_bwd": ffn}
+                "rmsnorm_residual_bwd": ffn,
+                "split_bf16x3": (math.ceil((vocab or cfg.vocab_size)
+                                           / L.VOCAB_BLOCK)
+                                 if cfg.dtype == "bfloat16" else 0)}
     return {k: steps * v for k, v in per_step.items()}
 
 
@@ -4025,6 +4059,8 @@ def mesh_train_case(mesh, name: str, cfg, batch: int, steps: int,
         # live through the next step's forward and backward, beside its own
         step.grads = None
     launches = {fn.__name__: fn.launches for fn in TRAIN_WRAPPERS}
+    vocab = state["params"][
+        "embed.tok" if cfg.tie_embeddings else "embed.unembed"].shape[0]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     params_held = sum(t.numel() for t in state["params"].values())
@@ -4033,7 +4069,7 @@ def mesh_train_case(mesh, name: str, cfg, batch: int, steps: int,
                            os.path.join(work, f"{name}_params.pt"))
     out = {"steps": per_step, "grad_parts": parts, "move_parts": move,
            "launches": launches,
-           "expected_launches": expected_train_launches(cfg, steps),
+           "expected_launches": expected_train_launches(cfg, steps, vocab),
            "dropped": int(MOE.moe_ep.dropped), "init_s": init_s,
            "params_held": params_held, "peak_gb": peak_gb,
            "peak_reserved_gb": reserved_gb,
@@ -4475,7 +4511,8 @@ DRY_NAMES = {"flash_attention": "flash_attention",
              "flash_bwd_dkdv": "flash_attention_bwd",
              "rmsnorm": "rmsnorm", "rmsnorm_residual": "rmsnorm_residual",
              "rmsnorm_bwd": "rmsnorm_bwd",
-             "rmsnorm_residual_bwd": "rmsnorm_residual_bwd"}
+             "rmsnorm_residual_bwd": "rmsnorm_residual_bwd",
+             "split_bf16x3": "split_bf16x3"}
 
 
 def dry_compare(card_rec: dict, meta_rec: dict, launches: dict,
@@ -4661,10 +4698,221 @@ def phase_dryrun(mt: dict) -> dict:
     return out
 
 
+# -- phase 21 --------------------------------------------------------------
+
+# internlm2-1.8b's unembedding at a microbatch of its train cell: 8 x 2048
+# tokens, d_model 2048, vocab 92,544
+UNEMBED_SHAPE = (16384, 2048, 92544)
+UNEMBED_ITERS = 3
+# the tensor-core product's largest gap to the f32 one: the logits differ
+# by the order of their f32 sums alone (over the largest |f32| logit); dx
+# and dw also by their rounding to bf16, at most one bf16 ulp (in ulps of
+# the largest |f32| value). And against f64 on UNEMBED_F64_ROWS rows: the
+# share of dx's and dw's bf16 values that are not the f64 result rounded
+# to bf16, at most 3 times the f32 product's share (the tensor cores
+# truncate as they accumulate; blocks of layers.VOCAB_BLOCK vocab columns
+# and runs of layers.TC_RUN tokens keep that near an f32 sum's rounding)
+UNEMBED_BARS = {"logits": 1e-5, "dx_ulps": 1.0, "dw_ulps": 1.0,
+                "dx_mismatch_ratio": 3.0, "dw_mismatch_ratio": 3.0}
+UNEMBED_F64_ROWS = 1024   # token rows (logits, dx), vocab rows (dw) in f64
+
+
+def unembed_paths():
+    """The unembedding's two products, each from bf16 x and the f32
+    master w: ``layers.unembed``'s f32 one, autograd's backward in f32,
+    and the tensor-core one, ``layers.unembed_product``."""
+    return {"f32": lambda x, w: x.float() @ w.to(x.dtype).float().T,
+            "tensor_cores": lambda x, w: L.unembed_product(x, w.to(x.dtype))}
+
+
+def unembed_pass(fn, x, w, g) -> tuple:
+    """One forward and backward of ``fn`` with cotangent ``g``: (logits,
+    dx, dw, forward ms, backward ms) by CUDA events."""
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits = fn(xg, wg)
+    ev[1].record()
+    dx, dw = torch.autograd.grad(logits, (xg, wg), g)
+    ev[2].record()
+    ev[2].synchronize()
+    return (logits.detach(), dx, dw, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]))
+
+
+def unembed_cotangent(x, w) -> torch.Tensor:
+    """dlogits as the train cell's loss makes them: (softmax - one-hot) over
+    the step's 2 x 16,384 tokens, labels drawn at random."""
+    N, V = x.shape[0], w.shape[0]
+    g = torch.softmax(x.float() @ w.to(x.dtype).float().T, dim=-1)
+    labels = torch.randint(0, V, (N,), device=x.device,
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1))
+    g[torch.arange(N, device=x.device), labels] -= 1.0
+    return g.div_(2 * N)
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|, in f64."""
+    b = b.double()
+    return float((a.double() - b).abs().max() / b.abs().max())
+
+
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in bf16 ulps of max |b|."""
+    top = float(b.float().abs().max())
+    return float((a.double() - b.double()).abs().max()) / math.ldexp(
+        1.0, math.frexp(top)[1] - 8)
+
+
+def mismatch(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of ``a``'s elements that are not ``ref`` (f64) rounded to
+    bf16."""
+    return float((a.bfloat16() != ref.float().bfloat16()).double().mean())
+
+
+def split_cases(g: torch.Tensor) -> dict:
+    """``split_bf16x3``'s kernel against its plain version, bit for bit:
+    two of the blocks ``layers.UnembedProduct``'s backward splits, read
+    in place in the real cotangent (16-byte path), an interior one of
+    ``layers.VOCAB_BLOCK`` columns and the last, narrower one; random f32
+    of every exponent from 2**-149 to 2**127 with zeros and both signs,
+    a width that is no multiple of 4, a base 4 bytes off 16 and one row
+    (element path); and the terms' sum against the f32 values."""
+    vb, V = L.VOCAB_BLOCK, g.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bits = torch.randint(0, 2 ** 32, (4096, 1024), generator=gen,
+                         device="cuda", dtype=torch.int64)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    bits[:, ::7] = 0
+    bits[:, 1::7] &= 0x00FFFFFF                  # subnormals and tiny
+    rand = bits.view(torch.float32)
+    rand = torch.where(torch.isfinite(rand) & (rand.abs() < 3.38e38), rand,
+                       torch.zeros((), device="cuda"))
+    cases = {"cotangent_block": g[:, vb:2 * vb],
+             "cotangent_last_block": g[:, (V - 1) // vb * vb:],
+             "every_exponent": rand,
+             "width_1021": rand[:, :1021], "base_off_16": rand[:, 1:1021],
+             "one_row": rand[:1, 3:803]}
+    out = {}
+    for name, t in cases.items():
+        launches = bf16x3.split_bf16x3.launches
+        got = bf16x3.split_bf16x3(t)
+        want = bf16x3.split_bf16x3_plain(t)
+        torch.cuda.synchronize()
+        back = (got[:, 2].float() + got[:, 1].float()) + got[:, 0].float()
+        exact = (t == 0) | (t.abs() >= 2.0 ** -110)
+        out[name] = {"shape": list(t.shape),
+                     "launched": bf16x3.split_bf16x3.launches - launches,
+                     "equal_plain": bool(torch.equal(got, want)),
+                     "sum_exact": bool(torch.equal(back[exact], t[exact])),
+                     "sum_max_err_below_2^-110": float(
+                         (back - t)[~exact].abs().max())
+                     if bool((~exact).any()) else 0.0}
+    return out
+
+
+def phase_unembed(ptxas: dict) -> dict:
+    """Phase 21: the unembedding at internlm2-1.8b's shapes, x (16384,
+    2048) bf16 and w (92544, 2048) f32 (random, std 1 and 0.02), the
+    cotangent a real loss's: that ``torch.mm(..., out_dtype=float32)``
+    takes bf16 CUDA operands; forward and backward ms (best of
+    ``UNEMBED_ITERS`` after one warm pass) and the allocator's peak above
+    the start of each path; logits, dx and dw of the tensor-core product
+    against the f32 one, and both against f64 on ``UNEMBED_F64_ROWS`` rows
+    (``UNEMBED_BARS``); the split kernel launched once a vocab block in
+    each backward, against its plain version, and without spills; the
+    split of one vocab block timed alone."""
+    spills = require_no_spills(ptxas, ("split_bf16x3_kernel<4>",
+                                       "split_bf16x3_kernel<1>"),
+                               "unembed_spills")
+    N, D, V = UNEMBED_SHAPE
+    blocks = math.ceil(V / L.VOCAB_BLOCK)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(V, D, generator=gen, device="cuda") * 0.02
+    probe = torch.mm(x[:64], w[:128].bfloat16().T, out_dtype=torch.float32)
+    out = {"phase": "unembed", "card": card(), "torch": torch.__version__,
+           "shape": {"tokens": N, "d_model": D, "vocab": V},
+           "mm_out_dtype": str(probe.dtype), "bars": UNEMBED_BARS,
+           "split_spill_bytes": spills}
+    g = unembed_cotangent(x, w)
+    res, paths = {}, {}
+    calls = L.unembed_product.calls
+    for name, fn in unembed_paths().items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        unembed_pass(fn, x, w, g)                # warm: cuBLAS's choices
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        fwd, bwd, splits = [], [], []
+        for _ in range(UNEMBED_ITERS):
+            res[name] = None
+            launched = bf16x3.split_bf16x3.launches
+            res[name] = unembed_pass(fn, x, w, g)
+            splits.append(bf16x3.split_bf16x3.launches - launched)
+            fwd.append(res[name][3])
+            bwd.append(res[name][4])
+        flops = 2.0 * N * D * V
+        paths[name] = {"forward_ms": min(fwd), "backward_ms": min(bwd),
+                       "split_launches_per_pass": splits,
+                       "forward_ms_all": fwd, "backward_ms_all": bwd,
+                       "forward_tflops": flops / min(fwd) / 1e9,
+                       "peak_above_start_bytes":
+                           torch.cuda.max_memory_allocated() - start}
+    out["paths"] = paths
+    out["unembed_product_calls"] = L.unembed_product.calls - calls
+    tc, f32 = res["tensor_cores"], res["f32"]
+    out["gaps_to_f32"] = {"logits": rel_gap(tc[0], f32[0]),
+                          "dx_ulps": ulp_gap(tc[1], f32[1]),
+                          "dw_ulps": ulp_gap(tc[2], f32[2]),
+                          "dx": rel_gap(tc[1], f32[1]),
+                          "dw": rel_gap(tc[2], f32[2])}
+    r = UNEMBED_F64_ROWS
+    wb = w.to(torch.bfloat16).double()
+    ref = {"logits": x[:r].double() @ wb.T, "dx": g[:r].double() @ wb,
+           "dw": g[:, :r].double().T @ x.double()}
+    del wb
+    out["gaps_to_f64"] = {
+        name: {"logits": rel_gap(p[0][:r], ref["logits"]),
+               "dx": rel_gap(p[1][:r], ref["dx"]),
+               "dw": rel_gap(p[2][:r], ref["dw"]),
+               "dx_bf16_mismatch": mismatch(p[1][:r], ref["dx"]),
+               "dw_bf16_mismatch": mismatch(p[2][:r], ref["dw"])}
+        for name, p in res.items()}
+    f64 = out["gaps_to_f64"]
+    for k in ("dx", "dw"):
+        out["gaps_to_f32"][f"{k}_mismatch_ratio"] = (
+            f64["tensor_cores"][f"{k}_bf16_mismatch"]
+            / max(f64["f32"][f"{k}_bf16_mismatch"], 1e-9))
+    del res, tc, f32, ref
+    out["split"] = split_cases(g)
+    block = g[:, :L.VOCAB_BLOCK]
+    out["split_block_ms"] = {
+        "kernel": time_ms(lambda: bf16x3.split_bf16x3(block), 10),
+        "plain": time_ms(lambda: bf16x3.split_bf16x3_plain(block), 10),
+        "bound": nbytes(block) * 10 / 4 / HBM_BYTES_PER_S * 1e3}
+    out["split_blocks"] = blocks
+    emit(out)
+    bad = [k for k, bar in UNEMBED_BARS.items()
+           if not out["gaps_to_f32"][k] <= bar]
+    bad += [f"{name} split launches {p['split_launches_per_pass']}"
+            for name, p in paths.items()
+            if p["split_launches_per_pass"] != [
+                blocks if name == "tensor_cores" else 0] * UNEMBED_ITERS]
+    bad += [f"split {k}" for k, c in out["split"].items()
+            if not (c["equal_plain"] and c["sum_exact"] and c["launched"]
+                    and c["sum_max_err_below_2^-110"] <= 2.0 ** -134)]
+    if bad:
+        raise AssertionError(f"phase 21: {bad} beyond {UNEMBED_BARS}")
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
                 jb: dict, pg: dict, tc: dict, ms: dict, mt: dict,
-                tl: dict, dr: dict) -> dict:
+                tl: dict, dr: dict, ue: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -4690,7 +4938,9 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     kernel with its launches in quickstart's training on the card (phase
     19 (c), 2 microbatches a step), the forward kernels also in the
     serving bench's (phase 19 (d)); and every kernel with its launches in
-    phase 20 (a)'s counted train step, prefill and decode step."""
+    phase 20 (a)'s counted train step, prefill and decode step. The
+    split's numbers are phase 21's, on one vocab block of internlm2-1.8b's
+    microbatch cotangent, with its launches in each backward there."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -4760,7 +5010,20 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                               "f32": flash_row(f32, "dkdv", max(
                                   f32["dk_err"], f32["dv_err"]))},
            "rmsnorm_bwd": {**k2, "shape": k2["x"]},
-           "rmsnorm_residual_bwd": {**k3, "shape": k3["x"]}}
+           "rmsnorm_residual_bwd": {**k3, "shape": k3["x"]},
+           "split_bf16x3": {
+               "ms": ue["split_block_ms"]["kernel"],
+               "plain_ms": ue["split_block_ms"]["plain"],
+               "bound_ms": ue["split_block_ms"]["bound"],
+               "bound_by": "bytes",
+               "max_abs_err": 0.0 if all(
+                   c["equal_plain"] for c in ue["split"].values()) else None,
+               "shape": [ue["shape"]["tokens"], L.VOCAB_BLOCK],
+               "dtype": "float32",
+               "unembed_launches": ue["paths"]["tensor_cores"][
+                   "split_launches_per_pass"],
+               "unembed_launches_in": "each backward of internlm2-1.8b's "
+                                      "microbatch unembedding (phase 21)"}}
     for name, fn, src, what in BWD_KERNELS:
         c = per[name]
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -4768,8 +5031,9 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                      "launches_in": "train (phase 9)",
                      "cluster_launches": cluster["launches"][name],
                      **{k: c.get(k) for k in keys if k != "floor_ms"},
-                     "shape": c["shape"], "dtype": fl["dtype"],
-                     **{k: c[k] for k in ("f32", "dw") if k in c}})
+                     "shape": c["shape"], "dtype": c.get("dtype", fl["dtype"]),
+                     **{k: c[k] for k in ("f32", "dw", "unembed_launches",
+                                          "unembed_launches_in") if k in c}})
     # K1b at D = 192 (MLA's q/k width, bf16): phase 7's timed case, its
     # launches training deepseek-v2's layer 0 over (data 2, model 2)
     d192 = bwd["flash_d192"][0]
@@ -4809,7 +5073,7 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
         name = row["name"]
         if name in mt["launches"]:
             local = mt["kernels"]
-            c = local.get(name)
+            c = local.get(name, {})
             if name in ("flash_bwd_dq", "flash_bwd_dkdv"):
                 fb = local["flash_bwd"]
                 part = "dq" if name == "flash_bwd_dq" else "dkdv"
@@ -4879,10 +5143,11 @@ def main() -> None:
     mt = timed("18 mesh_train", phase_mesh_train)
     tl = timed("19 tools", phase_tools, cases)
     dr = timed("20 dryrun", phase_dryrun, mt)
+    ue = timed("21 unembed", phase_unembed, ptxas)
     emit({"phase_seconds": seconds, "card": card(),
           "total_s": time.perf_counter() - start})
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc, ms, mt, tl, dr))
+                     pg, tc, ms, mt, tl, dr, ue))
     emit({"ok": True, "device": dev})
 
 

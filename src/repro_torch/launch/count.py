@@ -188,7 +188,8 @@ class Counter(TorchDispatchMode):
         k["flops"] += flops
         k["bytes"] += nbytes
         if not self._quiet:
-            self._add_flops(dtype_name(dtype), flops)
+            if flops:                   # a split or copy does no product
+                self._add_flops(dtype_name(dtype), flops)
             self.bytes += nbytes
         self._quiet += 1
         try:
@@ -251,7 +252,10 @@ class Counter(TorchDispatchMode):
         self.ops += 1
         packet = func._overloadpacket
         if packet in flop_registry:
-            n = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            # the formulas take no out_dtype (``mm(..., out_dtype=)``'s
+            # overloads): drop it
+            fargs = tuple(a for a in args if not isinstance(a, torch.dtype))
+            n = float(flop_registry[packet](*fargs, **kwargs, out_val=out))
             src = ins[0] if ins else outs[0]
             self._add_flops(dtype_name(src.dtype), n)
             name = packet.__name__

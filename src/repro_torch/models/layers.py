@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.bf16x3 import split_bf16x3
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.params import TP_AXIS
 from repro_torch.parallel.collectives import psum, pvary
@@ -196,18 +197,128 @@ def embed_tokens(cfg: ModelConfig, p: Mapping, tokens: Optional[torch.Tensor],
     return x
 
 
+# device types whose ``aten::mm.dtype`` takes bf16 operands to an f32
+# result: the card's, and meta, which stands for the card in the dry run
+TENSOR_CORE_DEVICES = ("cuda", "meta")
+# vocab columns of the cotangent split at a time: a block's bf16 terms,
+# (N, 3, VOCAB_BLOCK), are all of the split that exists at once (201 MB
+# at internlm2-1.8b's microbatch of 16,384 tokens, where the whole
+# cotangent's would be 9.1 GB). dx contracts a block's 3 x VOCAB_BLOCK
+# products in one GEMM, lo and mid first, so the block also sets how many
+# hi products one of dx's accumulators sums.
+VOCAB_BLOCK = 2048
+# dw's hi products, cut over the tokens into runs this long, one
+# tensor-core accumulator a run, the runs added in f32. The tensor cores
+# truncate as they accumulate, so their f32 sum drifts toward zero with
+# its length: on an H100 at internlm2-1.8b's microbatch, dw's elements
+# summed over 3 x 16,384 products in one GEMM came out 36 times further
+# from f64 than the f32 product's; with dw's hi term in runs of 2,048 and
+# 2,048-column blocks, dx and dw have 1.06 times as many bf16 values off
+# the f64 result's rounding as the f32 product's (PERF.md §6). dw's lo and
+# mid terms are each summed over all the tokens in one GEMM (one GEMM for
+# both): they are about 2**-16 and 2**-8 of hi's size, so their drift
+# stays below the result's rounding. The forward's run is d_model, whole.
+TC_RUN = 2048
+
+
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices (or stacks of them), summed and
+    returned in f32: one tensor-core GEMM on the card; on the CPU, which
+    has no kernel for it, the f32 product of the upcast operands (the
+    same exact products, summed in another order)."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    if a.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _in_runs(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``h.T @ x`` of bf16 h (N, C) and x (N, D) in f32, each run of
+    ``TC_RUN`` tokens one tensor-core product (one batched GEMM for the
+    whole runs), the runs added in f32."""
+    N, C = h.shape
+    whole = N - N % TC_RUN
+    out = None
+    if whole:
+        runs = whole // TC_RUN
+        out = _product(h[:whole].view(runs, TC_RUN, C).transpose(1, 2),
+                       x[:whole].view(runs, TC_RUN, -1)).sum(0)
+    if whole < N:
+        tail = _product(h[whole:].T, x[whole:])
+        out = tail if out is None else out.add_(tail)
+    return out
+
+
+class UnembedProduct(torch.autograd.Function):
+    """f32 logits ``x @ w.T`` of bf16 x (N, D) and w (V, D) on tensor
+    cores: the forward one GEMM with f32 accumulation (the reference's
+    einsum with ``preferred_element_type=float32``). The backward takes
+    the f32 cotangent as three exact bf16 terms (:func:`split_bf16x3`,
+    ascending: lo, mid, hi), ``VOCAB_BLOCK`` vocab columns at a time: the
+    block's part of dx in one GEMM over [lo | mid | hi], summed over the
+    blocks in f32; its rows of dw as the lo and mid terms' products in one
+    GEMM and the hi term's in runs of ``TC_RUN`` tokens, added in f32,
+    (lo + mid) + hi. dx and dw come back in x's and w's dtypes, as
+    autograd returns the f32 product's. x and w are kept for the backward
+    as they came."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return _product(x, w.T)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        N, V = g.shape
+        dx = None
+        dw = torch.empty_like(w)
+        for v in range(0, V, VOCAB_BLOCK):
+            parts = split_bf16x3(g[:, v:v + VOCAB_BLOCK])    # (N, 3, C)
+            C = parts.shape[2]
+            dx_v = _product(parts.view(N, 3 * C), w[v:v + C].repeat(3, 1))
+            dx = dx_v if dx is None else dx.add_(dx_v)
+            low = _product(parts[:, :2].reshape(N, 2 * C).T, x)
+            dw[v:v + C] = _in_runs(parts[:, 2], x).add_(
+                low[:C].add_(low[C:]))
+        return dx.to(x.dtype), dw
+
+
+def unembed_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:class:`UnembedProduct` over x's last dim: f32 logits (..., V);
+    ``unembed_product.calls`` counts the calls."""
+    unembed_product.calls += 1
+    logits = UnembedProduct.apply(x.reshape(-1, x.shape[-1]), w)
+    return logits.view(*x.shape[:-1], w.shape[0])
+
+
+unembed_product.calls = 0
+
+
 def unembed(cfg: ModelConfig, p: Mapping, x: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     """f32 logits of x against the (tied or separate) unembedding; with
     ``mesh``, the weight holds this rank's vocab rows and so do the logits
-    (``train.loss.cross_entropy`` takes them so)."""
+    (``train.loss.cross_entropy`` takes them so). A bf16 x on the card
+    (or meta) goes through :func:`unembed_product`; any other x takes the
+    f32 product of the upcast operands (``unembed.f32_calls`` counts those
+    calls): an f16 one too, whose weight a bf16 term of the cotangent
+    cannot meet in one exact product."""
     w = p["tok"] if cfg.tie_embeddings else p["unembed"]
     if mesh is not None:
         x = pvary(x, TP_AXIS, mesh)
-    # products of two x.dtype values are exact in f32: this is the
-    # reference's x.dtype einsum with f32 accumulation
-    logits = x.float() @ w.to(x.dtype).float().T
+    if x.dtype == torch.bfloat16 and x.device.type in TENSOR_CORE_DEVICES:
+        logits = unembed_product(x, w.to(x.dtype))
+    else:
+        unembed.f32_calls += 1
+        # products of two x.dtype values are exact in f32: this is the
+        # reference's x.dtype einsum with f32 accumulation
+        logits = x.float() @ w.to(x.dtype).float().T
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+unembed.f32_calls = 0

@@ -8,7 +8,8 @@ its formula); a dry rank's collectives tally equal to a live gloo rank's, and a
 6-head step whose model axis splits wq by columns held to one process and
 to JAX;
 the counter itself (a known peak, one record per kernel call, the same
-counts on the CPU and on meta); and the kernels' meta branch.
+counts on the CPU and on meta but for the unembedding, which runs the
+card's tensor-core path on meta); and the kernels' meta branch.
 """
 import dataclasses
 import json
@@ -32,6 +33,7 @@ from repro_torch.kernels import rmsnorm_residual, rmsnorm_residual_bwd
 from repro_torch.launch import count, dryrun
 from repro_torch.launch.count import Counter
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import layers as L
 from repro_torch.models import (Transformer, decode_step, prefill,
                                  state_from_jax)
 from repro_torch.models.params import (POD_FSDP_RULES, abstract_params,
@@ -327,6 +329,20 @@ def test_kernel_on_cpu_counted_once():
     assert count.ACTIVE is None
 
 
+@pytest.mark.parametrize("op", ["mm", "bmm"])
+def test_counter_counts_products_with_an_out_dtype(op):
+    """A bf16 product with an f32 result (``out_dtype``, the unembedding's
+    tensor-core path) counts its FLOPs under bf16, by its formula."""
+    m = dict(device="meta", dtype=torch.bfloat16)
+    lead = (3,) if op == "bmm" else ()
+    a, b = torch.empty(*lead, 8, 6, **m), torch.empty(*lead, 6, 5, **m)
+    with Counter("meta") as c:
+        out = getattr(torch, op)(a, b, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert c.flops == {"bfloat16": 2.0 * math.prod(lead) * 8 * 6 * 5}
+    assert c.flops_by_op == {op: c.flops["bfloat16"]}
+
+
 def test_no_counter_no_record(monkeypatch):
     """With no counter active a wrapper reads no work: it tests
     ``count.ACTIVE`` and calls its kernel (here the plain version)."""
@@ -392,11 +408,52 @@ def test_f32_key_split_scratch_planned_for_the_h100():
     assert c.peak == (q.numel() + splits * 12 * 512 * 66) * 4
 
 
+def _unembed_counts(cfg, device: str, rows: int, seq: int) -> dict:
+    """The counter's record of one unembedding, forward and backward, as a
+    train step runs it: bf16 activations against the f32 master."""
+    x = torch.zeros(rows, seq, cfg.d_model, dtype=torch.bfloat16,
+                    device=device, requires_grad=True)
+    w = torch.zeros(cfg.vocab_size, cfg.d_model, device=device,
+                    requires_grad=True)
+    g = torch.zeros(rows, seq, cfg.vocab_size, device=device)
+    name = "tok" if cfg.tie_embeddings else "unembed"
+    with Counter(device) as c:
+        logits = L.unembed(cfg, {name: w}, x)
+        torch.autograd.grad(logits, (x, w), g)
+    return c.report()
+
+
+def _less(rec: dict, part: dict, times: int) -> dict:
+    """``rec``'s FLOPs (by dtype and by op), bytes, ops and kernel records
+    less ``times`` ``part``'s, entries that reach 0 dropped."""
+    def sub(a: dict, b: dict) -> dict:
+        out = {k: a.get(k, 0.0) - times * b.get(k, 0.0)
+               for k in set(a) | set(b)}
+        return {k: v for k, v in out.items() if v}
+    kernels = {}
+    for name in set(rec["kernels"]) | set(part["kernels"]):
+        mine, less = (r["kernels"].get(name, {}) for r in (rec, part))
+        left = sub(*({k: r.get(k, 0) for k in ("calls", "flops", "bytes")}
+                     for r in (mine, less)))
+        if left:
+            kernels[name] = dict(left, dtype=mine["dtype"])
+    return {"flops_by_dtype": sub(rec["flops_by_dtype"],
+                                  part["flops_by_dtype"]),
+            "flops_by_op": sub(rec["flops_by_op"], part["flops_by_op"]),
+            "bytes_accessed": rec["bytes_accessed"]
+            - times * part["bytes_accessed"],
+            "ops": rec["ops"] - times * part["ops"], "kernels": kernels}
+
+
 def test_train_step_counts_equal_on_cpu_and_meta():
     """tacc-100m's smoke step, 2 microbatches, on the CPU with values and on
     meta: every op's FLOPs by dtype, bytes and each kernel's calls and
     work agree (the card's run is held to meta the same way in
-    chip_smoke.py phase 20)."""
+    chip_smoke.py phase 20), once each side's unembedding, counted alone
+    at the microbatch's shapes, is taken out: that is the one part that
+    differs by device. Meta runs the card's, 7 bf16 GEMMs (forward, and
+    the backward's three terms for dx and for dw) and the split of the
+    cotangent into those terms, the CPU the f32 product's 3 GEMMs."""
     cfg = get_config("tacc-100m", smoke=True)
     ocfg = OptConfig()
     tcfg = TrainConfig(n_microbatches=2)
@@ -408,9 +465,15 @@ def test_train_step_counts_equal_on_cpu_and_meta():
                             track="cpu")
     ms, mb, _ = dryrun.train_args(cfg, ocfg, shape, n_micro=2)
     meta, _ = dryrun.measure(build_train_step(cfg, ocfg, tcfg), ms, mb)
-    for k in ("flops_by_dtype", "flops_by_op", "bytes_accessed", "kernels",
-              "ops"):
-        assert cpu[k] == meta[k], k
+    gemm = 2.0 * 2 * 16 * cfg.d_model * cfg.vocab_size
+    u_cpu = _unembed_counts(cfg, "cpu", 2, 16)
+    u_meta = _unembed_counts(cfg, "meta", 2, 16)
+    assert u_cpu["flops_by_dtype"] == {"float32": 3 * gemm}
+    assert u_meta["flops_by_dtype"] == {"bfloat16": 7 * gemm}
+    assert u_cpu["kernels"] == {}
+    assert u_meta["kernels"]["split_bf16x3"]["bytes"] == (
+        2 * 16 * cfg.vocab_size * 10)          # f32 read, 3 bf16 written
+    assert _less(cpu, u_cpu, 2) == _less(meta, u_meta, 2)
     assert meta["memory"]["argument_bytes"] == cpu["memory"][
         "argument_bytes"]
     assert meta["memory"]["alias_bytes"] > 0

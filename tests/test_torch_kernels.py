@@ -1042,3 +1042,46 @@ def test_chip_smoke_names_every_flash_kernel(mangled, name):
     """chip_smoke.py reads ptxas's report and the SASS by these names; its
     spill checks look for the f32 forward's."""
     assert _chip_smoke().kernel_name(mangled) == name
+
+
+def test_bf16x3_entry_signature_matches_the_source():
+    """ctypes passes as many arguments as bf16x3.cu's C entry takes, each
+    pointer as a pointer, each 64-bit size as a long long; the wrapper
+    loads the library its source names."""
+    from repro_torch.kernels import bf16x3
+    src = (build.CSRC / "bf16x3.cu").read_text()
+    params = re.search(r"\nint split_bf16x3\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()) for p in params.split(",")]
+    argtypes = bf16x3._SIGNATURES["split_bf16x3"]
+    assert len(params) == len(argtypes) == 7
+    for p, a in zip(params, argtypes):
+        assert ("*" in p) == (a is ctypes.c_void_p), (p, a)
+        assert ("long long" in p) == (a is ctypes.c_longlong), (p, a)
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (5, 7), (16, 4096), (3, 2432)])
+def test_bf16x3_split_on_meta_and_counted_once(rows, cols):
+    """On meta the wrapper returns the (rows, 3, cols) bf16 terms without a
+    launch; under a counter on the CPU it records its work once (4 bytes
+    read and 6 written an element, no FLOPs) and the plain version's ops
+    inside are not counted; a block of columns of a wider matrix splits
+    as its copy does."""
+    from repro_torch.kernels import bf16x3
+    from repro_torch.launch.count import Counter
+    launches = bf16x3.split_bf16x3.launches
+    m = bf16x3.split_bf16x3(torch.empty(rows, cols, device="meta"))
+    assert (m.shape, m.dtype, m.device.type) == (
+        (rows, 3, cols), torch.bfloat16, "meta")
+    assert bf16x3.split_bf16x3.launches == launches
+    wide = torch.randn(rows, cols + 9,
+                       generator=torch.Generator().manual_seed(cols))
+    with Counter("cpu") as c:
+        parts = bf16x3.split_bf16x3(wide[:, 5:5 + cols])
+    assert c.kernels == {"split_bf16x3": {
+        "calls": 1, "flops": 0.0, "bytes": rows * cols * 10,
+        "dtype": "float32"}}
+    assert c.flops_by_op == {} and c.bytes == rows * cols * 10
+    assert torch.equal(parts, bf16x3.split_bf16x3_plain(
+        wide[:, 5:5 + cols].contiguous()))
+    with pytest.raises(TypeError):
+        bf16x3.split_bf16x3(wide.bfloat16())
