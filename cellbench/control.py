@@ -9,11 +9,11 @@ For each seed it prints one JSON line of readings, each a number that
 ``correct`` compares:
 
 - training: ``program`` (the program's checked steps, as a run makes
-  them), ``control`` (the plain reference computing its products from
-  float8 e4m3 operands, put in the program's place) and ``half_batch``
-  (the program training on half of each batch, the mean taken over it),
-  each against the float32 reference. A state left unchanged reads 1 by
-  construction (no gradient and no change).
+  them), ``control`` (the configuration's plain reference computing its
+  products from float8 e4m3 operands, put in the program's place) and
+  ``half_batch`` (the program training on half of each batch, the mean
+  taken over it), each against the float32 reference. A state left
+  unchanged reads 1 by construction (no gradient and no change).
 - serving: ``program`` (a run's mean served-token gap over a sample of
   the requests a short window finished) and ``control`` (the mean gap of
   the tokens the e4m3 reference puts first at the same positions), and
@@ -33,7 +33,6 @@ for p in (ROOT / "src", ROOT):
 
 from cellbench.harness import manifest                       # noqa: E402
 from cellbench.harness.cli import set_caches                 # noqa: E402
-from cellbench.reference import decoder                      # noqa: E402
 
 
 def train_readings(cell, seed: int, device) -> dict:
@@ -44,7 +43,7 @@ def train_readings(cell, seed: int, device) -> dict:
     k.free()
     ref = k.reference_readings(cell, seed, device)
     k.free()
-    low = k.reference_readings(cell, seed, device, mm=decoder.fp8_mm)
+    low = k.reference_readings(cell, seed, device, control=True)
     k.free()
     return {"program": k.numbers(prog, ref), "control": k.numbers(low, ref),
             "half_batch": k.numbers(half, ref)}
@@ -54,8 +53,8 @@ def serve_readings(cell, seed: int, device, seconds: float) -> dict:
     from cellbench.kinds import serve_closed as k
     keep = {}
     out = k.run(cell, seed, seconds, False, device, keep=keep)
-    low = k.reference_gaps(cell.config["model"], keep["params"],
-                           keep["picked"], control=decoder.fp8_mm)
+    low = k.reference_gaps(cell.config, keep["params"], keep["picked"],
+                           control=True)
     return {"program": {"served_gap_mean":
                         out["checks"]["served_gap_mean"]["value"]},
             "control": {"served_gap_mean": sum(low) / len(low)},

@@ -4,19 +4,27 @@ A cell names a configuration and a traffic mix. The configuration's file is
 the one its ``configs`` entry gives; the traffic mix is
 ``<bench>/traffic/<traffic>.json``; the limits that decide ``correct`` are
 ``<bench>/limits/<workload>.json``; a per-layer metric's reader is
-``<bench>/metrics/<metric>.py``. ``<bench>`` is the first of ``paths``. A
-later cell, configuration or metric is added as new files and entries.
+``<bench>/metrics/<metric>.py``; the plain reference a configuration's
+``reference`` names is ``<bench>/reference/<name>.py``. ``<bench>`` is the
+first of ``paths``. A later cell, configuration or metric is added as new
+files and entries.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
-# the harness's own directory: the code (kinds, metric readers) lives here
+# the harness's own directory: the code (kinds, metric readers, references)
+# lives here
 CODE = Path(__file__).resolve().parents[1]
+
+# what the kinds and the control call on a reference module
+REFERENCE_FUNCTIONS = ("exact", "f32_mm", "fp8_mm", "logits", "train")
 
 
 @dataclass
@@ -76,3 +84,22 @@ def reader(name: str) -> Callable[[Dict], Optional[float]]:
 def kind(name: str):
     """The module ``kinds/<name>.py`` that runs a traffic mix's kind."""
     return importlib.import_module(f"cellbench.kinds.{name}")
+
+
+def reference(config: Dict):
+    """The module ``reference/<name>.py`` that a configuration's
+    ``reference`` names. Raises ``LookupError`` naming the module where it
+    is not there or lacks one of ``REFERENCE_FUNCTIONS``."""
+    name = config.get("reference")
+    where = f"configuration {config.get('name')!r}: reference {name!r}"
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z_]\w*", name):
+        raise LookupError(f"{where} names no module of reference/")
+    path = CODE / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise LookupError(f"{where}: there is no {path}")
+    mod = importlib.import_module(f"cellbench.reference.{name}")
+    missing = [f for f in REFERENCE_FUNCTIONS if not callable(
+        getattr(mod, f, None))]
+    if missing:
+        raise LookupError(f"{where}: {path} has no {', '.join(missing)}")
+    return mod

@@ -8,10 +8,19 @@ from typing import Dict
 
 
 def model_config(config: Dict):
-    """The port's ``ModelConfig`` for a configuration file."""
-    from repro_torch.configs.base import LayerSpec, ModelConfig, MoEConfig
+    """The port's ``ModelConfig`` for a configuration file: ``prelayers``
+    and ``period`` as ``LayerSpec`` tuples, and each sub-config (``moe``,
+    ``mla``, ``mamba``, ``xlstm``) as its dataclass."""
+    from repro_torch.configs.base import (LayerSpec, MambaConfig,
+                                          MLAConfig, ModelConfig, MoEConfig,
+                                          XLSTMConfig)
+    subs = {"moe": MoEConfig, "mla": MLAConfig, "mamba": MambaConfig,
+            "xlstm": XLSTMConfig}
     m = dict(config["model"])
-    period = tuple(LayerSpec(**s) for s in m.pop("period"))
-    moe = m.pop("moe", None)
-    return ModelConfig(name=config["name"], period=period,
-                       moe=None if moe is None else MoEConfig(**moe), **m)
+    for key in ("prelayers", "period"):
+        if key in m:
+            m[key] = tuple(LayerSpec(**s) for s in m[key])
+    for key, cls in subs.items():
+        if m.get(key) is not None:
+            m[key] = cls(**m[key])
+    return ModelConfig(name=config["name"], **m)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from cellbench.harness.layers import specs
+
 # NVIDIA H100 SXM5 data sheet, dense, at 700 W: bf16 tensor-core FLOP/s,
 # float32 FLOP/s outside the tensor cores, HBM3 bytes/s
 PEAK_BF16 = 989e12
@@ -73,26 +75,108 @@ def bound_s(work: Work) -> Tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def params(m: Dict) -> Dict[str, float]:
-    """Parameters in matrix products: ``layer`` per layer as a token uses
-    them (a MoE layer: the router, its top-k experts and the shared block),
-    and ``unembed``."""
-    D, H, KV, hd = m["d_model"], m["n_heads"], m["n_kv_heads"], m["head_dim"]
-    attn = D * H * hd + D * 2 * KV * hd + H * hd * D
-    moe = m.get("moe")
-    if moe is None:
-        ffn = 3 * D * m["d_ff"]
-    else:
-        expert = 3 * D * moe["d_ff_expert"]
-        shared = 3 * D * moe.get("d_ff_shared", 0)
-        router = D * moe["n_experts"]
-        ffn = router + moe["top_k"] * expert + shared
-    return {"layer": attn + ffn, "unembed": m["vocab_size"] * D}
+def _mixer_params(m: Dict, mixer: str) -> int:
+    """A mixer's matrix parameters as its sequence pass multiplies a token
+    by them: MLA's query (``w_q``, or ``w_dq`` then ``w_uq``), its latent
+    and rope-key projections, the latent's up-projection and ``w_o``."""
+    D, H = m["d_model"], m["n_heads"]
+    if mixer == "attn":
+        KV, hd = m["n_kv_heads"], m["head_dim"]
+        return D * H * hd + D * 2 * KV * hd + H * hd * D
+    if mixer == "mla":
+        a = m["mla"]
+        dn, dr, dv = (a["qk_nope_head_dim"], a["qk_rope_head_dim"],
+                      a["v_head_dim"])
+        R, QR = a["kv_lora_rank"], a.get("q_lora_rank", 0)
+        q = D * QR + QR * H * (dn + dr) if QR else D * H * (dn + dr)
+        return q + D * R + D * dr + R * H * (dn + dv) + H * dv * D
+    raise ValueError(f"the harness counts no {mixer!r} mixer")
+
+
+def _ffn_params(m: Dict, ffn: str) -> int:
+    """An FFN's matrix parameters a token uses: a dense SwiGLU at ``d_ff``;
+    a MoE layer's router, its top-k experts and the shared block."""
+    D = m["d_model"]
+    if ffn == "none":
+        return 0
+    if ffn == "dense":
+        return 3 * D * m["d_ff"]
+    moe = m["moe"]
+    expert = 3 * D * moe["d_ff_expert"]
+    shared = 3 * D * moe.get("d_ff_shared", 0)
+    router = D * moe["n_experts"]
+    return router + moe["top_k"] * expert + shared
+
+
+def params(m: Dict) -> Dict[str, int]:
+    """Parameters in matrix products as a token uses them: ``layers``, over
+    every layer by its spec, and ``unembed``."""
+    return {"layers": sum(_mixer_params(m, s.mixer) + _ffn_params(m, s.ffn)
+                          for s in specs(m)),
+            "unembed": m["vocab_size"] * m["d_model"]}
+
+
+def _count(items) -> Dict:
+    """How many layers give each item, in the order of first appearance."""
+    out: Dict = {}
+    for x in items:
+        out[x] = out.get(x, 0) + 1
+    return out
+
+
+def attn_shapes(m: Dict) -> Dict[Tuple[int, int, int], int]:
+    """The (query heads, key/value heads, head dim) K1 and K1b are called
+    at in each attention layer, with the number of layers at each: a GQA
+    layer's own; MLA's (H, H, dn + dr), its keys rebuilt for every head
+    and V padded to dn + dr (``models/mla.py``), since a kernel's work
+    counts what it is called with."""
+    def shape(mixer):
+        if mixer == "attn":
+            return (m["n_heads"], m["n_kv_heads"], m["head_dim"])
+        a = m["mla"]
+        return (m["n_heads"], m["n_heads"],
+                a["qk_nope_head_dim"] + a["qk_rope_head_dim"])
+    return _count(shape(s.mixer) for s in specs(m)
+                  if s.mixer in ("attn", "mla"))
+
+
+def norm_calls(m: Dict) -> Dict[Tuple[int, bool], int]:
+    """The RMSNorm calls of one pass over a row, as {(width, residual):
+    calls}: each layer's mixer norm (K2) and, before a sequential FFN, the
+    residual add and norm (K3) at ``d_model``; an MLA layer's ``q_norm``
+    at ``q_lora_rank`` where it has one and ``kv_norm`` at
+    ``kv_lora_rank``; the final norm."""
+    D = m["d_model"]
+    calls = []
+    for s in specs(m):
+        calls.append((D, False))
+        if s.mixer == "mla":
+            a = m["mla"]
+            if a.get("q_lora_rank", 0):
+                calls.append((a["q_lora_rank"], False))
+            calls.append((a["kv_lora_rank"], False))
+        if s.ffn != "none" and not s.parallel:
+            calls.append((D, True))
+    return _count(calls + [(D, False)])
+
+
+def _attn_coef(m: Dict, mixer: str) -> float:
+    """FLOPs of one layer's attention a (query, key) pair: QK^T and PV,
+    MLA's at dn + dr and dv, as the model needs them."""
+    if mixer == "attn":
+        return 4.0 * m["n_heads"] * m["head_dim"]
+    if mixer == "mla":
+        a = m["mla"]
+        return (2.0 * m["n_heads"] * (a["qk_nope_head_dim"]
+                                      + a["qk_rope_head_dim"])
+                + 2.0 * m["n_heads"] * a["v_head_dim"])
+    return 0.0
 
 
 def attn_flops(m: Dict, pairs: float) -> float:
     """QK^T and PV of every layer over ``pairs`` (query, key) pairs."""
-    return 4.0 * m["n_heads"] * m["head_dim"] * pairs * m["n_layers"]
+    return sum(c * pairs * n for c, n in
+               _count(_attn_coef(m, s.mixer) for s in specs(m)).items())
 
 
 def train_flops(m: Dict, rows: int, S: int) -> float:
@@ -101,7 +185,7 @@ def train_flops(m: Dict, rows: int, S: int) -> float:
     embedding lookup not) x tokens, plus causal attention forward and
     backward (3 x its forward); no recompute."""
     p = params(m)
-    n = p["layer"] * m["n_layers"] + p["unembed"]
+    n = p["layers"] + p["unembed"]
     return 6.0 * n * rows * S + 3.0 * attn_flops(m, rows * causal_pairs(S))
 
 
@@ -109,7 +193,7 @@ def prefill_flops(m: Dict, L: int) -> float:
     """A prompt of L tokens: 2 x active parameters x L through the layers,
     attention over its causal pairs, and one row of logits."""
     p = params(m)
-    return (2.0 * p["layer"] * m["n_layers"] * L + attn_flops(m, causal_pairs(L))
+    return (2.0 * p["layers"] * L + attn_flops(m, causal_pairs(L))
             + 2.0 * p["unembed"])
 
 
@@ -117,5 +201,5 @@ def decode_flops(m: Dict, context: int) -> float:
     """One generated token that attends to ``context`` keys (itself
     included): 2 x active parameters, attention, one row of logits."""
     p = params(m)
-    return (2.0 * (p["layer"] * m["n_layers"] + p["unembed"])
+    return (2.0 * (p["layers"] + p["unembed"])
             + attn_flops(m, context))

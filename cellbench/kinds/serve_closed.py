@@ -16,12 +16,13 @@ in the window has its first token. A request's time to first token runs
 from when its client sent it to when its first token reached the host.
 
 After the window, a sample of the finished requests drawn from the seed
-(the longest among them) is run through the plain reference (float32, TF32
-off) over each prompt and its served tokens; the mean, over the sampled
-served tokens, of the gap by which a served token's logit lies below the
-reference's best is compared. (The widest gap, logged, does not separate
-the program from the e4m3 control by the factor of three a limit needs:
-it saturates at the spacing of the reference's top logits.)
+(the longest among them) is run through the plain reference that the
+configuration names (float32, TF32 off) over each prompt and its served
+tokens; the mean, over the sampled served tokens, of the gap by which a
+served token's logit lies below the reference's best is compared. (The
+widest gap, logged, does not separate the program from the e4m3 control by
+the factor of three a limit needs: it saturates at the spacing of the
+reference's top logits.)
 """
 from __future__ import annotations
 
@@ -32,10 +33,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cellbench.harness import compare, weights, work
+from cellbench.harness import compare, manifest, weights, work
 from cellbench.harness.program import model_config
 from cellbench.harness.tracing import capture, clock, log, span
-from cellbench.reference import decoder
 
 
 class Requests:
@@ -166,12 +166,13 @@ def sample(records: List[Dict], since: float, n: int, seed: int
     return [longest] + [rest[i] for i in sorted(pick)]
 
 
-def reference_gaps(m: Dict, params: Dict, picked: List[Dict],
-                   control: Optional[decoder.MatMul] = None) -> List[float]:
+def reference_gaps(config: Dict, params: Dict, picked: List[Dict],
+                   control: bool = False) -> List[float]:
     """The gap of every served token of the picked requests under the
-    float32 reference (or, with ``control``, of the tokens that reference
-    computed with the ``control`` products would put first)."""
-    decoder.exact()
+    configuration's float32 reference (or, with ``control``, of the tokens
+    that reference computed with its e4m3 products would put first)."""
+    ref, m = manifest.reference(config), config["model"]
+    ref.exact()
     out = []
     with torch.no_grad():
         for rec in picked:
@@ -179,13 +180,13 @@ def reference_gaps(m: Dict, params: Dict, picked: List[Dict],
             dev = params["embed.tok"].device
             seq = torch.as_tensor(prompt + served[:-1], device=dev)
             pos = range(len(prompt) - 1, len(prompt) - 1 + len(served))
-            ref = decoder.logits(m, params, seq, pos)
+            best = ref.logits(m, params, seq, pos)
             toks = served
-            if control is not None:
-                toks = decoder.logits(m, params, seq, pos,
-                                      mm=control).argmax(-1).tolist()
-            out += compare.token_gaps(ref, toks)
-            del ref
+            if control:
+                toks = ref.logits(m, params, seq, pos,
+                                  mm=ref.fp8_mm).argmax(-1).tolist()
+            out += compare.token_gaps(best, toks)
+            del best
     return out
 
 
@@ -243,7 +244,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    gaps = reference_gaps(m, params, picked)
+    gaps = reference_gaps(cell.config, params, picked)
     out["checks"] = {"served_gap_mean": {
         "value": sum(gaps) / len(gaps) if gaps else float("nan"),
         "limit": cell.limits["served_gap_mean"]}}

@@ -7,8 +7,9 @@ feed (this is also the warm-up: every kernel is built and every shape seen).
 Their losses, the first step's gradient as the optimizer took it (its first
 moment over 1 - b1) and each leaf's change after them are kept for the
 comparison. The window then runs further steps on fresh rows until
-``--seconds`` have passed. After it the plain reference (float32, TF32 off)
-follows the same checked steps from the same weights and rows.
+``--seconds`` have passed. After it the plain reference that the
+configuration names (float32, TF32 off) follows the same checked steps from
+the same weights and rows.
 """
 from __future__ import annotations
 
@@ -18,10 +19,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from cellbench.harness import compare, weights, work
+from cellbench.harness import compare, manifest, weights, work
 from cellbench.harness.program import model_config
 from cellbench.harness.tracing import capture, clock, log, span
-from cellbench.reference import decoder
 
 
 class Walk:
@@ -60,11 +60,10 @@ def change_norms(p: Dict[str, torch.Tensor], m: Dict, seed: int, device
     """Each leaf's distance from the seed's draw, the draw made again one
     group at a time."""
     out = {}
-    for leaves, t0 in weights.groups(m, seed, device, serving=False):
-        firsts = [t0] if len(leaves) == 1 else t0.unbind(0)
-        for name, w0 in zip(leaves, firsts):
+    for leaves in weights.groups(m, seed, device, serving=False):
+        for name, w0 in leaves:
             out[name] = float((p[name].float() - w0).norm())
-        del t0, firsts
+        del leaves, w0
     return out
 
 
@@ -182,18 +181,22 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     return out
 
 
-def reference_readings(cell, seed: int, device, mm=decoder.f32_mm) -> Dict:
-    """The reference's losses, first clipped gradients and changes over the
-    checked steps, from the seed's weights and rows."""
+def reference_readings(cell, seed: int, device, control: bool = False
+                       ) -> Dict:
+    """The configuration's reference's losses, first clipped gradients and
+    changes over the checked steps, from the seed's weights and rows (with
+    ``control``, its products computed from e4m3 operands)."""
     m, tr = cell.config["model"], cell.traffic
+    ref = manifest.reference(cell.config)
     d = tr["data"]
     walk = Walk(m["vocab_size"], tr["global_batch"], tr["seq_len"], seed,
                 d["walk_a"], d["walk_b"], d["noise"])
-    decoder.exact()
+    ref.exact()
     p = weights.draw(m, seed, device, serving=False)
     batches = [(b["tokens"], b["labels"]) for b in
                (walk.batch(i, device) for i in range(tr["checked_steps"]))]
-    losses, first = decoder.train(m, p, batches, tr["opt"], tr["z_loss"], mm)
+    losses, first = ref.train(m, p, batches, tr["opt"], tr["z_loss"],
+                              ref.fp8_mm if control else ref.f32_mm)
     moved = change_norms(p, m, seed, device)
     del p, batches
     gc.collect()

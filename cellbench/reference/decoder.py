@@ -1,66 +1,27 @@
 """Plain PyTorch reference of the decoder-only transformers the benchmark
 runs: RMSNorm, RoPE (split halves), grouped-query causal attention with
-optional q/k/v biases, a SwiGLU FFN or a mixture of experts (softmax router,
-top-k, optional renormalisation, a shared SwiGLU block), a final RMSNorm and
-an untied unembedding.
+optional q/k/v biases in every layer, a SwiGLU FFN or a mixture of experts
+(softmax router, top-k, optional renormalisation, a shared SwiGLU block)
+by each layer's spec, a final RMSNorm and an untied unembedding.
 
 It follows the published architectures (InternLM2, Qwen2-MoE) in float32,
 with no kernel, cache or batching, and reads a configuration file's
 ``model`` section. Departures from the published models are those the
-configuration file lists. It imports nothing of the program: the weights
-are the tensors the benchmark drew (``harness/weights.py``), named as the
-program names them (``layers.<i>.mixer.wq`` and so on, matrices stored
-``(in, out)``, a SwiGLU ``w_in`` as ``[gate | up]``), read in float32 at
-each use. Call :func:`exact` before running it on a GPU, so that float32
-products are not computed in TF32.
-
-``mm`` is the one place a product of activations and weights is taken;
-:func:`fp8_mm` replaces it for the control, which computes those products
-from float8 (e4m3) operands.
+configuration file lists. It imports nothing of the program; its
+model-independent parts, and what the harness calls on every reference
+module (``exact``, ``f32_mm``, ``fp8_mm``), are ``parts.py``'s, and the
+weights are read as that file says.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
-Params = Mapping[str, torch.Tensor]
-MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def exact() -> None:
-    """float32 products in float32: TF32 off for matmuls and convolutions."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-def f32_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w.float()
-
-
-def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 with one scale per slice along ``dim``
-    (the absolute maximum mapped to 448), back in float32."""
-    amax = t.abs().amax(dim=dim, keepdim=True).clamp_min(1e-12)
-    scale = amax / 448.0
-    return (t / scale).to(torch.float8_e4m3fn).float() * scale
-
-
-def fp8_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` from e4m3 operands: x scaled per row, w per output column,
-    products summed in float32. The gradient passes through the rounding
-    unchanged (straight-through), as fp8 training does."""
-    w = w.float()
-    xq = x + (_fp8(x.detach(), -1) - x).detach()
-    wq = w + (_fp8(w.detach(), 0) - w).detach()
-    return xq @ wq
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * scale.float()
+from . import parts
+from .parts import (MatMul, Params, exact, experts,  # noqa: F401
+                    f32_mm, fp8_mm, layer_specs, lm_loss, rms_norm, swiglu)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -98,44 +59,21 @@ def attention(m: Dict, p: Params, pre: str, h: torch.Tensor,
     return mm(o.reshape(S, H * hd), p[pre + "wo"])
 
 
-def swiglu(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
-           mm: MatMul) -> torch.Tensor:
-    g, u = mm(h, w_in).chunk(2, dim=-1)
-    return mm(F.silu(g) * u, w_out)
-
-
-def experts(m: Dict, p: Params, pre: str, h: torch.Tensor,
-            mm: MatMul) -> torch.Tensor:
-    """The mixture of experts on h (S, D): each token's top-k experts by the
-    router's softmax (float32), their outputs summed with those weights
-    (renormalised over the k with ``norm_topk``), and the shared block."""
-    moe = m["moe"]
-    E = moe["n_experts"]
-    probs = torch.softmax(h @ p[pre + "router"].float()[:, :E], dim=-1)
-    top_p, top_i = torch.topk(probs, moe["top_k"], dim=-1)
-    if moe.get("norm_topk"):
-        top_p = top_p / top_p.sum(-1, keepdim=True)
-    y = torch.zeros_like(h)
-    for e in top_i.unique().tolist():
-        rows, slot = (top_i == e).nonzero(as_tuple=True)
-        out = swiglu(h[rows], p[pre + "w_in"][e], p[pre + "w_out"][e], mm)
-        y = y.index_add(0, rows, out * top_p[rows, slot][:, None])
-    if moe.get("n_shared"):
-        y = y + swiglu(h, p[pre + "shared_w_in"], p[pre + "shared_w_out"], mm)
-    return y
-
-
 def hidden(m: Dict, p: Params, tokens: torch.Tensor,
            mm: MatMul = f32_mm) -> torch.Tensor:
     """The final normed hidden states (S, D) of one sequence of token ids."""
     eps = m["norm_eps"]
     x = p["embed.tok"][tokens].float()
-    for i in range(m["n_layers"]):
+    for i, spec in enumerate(layer_specs(m)):
+        if spec.mixer != "attn" or spec.ffn not in ("dense", "moe") \
+                or spec.parallel:
+            raise ValueError(f"the decoder reference computes attention "
+                             f"then a dense or MoE FFN, not {spec}")
         pre = f"layers.{i}."
         h = rms_norm(x, p[pre + "mixer_norm.scale"], eps)
         x = x + attention(m, p, pre + "mixer.", h, mm)
         h = rms_norm(x, p[pre + "ffn_norm.scale"], eps)
-        if m.get("moe"):
+        if spec.ffn == "moe":
             x = x + experts(m, p, pre + "ffn.", h, mm)
         else:
             x = x + swiglu(h, p[pre + "ffn.w_in"], p[pre + "ffn.w_out"], mm)
@@ -155,71 +93,11 @@ def logits(m: Dict, p: Params, tokens: torch.Tensor,
 
 def loss(m: Dict, p: Params, tokens: torch.Tensor, labels: torch.Tensor,
          z_loss: float, mm: MatMul = f32_mm) -> torch.Tensor:
-    """Mean cross-entropy of one sequence plus ``z_loss`` times the mean
-    squared log-partition (the PaLM z-loss)."""
-    z = logits(m, p, tokens, mm=mm)
-    lse = torch.logsumexp(z, dim=-1)
-    ce = (lse - z.gather(-1, labels[:, None])[:, 0]).mean()
-    return ce + z_loss * lse.square().mean()
-
-
-def lr_at(opt: Dict, step: int) -> float:
-    """Linear warmup to ``lr`` over ``warmup_steps``, then a cosine to
-    ``lr * min_lr_ratio`` at ``total_steps``."""
-    if step < opt["warmup_steps"]:
-        return opt["lr"] * step / max(opt["warmup_steps"], 1)
-    prog = min(max((step - opt["warmup_steps"])
-                   / max(opt["total_steps"] - opt["warmup_steps"], 1), 0.0), 1.0)
-    return opt["lr"] * (opt["min_lr_ratio"] + (1 - opt["min_lr_ratio"])
-                        * 0.5 * (1 + math.cos(math.pi * prog)))
-
-
-@torch.no_grad()
-def adamw(opt: Dict, p: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-          m1: Dict[str, torch.Tensor], v1: Dict[str, torch.Tensor],
-          step: int) -> Dict[str, float]:
-    """One AdamW step in place: the gradient clipped to ``clip_norm`` by the
-    global norm, bias-corrected moments, decoupled weight decay on matrices
-    (two or more dims). Returns each leaf's clipped gradient's norm."""
-    gnorm = math.sqrt(sum(float(g.square().sum()) for g in grads.values()))
-    scale = opt["clip_norm"] / (gnorm + 1e-9) if gnorm > opt["clip_norm"] else 1.0
-    lr = lr_at(opt, step)
-    b1, b2 = opt["b1"], opt["b2"]
-    norms = {}
-    for k, w in p.items():
-        g = grads[k] * scale
-        norms[k] = float(g.norm())
-        m1[k].mul_(b1).add_(g, alpha=1 - b1)
-        v1[k].mul_(b2).addcmul_(g, g, value=1 - b2)
-        u = (m1[k] / (1 - b1 ** step)) / ((v1[k] / (1 - b2 ** step)).sqrt()
-                                          + opt["eps"])
-        decay = opt["weight_decay"] if w.dim() >= 2 else 0.0
-        w.sub_(lr * (u + decay * w))
-    return norms
+    """``parts.lm_loss`` of one sequence's logits."""
+    return lm_loss(logits(m, p, tokens, mm=mm), labels, z_loss)
 
 
 def train(m: Dict, p: Dict[str, torch.Tensor], batches, opt: Dict,
           z_loss: float, mm: MatMul = f32_mm):
-    """AdamW steps on ``p`` (float32 leaves, updated in place), one for each
-    (tokens, labels) batch of (B, S) rows, the loss the mean over rows.
-    Gradients accumulate one row at a time. Returns each step's loss and
-    the norm of each leaf's clipped gradient at the first step."""
-    m1 = {k: torch.zeros_like(w) for k, w in p.items()}
-    v1 = {k: torch.zeros_like(w) for k, w in p.items()}
-    losses, first = [], None
-    for step, (tokens, labels) in enumerate(batches, start=1):
-        leaves = {k: w.detach().requires_grad_() for k, w in p.items()}
-        total = 0.0
-        for r in range(tokens.shape[0]):
-            l = loss(m, leaves, tokens[r], labels[r], z_loss, mm) / tokens.shape[0]
-            l.backward()
-            total += float(l.detach())
-        grads = {k: (w.grad if w.grad is not None else torch.zeros_like(w))
-                 for k, w in leaves.items()}
-        for w in leaves.values():
-            w.grad = None
-        norms = adamw(opt, p, grads, m1, v1, step)
-        first = norms if first is None else first
-        del grads, leaves
-        losses.append(total)
-    return losses, first
+    """``parts.train`` on this module's :func:`loss`."""
+    return parts.train(loss, m, p, batches, opt, z_loss, mm)

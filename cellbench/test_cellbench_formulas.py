@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from cellbench import testing
 from cellbench.harness import manifest, stats, work
 from cellbench.harness.tracing import Trace, gaps, union
 from cellbench.kinds import serve_closed
@@ -55,7 +56,7 @@ def test_frozen_kernel_work_equals_the_programs(S, H, KV, D):
 
 def test_model_flops_by_hand():
     layer = 8 * 8 + 8 * 2 * 4 + 8 * 8 + 3 * 8 * 16
-    assert work.params(DENSE) == {"layer": layer, "unembed": 80}
+    assert work.params(DENSE) == {"layers": 2 * layer, "unembed": 80}
     attn = 4.0 * 2 * 4 * 10 * 2             # 10 pairs, 2 layers
     assert work.train_flops(DENSE, 1, 4) == 6.0 * (2 * layer + 80) * 4 \
         + 3 * attn
@@ -63,10 +64,37 @@ def test_model_flops_by_hand():
     assert work.decode_flops(DENSE, 5) == 2.0 * (2 * layer + 80) \
         + 4.0 * 2 * 4 * 5 * 2
     moe = dict(DENSE, moe={"n_experts": 4, "top_k": 2, "d_ff_expert": 16,
-                           "d_ff_shared": 32})
+                           "d_ff_shared": 32},
+               period=[{"mixer": "attn", "ffn": "moe"}])
     # the router, two of four experts and the shared block
-    assert work.params(moe)["layer"] == layer - 3 * 8 * 16 + 8 * 4 \
-        + 2 * 3 * 8 * 16 + 3 * 8 * 32
+    assert work.params(moe)["layers"] == 2 * (
+        layer - 3 * 8 * 16 + 8 * 4 + 2 * 3 * 8 * 16 + 3 * 8 * 32)
+
+
+def test_mla_model_flops_by_hand():
+    """tiny-mla: D 64, 4 heads, nope 16, rope 8, v 16, latent 32, no query
+    compression; a dense layer of 96, then two layers of 8 experts of 16
+    (top-3) and a shared block of 32; vocab 256."""
+    m = testing.MLA["model"]
+    q, dkv, kr, ukv, o = 64 * 4 * 24, 64 * 32, 64 * 8, 32 * 4 * 32, 4 * 16 * 64
+    mla = q + dkv + kr + ukv + o
+    dense = 3 * 64 * 96
+    moe = 64 * 8 + 3 * 3 * 64 * 16 + 3 * 64 * 32
+    assert work.params(m) == {"layers": 3 * mla + dense + 2 * moe,
+                              "unembed": 256 * 64}
+    # QK^T at nope + rope, PV at v, per head and pair, in 3 layers
+    attn = 3 * (2 * 4 * 24 + 2 * 4 * 16) * 10
+    assert work.prefill_flops(m, 4) == 2.0 * (3 * mla + dense + 2 * moe) \
+        * 4 + attn + 2 * 256 * 64
+    # K1 at (H, H, nope + rope), V padded; kv_norm at the latent's width
+    assert work.attn_shapes(m) == {(4, 4, 24): 3}
+    assert work.norm_calls(m) == {(64, False): 4, (32, False): 3,
+                                  (64, True): 3}
+    mq = testing.MLA_Q["model"]          # with a query latent of 48
+    assert work.params(mq)["layers"] == work.params(m)["layers"] \
+        + 3 * (64 * 48 + 48 * 4 * 24 - q)
+    assert work.norm_calls(mq) == {(64, False): 4, (48, False): 3,
+                                   (32, False): 3, (64, True): 3}
 
 
 def test_the_published_models_parameters():
@@ -84,7 +112,7 @@ def test_the_published_models_parameters():
     assert count(il) == 1_889_110_016
     assert count(qw) == 14_315_735_040
     p = work.params(qw)
-    active = (p["layer"] * 24 + 2 * p["unembed"]) / 1e9   # with the embedding
+    active = (p["layers"] + 2 * p["unembed"]) / 1e9   # with the embedding
     assert abs(active - 2.69) < 0.02
 
 

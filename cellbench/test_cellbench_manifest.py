@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 
 from cellbench import testing
-from cellbench.harness import guard, manifest
+from cellbench.harness import guard, layers, manifest
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "cellbench"
@@ -56,9 +56,40 @@ def test_cell_reports_what_the_contract_asks(cell):
 
 @pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda e: e["name"])
 def test_configuration_files(entry):
+    """A configuration's ``model`` section against its source's published
+    keys, under Qwen2-MoE's names or DeepSeek-V2's (``n_routed_experts``,
+    ``n_shared_experts`` blocks of ``moe_intermediate_size``, the first
+    ``first_k_dense_replace`` layers dense, MLA's ranks and head dims)."""
     cfg = json.loads((ROOT / entry["file"]).read_text())
     assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
     assert cfg["reduced"] == entry["reduced"] == []
+    check_against_source(cfg)
+
+
+def test_deepseek_v2_key_names_are_checked():
+    """DeepSeek-V2-Lite's published keys against the ``model`` section a
+    configuration file would give it, whole: it passes the check, and the
+    harness lays it out as the port defines it, at its published 15.7e9
+    parameters."""
+    import math
+    from repro_torch.models.params import model_defs
+    from cellbench.harness import weights
+    from cellbench.harness.program import model_config
+    cfg = testing.DSV2_LITE
+    check_against_source(cfg)
+    shapes = {leaf: shape[1:] if weights.stacked(kind) else shape
+              for kind, shape, leaves, _, _ in weights.layout(cfg["model"])
+              for leaf in leaves}
+    assert shapes == {k: d.shape for k, d in
+                      model_defs(model_config(cfg)).items()}
+    assert round(sum(math.prod(s) for s in shapes.values()) / 1e9, 2) == 15.71
+    wrong = json.loads(json.dumps(cfg))
+    wrong["model"]["moe"]["d_ff_shared"] = 1408
+    with pytest.raises(AssertionError):
+        check_against_source(wrong)
+
+
+def check_against_source(cfg):
     pub, m = cfg["published"], cfg["model"]
     assert m["n_layers"] == pub["num_hidden_layers"]
     assert m["d_model"] == pub["hidden_size"]
@@ -67,15 +98,51 @@ def test_configuration_files(entry):
     assert m["vocab_size"] == pub["vocab_size"]
     assert m["rope_theta"] == pub["rope_theta"]
     assert m["norm_eps"] == pub["rms_norm_eps"]
-    assert m["head_dim"] * m["n_heads"] == m["d_model"]
-    if "moe" in m:
-        assert m["moe"]["n_experts"] == pub["num_experts"]
-        assert m["moe"]["top_k"] == pub["num_experts_per_tok"]
-        assert m["moe"]["d_ff_expert"] == pub["moe_intermediate_size"]
-        assert m["moe"]["d_ff_shared"] == pub["shared_expert_intermediate_size"]
-        assert m["moe"]["norm_topk"] == pub["norm_topk_prob"]
-    else:
+    specs = layers.specs(m)
+    if all(s.mixer == "attn" for s in specs):
+        assert m["head_dim"] * m["n_heads"] == m["d_model"]
+    if "mla" in m:
+        a = m["mla"]
+        assert a["kv_lora_rank"] == pub["kv_lora_rank"]
+        assert a["q_lora_rank"] == (pub["q_lora_rank"] or 0)
+        for k in ("qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim"):
+            assert a[k] == pub[k]
+    assert len(m.get("prelayers", [])) == pub.get("first_k_dense_replace",
+                                                  0)
+    if any(s.ffn == "dense" for s in specs):
         assert m["d_ff"] == pub["intermediate_size"]
+    if "moe" in m:
+        moe = m["moe"]
+        assert moe["n_experts"] == pub.get("num_experts",
+                                           pub.get("n_routed_experts"))
+        assert moe["top_k"] == pub["num_experts_per_tok"]
+        assert moe["d_ff_expert"] == pub["moe_intermediate_size"]
+        assert moe["d_ff_shared"] == pub.get(
+            "shared_expert_intermediate_size",
+            pub.get("n_shared_experts", 0) * pub["moe_intermediate_size"])
+        assert moe["norm_topk"] == pub["norm_topk_prob"]
+
+
+def test_a_reference_module_that_is_not_there_is_named(tmp_path):
+    """The kinds call only the module a configuration's ``reference``
+    names: one that is not there, or lacks a function the harness calls,
+    is an error that names it; nothing falls back to ``decoder``."""
+    from cellbench.kinds import serve_closed, train
+    root = testing.make_root(tmp_path)
+    path = root / "bench" / "configs" / "tiny-dense.json"
+    path.write_text(json.dumps(dict(testing.DENSE,
+                                    reference="no_such_reference")))
+    cell = manifest.load_cell(root, "tiny-dense.train")
+    with pytest.raises(LookupError, match="no_such_reference"):
+        train.reference_readings(cell, 1, "cpu")
+    with pytest.raises(LookupError, match="no_such_reference"):
+        serve_closed.reference_gaps(cell.config, {}, [])
+    with pytest.raises(LookupError, match="has no logits"):
+        manifest.reference(dict(testing.DENSE, reference="parts"))
+    with pytest.raises(LookupError, match="names no module"):
+        manifest.reference(dict(testing.DENSE, reference="../decoder"))
+    assert manifest.reference(testing.MOE).__name__ == \
+        "cellbench.reference.decoder"
 
 
 def test_a_cell_added_as_files_alone(tmp_path):

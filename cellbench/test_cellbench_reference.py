@@ -1,7 +1,9 @@
 """The plain reference against the program on the CPU, on tiny float32
 configurations of both families: the weights' names and shapes, the
 training logits, a served request's logits at prefill and through the
-cache, and three training steps' losses, gradients and changes."""
+cache, and three training steps' losses, gradients and changes. The tiny
+MLA configurations' drawn weights run through the port's training
+forward and its engine."""
 import json
 from pathlib import Path
 
@@ -18,14 +20,16 @@ from cellbench.reference import decoder
 CONFIGS = Path(__file__).parent / "configs"
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
-def test_drawn_leaves_are_the_programs(name):
+@pytest.mark.parametrize("cfg", [
+    json.loads((CONFIGS / f"{name}.json").read_text())
+    for name in ("internlm2-1.8b", "qwen2-moe-a2.7b")]
+    + [testing.MLA, testing.MLA_Q], ids=lambda c: c["name"])
+def test_drawn_leaves_are_the_programs(cfg):
     from repro_torch.models.params import model_defs
-    cfg = json.loads((CONFIGS / f"{name}.json").read_text())
     shapes = {}
-    for _, shape, leaves, _, _ in weights.layout(cfg["model"]):
+    for kind, shape, leaves, _, _ in weights.layout(cfg["model"]):
         for leaf in leaves:
-            shapes[leaf] = shape if len(leaves) == 1 else shape[1:]
+            shapes[leaf] = shape[1:] if weights.stacked(kind) else shape
     assert shapes == {k: d.shape for k, d in
                       model_defs(model_config(cfg)).items()}
 
@@ -87,3 +91,34 @@ def test_three_training_steps(tmp_path):
     assert got["loss_gap"] < 1e-5
     assert got["grad_gap"] < 1e-5 and got["change_gap"] < 1e-5
     assert len(compare.moved_leaves(ref["first"])) == len(ref["first"])
+
+
+@pytest.mark.parametrize("cfg", [testing.MLA, testing.MLA_Q],
+                         ids=lambda c: c["name"])
+def test_the_port_runs_drawn_mla_weights(cfg):
+    """A dense leading layer, then MLA with experts: the port's training
+    forward and its engine's prefill and absorbed decode run on the drawn
+    weights, to finite logits of the vocabulary's width."""
+    from repro_torch.models.transformer import Transformer, train_logits
+    from repro_torch.serve.engine import ServeEngine
+    m = cfg["model"]
+    p = weights.draw(m, 5, "cpu", serving=False)
+    model = Transformer(model_config(cfg), p, device="cpu")
+    tokens = torch.randint(0, m["vocab_size"], (2, 20),
+                           generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        got = train_logits(model, {"tokens": tokens}, remat="none")[0]
+    assert got.shape == (2, 20, m["vocab_size"]) and got.isfinite().all()
+    engine = ServeEngine(model_config(cfg),
+                         weights.draw(m, 5, "cpu", serving=True),
+                         max_batch=2, max_seq=32, device="cpu")
+    rows = []
+    pick = engine._pick
+    engine._pick = lambda logits, *a: rows.append(logits.copy()) or pick(
+        logits, *a)
+    req = engine.add_request(tokens[0, :11].tolist(), max_new=4)
+    while engine.active():
+        engine.step()
+    assert len(req.tokens) == 4 and len(rows) == 4
+    assert all(r.shape == (m["vocab_size"],) and np.isfinite(r).all()
+               for r in rows)

@@ -1,6 +1,9 @@
 """A benchmark root of test-only cells, made as files alone in a temporary
 directory: tiny configurations of the two families, with traffic mixes cut
-to a CPU's size, and their own limits."""
+to a CPU's size, and their own limits. Also two tiny MLA configurations
+(a dense leading layer, then MLA with experts and two shared ones; one
+without query compression, one with it), which the harness draws and
+counts and the port runs, but no cell."""
 from __future__ import annotations
 
 import json
@@ -13,7 +16,7 @@ DENSE = {"name": "tiny-dense", "model": {
     "n_kv_heads": 2, "head_dim": 16, "d_ff": 128, "vocab_size": 256,
     "rope_theta": 1e6, "norm_eps": 1e-5, "qkv_bias": False,
     "dtype": "float32", "param_dtype": "float32",
-    "period": [{"mixer": "attn", "ffn": "dense"}]}}
+    "period": [{"mixer": "attn", "ffn": "dense"}]}, "reference": "decoder"}
 MOE = {"name": "tiny-moe", "model": {
     "family": "moe", "n_layers": 2, "d_model": 64, "n_heads": 4,
     "n_kv_heads": 4, "head_dim": 16, "d_ff": 32, "vocab_size": 256,
@@ -22,6 +25,45 @@ MOE = {"name": "tiny-moe", "model": {
     "period": [{"mixer": "attn", "ffn": "moe"}],
     "moe": {"n_experts": 8, "top_k": 2, "d_ff_expert": 32, "n_shared": 1,
             "d_ff_shared": 64, "norm_topk": False, "router": "softmax",
+            "pad_to": 0}}, "reference": "decoder"}
+MLA = {"name": "tiny-mla", "model": {
+    "family": "moe", "n_layers": 3, "d_model": 64, "n_heads": 4,
+    "n_kv_heads": 4, "head_dim": 16, "d_ff": 96, "vocab_size": 256,
+    "rope_theta": 1e4, "norm_eps": 1e-6, "qkv_bias": False,
+    "dtype": "float32", "param_dtype": "float32",
+    "prelayers": [{"mixer": "mla", "ffn": "dense"}],
+    "period": [{"mixer": "mla", "ffn": "moe"}],
+    "mla": {"q_lora_rank": 0, "kv_lora_rank": 32, "qk_nope_head_dim": 16,
+            "qk_rope_head_dim": 8, "v_head_dim": 16},
+    "moe": {"n_experts": 8, "top_k": 3, "d_ff_expert": 16, "n_shared": 2,
+            "d_ff_shared": 32, "norm_topk": False, "router": "softmax",
+            "pad_to": 0}}}
+MLA_Q = {"name": "tiny-mla-q", "model": dict(
+    MLA["model"], mla=dict(MLA["model"]["mla"], q_lora_rank=48))}
+
+# DeepSeek-V2-Lite's published keys (huggingface.co/deepseek-ai/
+# DeepSeek-V2-Lite, config.json) and the model section a configuration
+# file would give it whole; for the check against the source and the
+# layout at full size (nothing is drawn)
+DSV2_LITE = {"name": "deepseek-v2-lite", "published": {
+    "hidden_size": 2048, "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "n_routed_experts": 64,
+    "n_shared_experts": 2, "num_experts_per_tok": 6, "norm_topk_prob": False,
+    "first_k_dense_replace": 1, "kv_lora_rank": 512, "q_lora_rank": None,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "vocab_size": 102400, "rope_theta": 10000, "rms_norm_eps": 1e-06},
+    "model": {
+    "family": "moe", "n_layers": 27, "d_model": 2048, "n_heads": 16,
+    "n_kv_heads": 16, "d_ff": 10944, "vocab_size": 102400,
+    "rope_theta": 10000, "norm_eps": 1e-06, "dtype": "bfloat16",
+    "param_dtype": "float32",
+    "prelayers": [{"mixer": "mla", "ffn": "dense"}],
+    "period": [{"mixer": "mla", "ffn": "moe"}],
+    "mla": {"q_lora_rank": 0, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+            "qk_rope_head_dim": 64, "v_head_dim": 128},
+    "moe": {"n_experts": 64, "top_k": 6, "d_ff_expert": 1408, "n_shared": 2,
+            "d_ff_shared": 2816, "norm_topk": False, "router": "softmax",
             "pad_to": 0}}}
 
 # the test cells' limits: the train cell's are the full cell's (the float32
