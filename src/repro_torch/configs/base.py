@@ -104,10 +104,29 @@ class ModelConfig:
     # kept so a config compares field for field with its reference)
     attn_chunk: int = 1024
     max_attn_chunks: int = 16
+    # RoPE scaling, the port's own (the reference has none): "none", or
+    # "yarn" (DeepSeek-V2's YaRN: rotary frequencies blended between f and
+    # f / rope_factor by a ramp over the dims, cos/sin scaled by
+    # mscale(yarn_mscale) / mscale(yarn_mscale_all_dim), and MLA's softmax
+    # scale by mscale(yarn_mscale_all_dim) ** 2; ``models/layers.py``)
+    rope_scaling: str = "none"
+    rope_factor: float = 1.0
+    rope_original_max_positions: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.rope_scaling not in ("none", "yarn"):
+            raise ValueError(f"{self.name}: rope_scaling "
+                             f"{self.rope_scaling!r} is not none or yarn")
+        if self.rope_scaling == "yarn" and (
+                self.rope_factor < 1 or self.rope_original_max_positions <= 0):
+            raise ValueError(f"{self.name}: yarn needs rope_factor >= 1 and "
+                             f"rope_original_max_positions > 0")
         total = len(self.prelayers) + len(self.period) * self.n_periods
         if total != self.n_layers:
             raise ValueError(

@@ -20,7 +20,8 @@ and, in bf16, 192 (:data:`BWD_HEAD_DIMS`);
 :func:`flash_attention` and :func:`flash_attention_bwd` run a smaller
 head dim (the smoke configs' 16) zero-padded to the next of them, with the
 softmax scale of the true one: the padded terms add exact zeros, so the
-result is the unpadded function. ``lengths``
+result is the unpadded function. The scale is 1/sqrt(head dim) unless a
+caller passes its own (``scale``: MLA under YaRN). ``lengths``
 (B,) int32 masks keys at or past lengths[b]. Masked scores are -1e30, so a
 row with no valid key averages V. ``p`` is rounded to v.dtype before the PV
 product. ``flash_attention.launches`` counts the forward kernel's launches
@@ -79,23 +80,28 @@ def _mask(S: int, causal: bool, lengths: Optional[torch.Tensor],
     return mask
 
 
+def _scale(D: int, scale: Optional[float]) -> float:
+    """The softmax scale: ``scale``, by default 1/sqrt(head dim)."""
+    return 1.0 / math.sqrt(D) if scale is None else scale
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-            lengths: Optional[torch.Tensor]
+            lengths: Optional[torch.Tensor], scale: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked f32 scores (B, H, S, S) with K at KV heads, and the mask."""
     B, S, H, D = q.shape
     kf = k.float().repeat_interleave(H // k.shape[2], dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * _scale(D, scale)
     mask = _mask(S, causal, lengths, q.device)
     return torch.where(mask, s, NEG_INF), mask
 
 
-def _plain_forward(q, k, v, causal, lengths):
+def _plain_forward(q, k, v, causal, lengths, scale=None):
     """(o, lse): the plain forward and its row log-sum-exp (B, H, S) f32.
     A row with no valid key (every score -1e30) stores log(S) alone: its
     max is dropped, so the backward's exp(score - lse) gives 1/S with the
     masked scores taken as 0 (see :func:`flash_attention_bwd_plain`)."""
-    s, _ = _scores(q, k, causal, lengths)
+    s, _ = _scores(q, k, causal, lengths, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -108,17 +114,18 @@ def _plain_forward(q, k, v, causal, lengths):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          lengths: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          lengths: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The same function as the kernel, over the full f32 score matrix."""
-    return _plain_forward(q, k, v, causal, lengths)[0]
+    return _plain_forward(q, k, v, causal, lengths, scale)[0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
                               causal: bool = True,
-                              lengths: Optional[torch.Tensor] = None
+                              lengths: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv) of the forward, from its output ``o`` and row
@@ -135,7 +142,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    s, mask = _scores(q, k, causal, lengths)
+    s, mask = _scores(q, k, causal, lengths, scale)
     if lengths is not None:         # rows with no valid key: scores 0
         empty = (lengths.to(q.device) <= 0)[:, None, None, None]
         s = torch.where(mask, s, torch.where(empty, 0.0, NEG_INF))
@@ -146,7 +153,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dv = p.to(v.dtype).float().transpose(-1, -2) @ dof      # (B, H, S, D)
     dp = dof @ vf.transpose(-1, -2)
     delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
-    ds = torch.where(mask, p * (dp - delta), 0.0) * (1.0 / math.sqrt(D))
+    ds = torch.where(mask, p * (dp - delta), 0.0) * _scale(D, scale)
     dq = ds @ kf
     dk = ds.transpose(-1, -2) @ q.float().transpose(1, 2)
 
@@ -295,26 +302,25 @@ def _pad_head_dim(D: int, *ts: torch.Tensor) -> tuple:
                  for t in ts)
 
 
-def _forward(q, k, v, causal, lengths, want_lse):
+def _forward(q, k, v, causal, lengths, want_lse, scale=None):
     """The kernel's output, and its row log-sum-exp (B, H, S) f32 when
     ``want_lse`` (else None)."""
     D = q.shape[-1]
     if q.dim() == 4 and _kernel_head_dim(D) != D:
         o, lse = _forward_at(*_pad_head_dim(_kernel_head_dim(D), q, k, v),
-                             causal, lengths, want_lse, 1.0 / math.sqrt(D))
+                             causal, lengths, want_lse, _scale(D, scale))
         return o[..., :D].contiguous(), lse
-    return _forward_at(q, k, v, causal, lengths, want_lse,
-                       1.0 / math.sqrt(D))
+    return _forward_at(q, k, v, causal, lengths, want_lse, _scale(D, scale))
 
 
-def _fwd(q, k, v, causal, lengths, want_lse):
+def _fwd(q, k, v, causal, lengths, want_lse, scale=None):
     """:func:`_forward`, or on CPU tensors the plain version's (o made
     contiguous, as the kernel's is: the model's reshape of it is then a
     view on every device)."""
     if q.device.type == "cpu":
-        o, lse = _plain_forward(q, k, v, causal, lengths)
+        o, lse = _plain_forward(q, k, v, causal, lengths, scale)
         return o.contiguous(), lse
-    return _forward(q, k, v, causal, lengths, want_lse)
+    return _forward(q, k, v, causal, lengths, want_lse, scale)
 
 
 def _forward_at(q, k, v, causal, lengths, want_lse, scale):
@@ -412,8 +418,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_bwd_args(q, k, lengths, q, k, v, o, do), int(causal),
-            1.0 / math.sqrt(D) if scale is None else scale,
-            _DTYPES[q.dtype],
+            _scale(D, scale), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
@@ -443,8 +448,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dk.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dv.data_ptr(),
             *_bwd_args(q, k, lengths, q, k, v, do), int(causal),
-            1.0 / math.sqrt(D) if scale is None else scale,
-            _DTYPES[q.dtype],
+            _scale(D, scale), _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_bwd_dkdv")
     flash_bwd_dkdv.launches += 1
@@ -469,26 +473,28 @@ def _bwd_inputs(q, k, v, o, do, lse) -> tuple:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True,
-                        lengths: Optional[torch.Tensor] = None
+                        lengths: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): :func:`flash_attention_bwd_plain` for CPU tensors,
     else K1b-dq then K1b-dkdv on the inputs :func:`_bwd_inputs` gives (a
-    small head dim zero-padded, as the forward runs it)."""
+    small head dim zero-padded, as the forward runs it), at the softmax
+    ``scale`` of the forward (by default 1/sqrt(head dim))."""
     c = count.ACTIVE
     if c is None:
-        return _bwd(q, k, v, o, lse, do, causal, lengths)
+        return _bwd(q, k, v, o, lse, do, causal, lengths, scale)
     with c.kernel("flash_attention_bwd", _work(flash_bwd_work, q, k, causal)):
-        return _bwd(q, k, v, o, lse, do, causal, lengths)
+        return _bwd(q, k, v, o, lse, do, causal, lengths, scale)
 
 
-def _bwd(q, k, v, o, lse, do, causal, lengths):
+def _bwd(q, k, v, o, lse, do, causal, lengths, scale=None):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         lengths=lengths)
-    return _kernel_bwd(q, k, v, o, lse, do, causal, lengths)
+                                         lengths=lengths, scale=scale)
+    return _kernel_bwd(q, k, v, o, lse, do, causal, lengths, scale)
 
 
-def _kernel_bwd(q, k, v, o, lse, do, causal, lengths):
+def _kernel_bwd(q, k, v, o, lse, do, causal, lengths, scale=None):
     D = q.shape[-1]
     Dk = _kernel_head_dim(D)
     dims = BWD_HEAD_DIMS.get(q.dtype, ())
@@ -499,7 +505,7 @@ def _kernel_bwd(q, k, v, o, lse, do, causal, lengths):
     if q.dim() == 4 and Dk != D:
         q, k, v, o, do = _pad_head_dim(Dk, q, k, v, o, do)
     q, k, v, o, do, lse = _bwd_inputs(q, k, v, o, do, lse)
-    scale = 1.0 / math.sqrt(D)
+    scale = _scale(D, scale)
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal=causal,
                              lengths=lengths, scale=scale)
     dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, causal=causal,
@@ -515,33 +521,37 @@ class FlashAttentionFn(torch.autograd.Function):
     ``torch.inference_mode`` it launches exactly the forward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, lengths):
+    def forward(ctx, q, k, v, causal, lengths, scale=None):
         want = any(ctx.needs_input_grad[:3])
         c = count.ACTIVE
         if c is None:
-            o, lse = _fwd(q, k, v, causal, lengths, want)
+            o, lse = _fwd(q, k, v, causal, lengths, want, scale)
         else:
             with c.kernel("flash_attention", _work(flash_work, q, k, causal)):
-                o, lse = _fwd(q, k, v, causal, lengths, want)
+                o, lse = _fwd(q, k, v, causal, lengths, want, scale)
         if want:
             ctx.save_for_backward(q, k, v, o, lse, lengths)
-            ctx.causal = causal
+            ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
-                                         causal=ctx.causal, lengths=lengths)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, lengths=lengths,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B,S,H,D); k, v: (B,S,KV,D); lengths: (B,) int32 or None.
-    Returns (B,S,H,D) in q.dtype, differentiable in q, k and v."""
-    return FlashAttentionFn.apply(q, k, v, causal, lengths)
+                    lengths: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,S,H,D); k, v: (B,S,KV,D); lengths: (B,) int32 or None;
+    ``scale`` the softmax scale, by default 1/sqrt(D) (MLA's YaRN passes
+    its own). Returns (B,S,H,D) in q.dtype, differentiable in q, k and
+    v."""
+    return FlashAttentionFn.apply(q, k, v, causal, lengths, scale)
 
 
 flash_attention.launches = 0

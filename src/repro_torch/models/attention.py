@@ -44,8 +44,8 @@ def project_qkv(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
         q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_emb == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
     return q, k, v
 
 

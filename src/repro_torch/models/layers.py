@@ -15,8 +15,9 @@ column-parallel into the hidden and row-parallel out of it, with
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -67,20 +68,75 @@ def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
 # Rotary / sinusoidal position embeddings
 # ---------------------------------------------------------------------------
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 * mscale * ln(factor) + 1`` for a
+    factor above 1, else 1 (DeepSeek-V2's ``yarn_get_mscale``)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_range(cfg: ModelConfig, head_dim: int) -> tuple:
+    """(low, high): the rotary dims below ``low`` keep their frequency, those
+    above ``high`` take it divided by the factor; ``dim(r)``, the dim that
+    turns ``r`` times over the original context, is
+    ``d ln(L0 / (2 pi r)) / (2 ln theta)``, and low = floor(dim(beta_fast)),
+    high = ceil(dim(beta_slow)), within [0, d - 1]."""
+    def dim(rotations: float) -> float:
+        return (head_dim * math.log(cfg.rope_original_max_positions
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(cfg.rope_theta)))
+    return (max(math.floor(dim(cfg.yarn_beta_fast)), 0),
+            min(math.ceil(dim(cfg.yarn_beta_slow)), head_dim - 1))
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (float(theta) ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
+def rope_table(cfg: ModelConfig, head_dim: int, device
+               ) -> Tuple[torch.Tensor, float]:
+    """``cfg``'s rotary frequencies at ``head_dim`` on ``device`` and the
+    factor on cos and sin: :func:`rope_freqs` and 1, or, where
+    ``rope_scaling`` is "yarn", f_i / s * ramp_i + f_i * (1 - ramp_i),
+    ramp_i = clamp((i - low) / (high - low), 0, 1) (:func:`yarn_range`),
+    and mscale(yarn_mscale) / mscale(yarn_mscale_all_dim)."""
+    if cfg.rope_scaling != "yarn":
+        return rope_freqs(head_dim, cfg.rope_theta, device), 1.0
+    return _yarn_table(cfg, head_dim, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_table(cfg: ModelConfig, head_dim: int, device: torch.device
+                ) -> Tuple[torch.Tensor, float]:
+    """YaRN's table, a constant of the config: built once for each config,
+    head dim and device, outside any inference mode so that training may
+    use it after serving."""
+    low, high = yarn_range(cfg, head_dim)
+    with torch.inference_mode(False), torch.no_grad():
+        freqs = rope_freqs(head_dim, cfg.rope_theta, device)
+        ramp = ((torch.arange(head_dim // 2, dtype=torch.float32,
+                              device=device) - low)
+                / (high - low if high > low else 0.001)).clamp(0.0, 1.0)
+        freqs = freqs / cfg.rope_factor * ramp + freqs * (1.0 - ramp)
+    return freqs, (yarn_mscale(cfg.rope_factor, cfg.yarn_mscale)
+                   / yarn_mscale(cfg.rope_factor, cfg.yarn_mscale_all_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               rope: Union[float, ModelConfig]) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
-    Split-half rotation with the angles in f32."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    Split-half rotation with the angles in f32. ``rope`` is the base theta,
+    or a config, rotated at its :func:`rope_table`."""
+    if isinstance(rope, ModelConfig):
+        freqs, f = rope_table(rope, x.shape[-1], x.device)
+    else:
+        freqs, f = rope_freqs(x.shape[-1], rope, x.device), 1.0
     angles = positions[..., None].float() * freqs        # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
+    if f != 1.0:
+        cos, sin = cos * f, sin * f
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -10,7 +10,12 @@ head dim ``dn + dr`` (192 at full width), with V zero-padded to it
 so attention runs in the latent space (``parallel/decode_attn.py``), on
 one device or over a latent cache sharded along the sequence; the naive
 form, which rebuilds every head's K and V, is kept as its oracle.
-The latent norms are RMSNorms through the rmsnorm kernel.
+The latent norms are RMSNorms through the rmsnorm kernel. A config with
+YaRN (``rope_scaling`` "yarn", DeepSeek-V2's long-context RoPE) rotates
+the rope dims at YaRN's frequencies (``layers.apply_rope``) and scores
+at :func:`softmax_scale` in every path. Under a profiler each layer's
+sequence pass is an ``mla.sequence`` span and each decode attention, its
+cache write included, an ``mla.decode`` span (``repro_torch.spans``).
 
 Over a mesh (``mesh``; tensor parallelism over its ``model`` axis, as
 GSPMD partitions the reference's ``heads``), the sequence pass runs on
@@ -31,9 +36,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.models.layers import TP_AXIS, apply_rope, row_parallel
+from repro_torch.models.layers import (TP_AXIS, apply_rope, row_parallel,
+                                       yarn_mscale)
 from repro_torch.parallel.collectives import pvary
 from repro_torch.parallel.decode_attn import sharded_mla_decode, write_rows
+from repro_torch.spans import span
 
 
 def _up(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,7 +71,7 @@ def project_q(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     else:
         q = _up(vary(x), p["w_q"].to(dt))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, cfg)
 
 
 def project_kv_latent(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
@@ -74,8 +81,18 @@ def project_kv_latent(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     dt = x.dtype
     ckv = rmsnorm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)
     kr = x @ p["w_kr"].to(dt)
-    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    kr = apply_rope(kr[:, :, None, :], positions, cfg)[:, :, 0]
     return ckv, kr
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """1/sqrt(dn + dr), times YaRN's mscale(yarn_mscale_all_dim) squared
+    where the config scales RoPE by YaRN (DeepSeek-V2's attention)."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if cfg.rope_scaling == "yarn":
+        scale *= yarn_mscale(cfg.rope_factor, cfg.yarn_mscale_all_dim) ** 2
+    return scale
 
 
 def v_pad(v: torch.Tensor, d: int) -> torch.Tensor:
@@ -126,12 +143,15 @@ def mla_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
     """Training / prefill. Rebuilds every head's K/V from the latent and
-    runs the flash kernel at head dim dn + dr (scale 1/sqrt(dn + dr)), on
-    this rank's heads over ``mesh`` (module docstring). Returns (y, (c_kv,
-    k_rope)) for the caller's cache."""
-    q, k, v, ckv, kr = mla_qkv(cfg, p, x, positions, mesh, axis)
-    o = flash_attention(q, k, v, causal=True, lengths=lengths)
-    return _out(p, o[..., :cfg.mla.v_head_dim], mesh, axis), (ckv, kr)
+    runs the flash kernel at head dim dn + dr (at :func:`softmax_scale`),
+    on this rank's heads over ``mesh`` (module docstring), inside an
+    ``mla.sequence`` span. Returns (y, (c_kv, k_rope)) for the caller's
+    cache."""
+    with span("mla.sequence"):
+        q, k, v, ckv, kr = mla_qkv(cfg, p, x, positions, mesh, axis)
+        o = flash_attention(q, k, v, causal=True, lengths=lengths,
+                            scale=softmax_scale(cfg))
+        return _out(p, o[..., :cfg.mla.v_head_dim], mesh, axis), (ckv, kr)
 
 
 def tp_mla_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
@@ -160,11 +180,19 @@ def mla_decode_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     ``lengths``, the tokens already cached. ``absorbed`` attends in the
     latent space, over this rank's slice of the sequence when ``seq_axes``
     of ``mesh`` split it (``sharded_mla_decode``); otherwise every head's
-    K/V is rebuilt from a whole cache (the oracle)."""
+    K/V is rebuilt from a whole cache (the oracle). Both score at
+    :func:`softmax_scale`, inside an ``mla.decode`` span that holds the
+    cache write."""
+    with span("mla.decode"):
+        return _decode(cfg, p, x, cache, lengths, seq_axes, batch_axes,
+                       absorbed, mesh)
+
+
+def _decode(cfg, p, x, cache, lengths, seq_axes, batch_axes, absorbed, mesh):
     m = cfg.mla
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     dt = x.dtype
-    sm_scale = 1.0 / math.sqrt(dn + dr)
+    sm_scale = softmax_scale(cfg)
     q_nope, q_rope = project_q(cfg, p, x, lengths[:, None])
     ckv_new, kr_new = project_kv_latent(cfg, p, x, lengths[:, None])
     w_ukv = p["w_ukv"].to(dt)

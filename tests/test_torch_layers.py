@@ -58,16 +58,30 @@ def _close(t, j, atol=ATOL):
                                atol=atol)
 
 
+def _jax_fields(tcfg, jcfg) -> dict:
+    """The port's config as a dict of the reference's fields alone."""
+    names = {f.name for f in dataclasses.fields(jcfg)}
+    return {k: v for k, v in dataclasses.asdict(tcfg).items() if k in names}
+
+
 def test_configs_equal_field_for_field():
     """Every registered config, full and smoke, and the f32 smoke
-    variant the layer tests use."""
+    variant the layer tests use, on every field of the reference's; the
+    port's own fields (its RoPE scaling) hold their defaults in each."""
+    from repro_torch.configs.base import ModelConfig
     jcfg, tcfg = _configs()
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == _jax_fields(tcfg, jcfg)
     assert len(list_archs()) == 11
+    jax_names = {f.name for f in dataclasses.fields(jcfg)}
+    own = [f for f in dataclasses.fields(ModelConfig)
+           if f.name not in jax_names]
+    assert {f.name for f in own} >= {"rope_scaling", "rope_factor"}
     for arch in list_archs():
         for smoke in (False, True):
-            assert dataclasses.asdict(jax_get_config(arch, smoke=smoke)) == \
-                dataclasses.asdict(get_config(arch, smoke=smoke)), arch
+            j, t = (jax_get_config(arch, smoke=smoke),
+                    get_config(arch, smoke=smoke))
+            assert dataclasses.asdict(j) == _jax_fields(t, j), arch
+            assert all(getattr(t, f.name) == f.default for f in own), arch
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])

@@ -70,13 +70,18 @@ def _clone(state: dict) -> dict:
 
 
 def jax_config(cfg):
-    """The JAX package's config equal to ``cfg`` field for field (its
-    registered one, full or smoke, with ``cfg``'s dtype)."""
+    """The JAX package's config equal to ``cfg`` on every field it has (its
+    registered one, full or smoke, with ``cfg``'s dtype); the port's own
+    fields (its RoPE scaling) must hold their defaults."""
     from repro.configs import get_config
     base, smoke = (cfg.name[:-len("-smoke")], True) \
         if cfg.name.endswith("-smoke") else (cfg.name, False)
     jcfg = dataclasses.replace(get_config(base, smoke=smoke), dtype=cfg.dtype)
-    if dataclasses.asdict(jcfg) != dataclasses.asdict(cfg):
+    names = {f.name for f in dataclasses.fields(jcfg)}
+    ours = {k: v for k, v in dataclasses.asdict(cfg).items() if k in names}
+    own = [f for f in dataclasses.fields(cfg) if f.name not in names]
+    if dataclasses.asdict(jcfg) != ours or any(
+            getattr(cfg, f.name) != f.default for f in own):
         raise ValueError(f"no JAX config equals {cfg.name}")
     return jcfg
 
