@@ -137,7 +137,9 @@ Phases, each printing one JSON line and raising on failure:
    5's prompts prefilled at 512 slots, each row's valid prefix written
    into its pages, 32 greedy decode steps, at each step and layer the
    step's k/v appended and ``attend`` on the step's q bit-equal to the
-   dense ``decode_attention_ref`` output; after step 16 two rows retire
+   dense ``decode_attention_ref`` output, and the model's decode
+   attention (``gqa_decode``, the kernel) once a layer and within 3e-2 of
+   it; after step 16 two rows retire
    and two new prompts take their pages, whose block tables must show
    the LIFO reuse and whose stale tails are masked; the gather, ``attend``
    and the dense attention timed at (B 8, H 16, KV 8, HD 128, S 512),
@@ -271,7 +273,17 @@ Phases, each printing one JSON line and raising on failure:
    splits (an interior one of 2,048 columns and the last, of 384) read in
    place, on every f32 exponent, an odd width, an unaligned base and one
    row, its terms adding back to the values; one vocab block's split
-   timed, kernel and plain.
+   timed, kernel and plain;
+22. gqa_decode: the GQA decode attention (``kernels/gqa_decode.py``), its
+   two kernels at head dim 128 in bf16 without spills; against its
+   plain version at head dims 16, 64 and 128, 1, 2, 3 and 8 query heads a
+   KV head, bf16 caches with a bf16 or f32 q, lengths 0, 1, around its
+   chunks' edges, S and past S, int32 and int64, strided caches read in
+   place and a base off 16 bytes; f32 caches refused; timed at the chat
+   and Qwen cells' decode shapes (64 rows, 16 over 8 heads; 16 rows, 16
+   over 16; S 4096, head dim 128, bf16) with lengths drawn from their
+   traffic, beside its bound (the live K/V bytes), the plain version and
+   SDPA with a length mask.
 
 Every phase from 12 on prints the card's name and power limit beside its
 times. Then one ``{"kernels": [...]}`` line with each kernel's launches
@@ -289,7 +301,9 @@ row for each of K1b-dq and K1b-dkdv at D = 192 with its launches on
 each rank of phase 18's deepseek-v2 run and its numbers from phase 7,
 every kernel's launches in phase 19's quickstart training and serving
 bench and in phase 20 (a)'s counted train step, prefill and decode step,
-and the split's numbers and launches from phase 21; before it one line with each phase's wall seconds; and the last line
+and the split's numbers and launches from phase 21, and the GQA decode
+attention's numbers from phase 22 with its launches in phases 19, 20 and
+15; before it one line with each phase's wall seconds; and the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, before printing
 anything, when no CUDA card is present.
 """
@@ -335,6 +349,7 @@ from repro_torch.kernels import (build, flash_attention, flash_attention_bwd,
                                  rmsnorm_residual_bwd_plain,
                                  rmsnorm_residual_plain)
 from repro_torch.kernels import bf16x3
+from repro_torch.kernels.gqa_decode import gqa_decode
 from repro_torch.kernels.flash_attention import _plain_forward
 from repro_torch.kernels.flash_attention import _bwd_inputs as bwd_inputs
 from repro_torch.kernels.flash_attention import _forward as flash_forward
@@ -468,7 +483,9 @@ def kernel_name(mangled: str) -> str:
     ``flash_fwd_f32_merge<float, 64>`` or ``flash_bwd_dq_f32<float, 64>``,
     the norm kernels as
     ``rmsnorm_kernel<bf16, residual=1, V=8, NV=8, warp>``, the split as
-    ``split_bf16x3_kernel<4>``, others by their mangled name."""
+    ``split_bf16x3_kernel<4>``, the decode attention's as
+    ``gqa_decode_scores<128, bf16>`` or ``gqa_decode_pv<128, bf16>`` (head
+    dim, q's dtype; the caches are bf16), others by their mangled name."""
     m = re.search(r"(flash_(?:fwd|bwd_[a-z]+)_(?:wgmma|f32)(?:_merge)?)"
                   r"I(f?|\d+__nv_bfloat16)Li(\d+)E(?:Lb([01])E)?", mangled)
     if m:
@@ -482,6 +499,12 @@ def kernel_name(mangled: str) -> str:
         return (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}, "
                 f"residual={m.group(3)}, V={m.group(4)}, NV={m.group(5)}, "
                 f"{'wide' if m.group(6) == '1' else 'warp'}>")
+    m = re.search(r"(gqa_decode_(?:scores|pv))ILi(\d+)E"
+                  r"((?:f|\d+__nv_bfloat16|S\d*_)+)E", mangled)
+    if m:
+        types = re.findall(r"f|\d+__nv_bfloat16|S\d*_", m.group(3))
+        return (f"{m.group(1)}<{m.group(2)}, " + ", ".join(
+            "float" if t == "f" else "bf16" for t in types) + ">")
     m = re.search(r"(split_bf16x3_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<{m.group(2)}>"
@@ -2669,11 +2692,14 @@ def paged_case(cfg, model) -> dict:
     Each layer gets a bf16 pool of ``NUM_PAGES`` pages of ``PAGE_SIZE``;
     8 of phase 5's prompts are prefilled at ``MAX_SEQ`` slots and each
     row's valid prefix written into its pages, then ``PAGED_STEPS`` greedy
-    decode steps run through ``decode_step``. The model's dense
-    ``decode_attention_ref`` is wrapped for each step to take its q, the
-    k/v the step wrote (read back from the dense cache) and its output;
-    the paged cache appends that k/v and its ``attend`` on that q must
-    equal the dense output bit for bit, at every step and layer. After
+    decode steps run through ``decode_step``. The model's decode
+    attention (``A.gqa_decode``, the kernel) is wrapped for each step to
+    take its q, the k/v the step wrote (read back from the dense cache)
+    and the plain dense ``decode_attention_ref`` on them; the kernel must
+    launch once a layer and stay within the bf16 decode bar of that plain
+    output, and the paged cache appends that k/v and its ``attend`` on
+    that q must equal the plain dense output bit for bit, at every step
+    and layer. After
     step ``PAGED_RETIRE_AT``, the rows at ``PAGED_RETIRED`` retire and two
     new prompts take their pages: their block tables must show the LIFO
     reuse, and their pages' stale tails, masked, must not move the output.
@@ -2688,15 +2714,20 @@ def paged_case(cfg, model) -> dict:
                            device="cuda") for _ in range(n_layers)]
     seqs = [f"req{i}" for i in range(B)]
     dense_attention = A.decode_attention_ref
-    taps = []
+    kernel_attention = A.gqa_decode
+    taps, kernel_errs = [], []
 
     def tap(q, k_cache, v_cache, lengths):
+        launches = kernel_attention.launches
+        got = kernel_attention(q, k_cache, v_cache, lengths)
         o = dense_attention(q, k_cache, v_cache, lengths)
+        kernel_errs.append((kernel_attention.launches - launches,
+                            max_err(got, o)))
         rows = torch.arange(q.shape[0], device=q.device)
         pos = (lengths - 1).long()
         taps.append((q, k_cache[rows, pos], v_cache[rows, pos], lengths, o,
                      k_cache, v_cache))
-        return o
+        return got
 
     out = {"pool": {"num_pages": NUM_PAGES, "page_size": PAGE_SIZE,
                     "pages_per_seq": PAGES_PER_SEQ, "dtype": "bfloat16",
@@ -2753,14 +2784,14 @@ def paged_case(cfg, model) -> dict:
                         == {s: caches[0].tables[s].tolist()
                             for s in caches[0].tables} for c in caches)}
             taps.clear()
-            A.decode_attention_ref = tap
+            A.gqa_decode = tap
             try:
                 logits, dense = decode_step(model, dense, tok)
             finally:
-                A.decode_attention_ref = dense_attention
+                A.gqa_decode = kernel_attention
             if len(taps) != n_layers:
-                raise AssertionError(f"{len(taps)} dense decode attentions "
-                                     f"in a step of {n_layers} layers")
+                raise AssertionError(f"{len(taps)} decode attentions in a "
+                                     f"step of {n_layers} layers")
             for i, (c, (q, kn, vn, ln, o, kc, vc)) in enumerate(
                     zip(caches, taps)):
                 c.append(seqs, kn, vn, ln - 1)
@@ -2798,14 +2829,23 @@ def paged_case(cfg, model) -> dict:
             "gather_call_ms": call_ms(lambda: gather_paged_kv(
                 c.k_pages, c.v_pages, c.block_tables(seqs))),
             "attend_call_ms": call_ms(lambda: c.attend(seqs, q, ln)),
-            "dense_call_ms": call_ms(lambda: dense_attention(q, kc, vc, ln))}
+            "dense_call_ms": call_ms(lambda: dense_attention(q, kc, vc, ln)),
+            "kernel_ms": time_ms(lambda: kernel_attention(q, kc, vc, ln)),
+            "kernel_call_ms": call_ms(lambda: kernel_attention(q, kc, vc,
+                                                               ln))}
         out["dense_cache"] = {"shape": list(kc.shape),
                               "contiguous": kc.is_contiguous(),
                               "gathered_contiguous": kp.is_contiguous()}
     out.update(checks=PAGED_STEPS * n_layers, mismatches=mismatches[:8],
                n_mismatches=len(mismatches), bit_equal=not mismatches,
-               initial_tables=tables, stale_positions_masked=stale)
+               initial_tables=tables, stale_positions_masked=stale,
+               kernel_launches_per_call=sorted({n for n, _ in kernel_errs}),
+               kernel_max_abs_err=max(e for _, e in kernel_errs))
     del caches, taps, dense
+    if (out["kernel_launches_per_call"] != [1]
+            or not out["kernel_max_abs_err"] <= 3e-2):
+        raise AssertionError(f"the decode kernel launched other than once a "
+                             f"layer or left the bf16 bar (3e-2): {out}")
     if mismatches or not (out["admitted"]["lifo"]
                           and out["admitted"]["same_in_every_layer"]
                           and stale > 0):
@@ -4450,8 +4490,9 @@ def tools_microbatches(quickstart) -> dict:
 
 def tools_benches(serving, preemption) -> dict:
     """Phase 19 (d): the serving bench at the smoke config (every forward
-    kernel must launch) and the checkpoint bench at d_model 256."""
-    wrappers = [fn for fn, _, _ in KERNELS]
+    kernel and the GQA decode attention must launch) and the checkpoint
+    bench at d_model 256."""
+    wrappers = [fn for fn, _, _ in KERNELS] + [gqa_decode]
     for fn in wrappers:
         fn.launches = 0
     served = serving.run_bench(device="cuda")
@@ -4512,7 +4553,9 @@ DRY_NAMES = {"flash_attention": "flash_attention",
              "rmsnorm": "rmsnorm", "rmsnorm_residual": "rmsnorm_residual",
              "rmsnorm_bwd": "rmsnorm_bwd",
              "rmsnorm_residual_bwd": "rmsnorm_residual_bwd",
-             "split_bf16x3": "split_bf16x3"}
+             "split_bf16x3": "split_bf16x3", "gqa_decode": "gqa_decode"}
+# the wrappers whose launches (a)'s calls count: the decode step's too
+DRY_WRAPPERS = TRAIN_WRAPPERS + [gqa_decode]
 
 
 def dry_compare(card_rec: dict, meta_rec: dict, launches: dict,
@@ -4549,11 +4592,11 @@ def dry_on_card(fn, *args) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    for fn_ in TRAIN_WRAPPERS:
+    for fn_ in DRY_WRAPPERS:
         fn_.launches = 0
     rec, _ = DRY.measure(fn, *args, track="cuda")
     torch.cuda.synchronize()
-    launches = {fn_.__name__: fn_.launches for fn_ in TRAIN_WRAPPERS}
+    launches = {fn_.__name__: fn_.launches for fn_ in DRY_WRAPPERS}
     return rec, launches, torch.cuda.max_memory_allocated() - start
 
 
@@ -4909,10 +4952,152 @@ def phase_unembed(ptxas: dict) -> dict:
     return out
 
 
+# -- phase 22 --------------------------------------------------------------
+
+# the serving cells' decode shapes (cellbench/traffic): rows, cache
+# positions, query and KV heads, head dim; each row's length drawn from
+# the cell's prompt range (lognormal median, sigma, clipped) plus a point
+# of its output range
+GQA_TIMED = {
+    "chat": {"arch": "internlm2-1.8b", "B": 64, "S": 4096, "H": 16, "KV": 8,
+             "HD": 128, "prompt": (512, 0.8, 64, 2048), "output": (64, 1024)},
+    "qwen": {"arch": "qwen2-moe-a2.7b", "B": 16, "S": 4096, "H": 16,
+             "KV": 16, "HD": 128, "prompt": (1024, 0.75, 256, 3968),
+             "output": (16, 64)}}
+GQA_KERNELS = ("gqa_decode_scores<128, bf16>", "gqa_decode_pv<128, bf16>")
+
+
+def gqa_lengths(spec: dict, seed: int) -> list:
+    """Each row's valid positions mid-answer: a prompt drawn as the cell
+    draws it, plus a uniform point of an answer of uniform length, plus
+    the token being decoded."""
+    rng = np.random.RandomState(seed)
+    med, sigma, lo, hi = spec["prompt"]
+    prompts = np.clip(np.round(med * np.exp(sigma * rng.standard_normal(
+        spec["B"]))), lo, hi).astype(int)
+    outs = rng.randint(spec["output"][0], spec["output"][1] + 1, spec["B"])
+    return [int(p + rng.randint(0, o) + 1) for p, o in zip(prompts, outs)]
+
+
+def gqa_check(B, S, H, KV, HD, lengths_list, *, q_dtype=torch.bfloat16,
+              view=False, offset=0, len_dtype=torch.int32,
+              timed=False) -> dict:
+    """``gqa_decode`` on random q and bf16 caches against its plain
+    version: within the decode bar of bf16 caches (3e-2), bit-equal over
+    two calls, one launch a call. ``view`` takes the caches as strided
+    views of one (B, S, 2, KV, HD) tensor (read in place); ``offset``
+    (elements) puts their base off 16 bytes (copied). ``timed``: the
+    kernel's time, its bound (the live K/V bytes, with q and o, over HBM's
+    rate), the plain version's, and SDPA's with a length mask."""
+    from repro_torch.kernels import gqa_decode as GD
+    g = torch.Generator(device="cuda").manual_seed(SEED + B + S + H + HD)
+    q = torch.randn(B, H, HD, generator=g, device="cuda").to(q_dtype)
+    n = B * S * 2 * KV * HD
+    kv = torch.randn(offset + n, generator=g, device="cuda").to(
+        torch.bfloat16)[offset:].view(B, S, 2, KV, HD)
+    k, v = ((kv[:, :, 0], kv[:, :, 1]) if view or offset
+            else (kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()))
+    lengths = torch.tensor(lengths_list, dtype=len_dtype, device="cuda")
+    launches = GD.gqa_decode.launches
+    o = GD.gqa_decode(q, k, v, lengths)
+    again = GD.gqa_decode(q, k, v, lengths)
+    launched = GD.gqa_decode.launches - launches
+    ref = GD.gqa_decode_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    tol = 3e-2
+    live = [min(max(x, 0) or S, S) for x in lengths_list]
+    case = {"q": [B, H, HD], "kv": [B, S, KV, HD],
+            "dtype": str(q_dtype).split(".")[-1],
+            "len_dtype": str(len_dtype).split(".")[-1],
+            "lengths": lengths_list if len(lengths_list) <= 16 else {
+                "mean": float(np.mean(live)), "max": max(live)},
+            "chunk": GD.key_chunk(B, KV, H // KV, S, HD,
+                                  torch.cuda.get_device_properties(
+                                      0).multi_processor_count),
+            "view": view, "offset_bytes": offset * kv.element_size(),
+            "max_abs_err": max_err(o, ref), "tol": tol,
+            "bit_equal_over_two_calls": bool(torch.equal(o, again)),
+            "launches": launched}
+    if not (torch.isfinite(o.float()).all() and case["max_abs_err"] <= tol
+            and case["bit_equal_over_two_calls"] and launched == 2
+            and o.dtype == q_dtype):
+        raise AssertionError(f"gqa_decode disagrees with its plain version "
+                             f"or itself: {case}")
+    if not timed:
+        return case
+    live_bytes = 2 * sum(live) * KV * HD * k.element_size() + nbytes(q, o)
+    kpos = torch.arange(S, device="cuda")
+    mask = (kpos[None, :] < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    kernel = lambda: GD.gqa_decode(q, k, v, lengths)  # noqa: E731
+    case.update(
+        ms=time_ms(kernel), call_ms=call_ms(kernel),
+        plain_ms=time_ms(lambda: GD.gqa_decode_plain(q, k, v, lengths),
+                         iters=5),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)",
+        live_bytes=live_bytes,
+        bound_ms=live_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        dense_bytes=nbytes(k, v))
+    case["of_bound"] = case["ms"] / case["bound_ms"]
+    return case
+
+
+def phase_gqa_decode(ptxas: dict) -> dict:
+    """Phase 22: the GQA decode attention (``kernels/gqa_decode.py``).
+    Its two kernels at the serving cells' instantiation (head dim 128,
+    bf16) without spills; against its plain version at its edges (head
+    dims 16, 64 and 128; 1, 2, 3 and 8 query heads a KV head; bf16 caches
+    with a bf16 or f32 q; lengths 0, 1, around the chunk edges, S and past
+    S, int32 and int64; caches as strided views read in place and a
+    base off 16 bytes, copied); f32 caches refused before a launch; and
+    timed at the chat and Qwen cells'
+    decode shapes (``GQA_TIMED``) with lengths drawn from their traffic:
+    its time beside its bound, the plain version's and SDPA's."""
+    spills = require_no_spills(ptxas, GQA_KERNELS, "gqa_decode_spills")
+    from repro_torch.kernels import gqa_decode as GD
+    f32 = torch.float32
+    edges = [
+        gqa_check(8, 512, 16, 8, 128, [1, 64, 65, 512, 513, 0, 300, 511]),
+        gqa_check(8, 512, 16, 8, 128, [1, 64, 65, 512, 513, 0, 300, 511],
+                  q_dtype=f32, len_dtype=torch.int64),
+        gqa_check(4, 300, 12, 4, 64, [300, 1, 77, 0], view=True),
+        gqa_check(4, 300, 12, 4, 64, [300, 1, 77, 0], q_dtype=f32),
+        gqa_check(4, 300, 12, 4, 64, [299, 2, 128, 129],
+                  len_dtype=torch.int64),
+        gqa_check(2, 200, 64, 8, 128, [200, 37], view=True),
+        gqa_check(2, 200, 64, 8, 128, [200, 37], q_dtype=f32),
+        gqa_check(3, 40, 4, 2, 16, [40, 1, 41]),
+        gqa_check(3, 40, 4, 2, 16, [40, 1, 41], q_dtype=f32),
+        gqa_check(16, 4096, 16, 16, 128, [4096, 1, 2049, 4097] * 4),
+        gqa_check(2, 256, 16, 8, 128, [256, 100], offset=1)]
+    q = torch.zeros(2, 4, 64, device="cuda")
+    kv = torch.zeros(2, 8, 2, 64, device="cuda")
+    launches = GD.gqa_decode.launches
+    try:
+        GD.gqa_decode(q, kv, kv, torch.full((2,), 8, device="cuda"))
+        refused = None
+    except TypeError as e:
+        refused = str(e)
+    if refused is None or GD.gqa_decode.launches != launches:
+        raise AssertionError("gqa_decode took f32 caches")
+    timed = {}
+    for name, spec in GQA_TIMED.items():
+        B, S, H, KV, HD = (spec[k] for k in ("B", "S", "H", "KV", "HD"))
+        timed[name] = gqa_check(B, S, H, KV, HD, gqa_lengths(spec, SEED),
+                                timed=True)
+        timed[name]["arch"] = spec["arch"]
+    out = {"phase": "gqa_decode", "card": card(), "spill_bytes": spills,
+           "edges": edges, "f32_caches_refused": refused, "timed": timed}
+    emit(out)
+    return out
+
+
 def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 cluster: dict, moe: dict, mla: dict, xl: dict,
                 jb: dict, pg: dict, tc: dict, ms: dict, mt: dict,
-                tl: dict, dr: dict, ue: dict) -> dict:
+                tl: dict, dr: dict, ue: dict, gq: dict) -> dict:
     """The ``{"kernels": [...]}`` line: forward kernels with their serve
     launches and phase 3 numbers, backward kernels with their train
     launches and phase 7 numbers (bf16 at the training shapes); every
@@ -4940,7 +5125,11 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
     serving bench's (phase 19 (d)); and every kernel with its launches in
     phase 20 (a)'s counted train step, prefill and decode step. The
     split's numbers are phase 21's, on one vocab block of internlm2-1.8b's
-    microbatch cotangent, with its launches in each backward there."""
+    microbatch cotangent, with its launches in each backward there. The
+    GQA decode attention's are phase 22's at the chat cell's decode shape
+    (the Qwen cell's beside them), with its launches in the serving
+    bench's decode steps (phase 19 (d)), in phase 20 (a)'s counted steps,
+    and a call in internlm2-1.8b's decode steps (phase 15)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "floor_ms")
     rows = [{"name": fn.__name__, "route": "cuda", "source": src,
@@ -5105,6 +5294,29 @@ def kernel_line(served: dict, cases: dict, bwd: dict, trained: dict,
                 dryrun_launches_in="tacc-100m's counted train step, prefill "
                                    "and decode step, each equal to the dry "
                                    "run's calls (phase 20 (a))")
+    chat, qwen = gq["timed"]["chat"], gq["timed"]["qwen"]
+    benches = tl["benches"]
+    rows.append({
+        "name": "gqa_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
+        "replaces": "none: XLA's einsums in src/repro/models/attention.py:213 "
+                    "decode_attention_ref",
+        "launches": benches["serving_launches"]["gqa_decode"],
+        "launches_in": "the serving bench's decode steps (phase 19 (d)), 2 "
+                       "kernels a launch",
+        "serving_bench_steps": benches["serving_steps"],
+        "dryrun_launches": {k: dr["one_process"][k]["launches"]["gqa_decode"]
+                            for k in ("train", "prefill", "decode")},
+        "dryrun_launches_in": "tacc-100m's counted train step, prefill and "
+                              "decode step, each equal to the dry run's "
+                              "calls (phase 20 (a))",
+        "paged_launches_per_call": pg["paged"]["kernel_launches_per_call"],
+        "paged_launches_in": f"each decode attention of {PAGED_ARCH}'s "
+                             f"decode steps (phase 15)",
+        **{k: chat.get(k) for k in keys if k != "floor_ms"},
+        "shape": chat["kv"], "dtype": chat["dtype"],
+        "qwen_shape": {k: qwen.get(k) for k in ("kv",) + keys
+                       if k in qwen}})
     return {"kernels": rows}
 
 
@@ -5144,10 +5356,11 @@ def main() -> None:
     tl = timed("19 tools", phase_tools, cases)
     dr = timed("20 dryrun", phase_dryrun, mt)
     ue = timed("21 unembed", phase_unembed, ptxas)
+    gq = timed("22 gqa_decode", phase_gqa_decode, ptxas)
     emit({"phase_seconds": seconds, "card": card(),
           "total_s": time.perf_counter() - start})
     emit(kernel_line(served, cases, bwd, trained, cluster, moe, mla, xl, jb,
-                     pg, tc, ms, mt, tl, dr, ue))
+                     pg, tc, ms, mt, tl, dr, ue, gq))
     emit({"ok": True, "device": dev})
 
 

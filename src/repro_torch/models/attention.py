@@ -7,13 +7,13 @@ split over the mesh's ``model`` axis (:func:`tp_self_attention`). Port of
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, FrozenSet, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_plain
 from repro_torch.models.layers import (TP_AXIS, apply_rope, rms_head_norm,
                                        row_parallel)
 from repro_torch.parallel.collectives import all_gather, pvary
@@ -145,22 +145,10 @@ def tp_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
     return y
 
 
-def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, lengths: torch.Tensor
-                         ) -> torch.Tensor:
-    """q: (B,H,HD); caches: (B,S,KV,HD); lengths (B,) = #valid positions
-    (including the token just written). Grouped GQA, full softmax."""
-    B, H, HD = q.shape
-    KV = k_cache.shape[2]
-    qg = q.reshape(B, KV, H // KV, HD).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / math.sqrt(HD)
-    kpos = torch.arange(k_cache.shape[1], device=q.device)
-    s = torch.where(kpos[None, None, None, :] < lengths[:, None, None, None],
-                    s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", w.to(v_cache.dtype).float(),
-                     v_cache.float())
-    return o.reshape(B, H, HD).to(q.dtype)
+# the plain math of the decode attention, the port of the reference's
+# decode_attention_ref: the paged and sequence-sharded decodes, the tests and
+# chip_smoke.py use it by this name
+decode_attention_ref = gqa_decode_plain
 
 
 def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -182,9 +170,10 @@ def decode_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. x: (B, 1, D). cache: {"k": (B,S,KV,HD), "v": ...},
     updated in place. ``lengths`` counts the tokens already in the cache:
-    the new token goes at index lengths and attends to itself. With
-    ``seq_axes`` the cache is this rank's slice of the sequence over those
-    axes of ``mesh`` (``sharded_decode_attention``)."""
+    the new token goes at index lengths and attends to itself, through
+    ``kernels/gqa_decode.py`` on one device. With ``seq_axes`` the cache is
+    this rank's slice of the sequence over those axes of ``mesh``
+    (``sharded_decode_attention``)."""
     q, k, v = project_qkv(cfg, p, x, lengths[:, None])
     q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]
     if seq_axes:
@@ -193,5 +182,5 @@ def decode_self_attention(cfg: ModelConfig, p: Mapping, x: torch.Tensor,
             batch_axes=batch_axes, mesh=mesh)
     else:
         kc, vc = write_kv_cache(cache["k"], cache["v"], k1, v1, lengths)
-        o = decode_attention_ref(q1, kc, vc, lengths + 1)
+        o = gqa_decode(q1, kc, vc, lengths + 1)
     return output_proj(cfg, p, o[:, None]), {"k": kc, "v": vc}

@@ -263,8 +263,10 @@ def test_counted_serving_dots_equal_jax_jaxpr(arch, steps):
     """At smoke size on meta, one prefill and one decode step: the port's
     counted matmul FLOPs equal the dot_general FLOPs of JAX's traced
     functions, less JAX's attention products in the prefill, which the
-    port leaves to the flash kernel's count; that count is the kernel's
-    formula at every attention layer."""
+    port leaves to the flash kernel's count, and in the decode step at
+    each GQA layer, which it leaves to the decode kernel's
+    (``kernels/gqa_decode.py``); each count is its kernel's formula at
+    every such layer."""
     cfg = get_config(arch, smoke=True)
     model = Transformer(cfg, dryrun.serving_params(cfg), device="meta")
     batch = dryrun.as_batch(input_specs(cfg, ShapeConfig(
@@ -278,7 +280,12 @@ def test_counted_serving_dots_equal_jax_jaxpr(arch, steps):
     jpre, jdec = _jax_serve_flops(arch, steps)
     if "prefill" in steps:
         assert _port_dots(pre) == jpre - _attention_dots(cfg)
-    assert _port_dots(dec) == jdec
+    gqa = sum(s.mixer == "attn" for s in cfg.layer_specs)
+    g = dec["kernels"].get("gqa_decode", {"calls": 0, "flops": 0.0})
+    assert g["calls"] == gqa
+    assert g["flops"] == 4.0 * cfg.n_heads * cfg.head_dim * SERVE_B \
+        * SERVE_S * gqa
+    assert _port_dots(dec) == jdec - g["flops"]
     attn = [s for s in cfg.layer_specs if s.mixer in ("attn", "mla")]
     k = pre["kernels"]["flash_attention"]
     assert k["calls"] == len(attn)

@@ -1085,3 +1085,293 @@ def test_bf16x3_split_on_meta_and_counted_once(rows, cols):
         wide[:, 5:5 + cols].contiguous()))
     with pytest.raises(TypeError):
         bf16x3.split_bf16x3(wide.bfloat16())
+
+
+# -- the GQA decode attention (kernels/gqa_decode.py) -------------------------
+
+def _gqa_inputs(B, S, H, KV, HD, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, HD), np.float32)
+    k, v = (rng.standard_normal((B, S, KV, HD), np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@jax.jit
+def _jax_decode(q, k, v, lengths):
+    from repro.models.attention import decode_attention_ref as jax_decode
+    return jax_decode(q, k, v, lengths)
+
+
+# (G, HD, dtype): the serving cells' ratios (Qwen 1, chat 2) and jamba's 8
+GQA_DECODE_CASES = [(g, hd, dt) for g in (1, 2, 8) for hd in (64, 128)
+                    for dt in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("G,HD,dtype", GQA_DECODE_CASES,
+                         ids=[f"G{g}-D{hd}-{dt}"
+                              for g, hd, dt in GQA_DECODE_CASES])
+def test_gqa_decode_cpu_is_the_plain_version_and_holds_to_jax(G, HD, dtype):
+    """On CPU tensors the wrapper is ``decode_attention_ref`` bit for bit
+    (and launches nothing); both hold to JAX's decode_attention_ref at the
+    decode bar (f32 3e-5, bf16 3e-2), on ragged lengths with 1, S and one
+    past S, which counts S."""
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    from repro_torch.models.attention import decode_attention_ref
+    B, S, KV = 4, 40, 2
+    q, k, v = _gqa_inputs(B, S, G * KV, KV, HD, 11 * G + HD)
+    lens = np.asarray([1, S, S + 1, 23], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    launches = gqa_decode.launches
+    o = gqa_decode(tq, tk, tv, torch.from_numpy(lens))
+    assert gqa_decode.launches == launches
+    ref = decode_attention_ref(tq, tk, tv, torch.from_numpy(lens))
+    assert o.dtype == tq.dtype and torch.equal(o, ref)
+    want = np.asarray(_jax_decode(jq, jk, jv, jnp.asarray(lens)))
+    np.testing.assert_allclose(_f32(o), want.astype(np.float32), rtol=0,
+                               atol=DTYPES[dtype][2])
+
+
+def _round_to(x: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        dtype).float().numpy()
+
+
+def _butterfly(parts: np.ndarray) -> np.ndarray:
+    """A shuffle butterfly's sum over the last axis (lanes), as every lane
+    ends with it: at each step lane l adds lane l ^ off."""
+    n = parts.shape[-1]
+    idx = np.arange(n)
+    off = n // 2
+    while off:
+        parts = (parts + parts[..., idx ^ off]).astype(np.float32)
+        off //= 2
+    return parts[..., 0]
+
+
+def _gqa_in_kernel_order(q, k, v, lengths, chunk, q_dtype):
+    """``csrc/gqa_decode.cu`` in its order of sums, in float32 with fused
+    multiply-adds, for (B, H, HD) q and (B, S, KV, HD) bf16 caches already
+    in their dtypes' values: per (row, KV head, chunk of keys), each score
+    a butterfly over LANES threads of per-thread FMA chains over 16 bytes
+    (8 values) of K, divided by sqrt(HD); the chunk's max and, per lane of
+    a warp, a running sum of exp(s - max) over every 32nd key, added by a
+    butterfly; the chunks folded in order into M and L = fma(l_j,
+    exp(m_j - M), L); weights exp(s - M) / L rounded to bf16; per group of
+    threads (a query head and every per-th key) an FMA chain of weight x
+    V, the groups added in order; the chunks' partials added in order."""
+    B, H, HD = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    vec = 8
+    lanes, per = HD // vec, (256 // (HD // vec)) // G
+    sqrt_hd = np.float32(np.sqrt(np.float32(HD)))
+    out = np.zeros((B, H, HD), np.float32)
+    for b in range(B):
+        n = int(lengths[b])
+        uniform = n <= 0
+        n = S if uniform or n > S else n
+        nc = -(-n // chunk)
+        for kv in range(KV):
+            qg = q[b, kv * G:(kv + 1) * G].reshape(G, lanes, vec)
+            stats, scores = [], []
+            for c in range(nc):
+                kk = k[b, c * chunk:min(n, (c + 1) * chunk), kv]
+                kl = kk.reshape(len(kk), lanes, vec)
+                acc = np.zeros((G, len(kk), lanes), np.float32)
+                for j in range(vec):
+                    acc = _fma_f32(qg[:, None, :, j], kl[None, :, :, j], acc)
+                s = (_butterfly(acc) / sqrt_hd).astype(np.float32)
+                if uniform:
+                    s[:] = np.float32(-1e30)
+                m = s.max(-1)
+                lane_sum = np.zeros((G, 32), np.float32)
+                for i in range(s.shape[1]):
+                    lane_sum[:, i % 32] += np.exp(s[:, i] - m)
+                stats.append((m, _butterfly(lane_sum)))
+                scores.append(s)
+            M = np.max([m for m, _ in stats], axis=0)
+            L = np.zeros(G, np.float32)
+            for m, l in stats:
+                L = _fma_f32(l, np.exp(m - M), L)
+            o = np.zeros((G, HD), np.float32)
+            for c, s in enumerate(scores):
+                w = _round_to(np.exp(s - M[:, None]) / L[:, None],
+                              torch.bfloat16)
+                vv = v[b, c * chunk:c * chunk + s.shape[1], kv]
+                red = np.zeros((per, G, HD), np.float32)
+                for i in range(s.shape[1]):
+                    red[i % per] = _fma_f32(w[:, i:i + 1], vv[i][None],
+                                            red[i % per])
+                part = np.zeros((G, HD), np.float32)
+                for r in range(per):
+                    part = (part + red[r]).astype(np.float32)
+                o = (o + part).astype(np.float32)
+            out[b, kv * G:(kv + 1) * G] = o
+    return _round_to(out, q_dtype)
+
+
+# (B, S, G, HD, chunk, lengths): one chunk and several, a ragged last chunk,
+# lengths 0 (every position, equal weights), 1, S and past S
+GQA_ORDER_CASES = [(3, 130, 2, 64, 64, [130, 1, 65]),
+                   (2, 100, 1, 128, 256, [100, 37]),
+                   (2, 96, 8, 64, 64, [0, 97]),
+                   (4, 70, 3, 128, 64, [64, 65, 2, 70])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,G,HD,chunk,lengths", GQA_ORDER_CASES,
+                         ids=[f"S{c[1]}-G{c[2]}-D{c[3]}-chunk{c[4]}"
+                              for c in GQA_ORDER_CASES])
+def test_gqa_decode_kernel_order_vs_jax(B, S, G, HD, chunk, lengths, dtype):
+    """The kernel's order of sums (:func:`_gqa_in_kernel_order`), its keys
+    in chunks as its blocks take them, against JAX's decode_attention_ref,
+    with bf16 caches (the only ones the kernel takes) and q and the output
+    in ``dtype``, at the decode bar of bf16 caches, 3e-2 (the weights
+    rounded to bf16 before PV in both, where a weight near a rounding
+    edge may round the other way under another order of sums)."""
+    KV = 2
+    q, k, v = _gqa_inputs(B, S, G * KV, KV, HD, S + G + HD)
+    jq, tq = _pair(q, dtype)
+    (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in (k, v))
+    lens = np.asarray(lengths, np.int32)
+    got = _gqa_in_kernel_order(*(t.float().numpy() for t in (tq, tk, tv)),
+                               lens, chunk, DTYPES[dtype][1])
+    want = np.asarray(_jax_decode(jq, jk, jv, jnp.asarray(lens)))
+    assert want.dtype == DTYPES[dtype][0]
+    np.testing.assert_allclose(got, want.astype(np.float32), rtol=0,
+                               atol=DTYPES["bfloat16"][2])
+
+
+@pytest.mark.parametrize("B,KV,G,S,HD,chunk", [
+    (64, 8, 2, 4096, 128, 512),   # the chat cell
+    (16, 16, 1, 4096, 128, 256),  # the Qwen cell
+    (8, 4, 3, 512, 64, 64),       # tacc-100m: fill the SMs
+    (2, 2, 2, 40, 16, 40),        # a smoke config: at most S
+    (4, 8, 16, 4096, 128, 64),
+    (64, 8, 2, 4096, 64, 512)])   # 1,024 keys of 128 KB, halved once
+def test_gqa_decode_key_chunks(B, KV, G, S, HD, chunk):
+    """At most 128 KB of K a chunk, fewer keys where B x KV x chunks would
+    give an SM fewer than 24, never more than S."""
+    from repro_torch.kernels import gqa_decode as GD
+    assert GD.key_chunk(B, KV, G, S, HD, 132) == chunk
+    assert chunk * G <= GD.MAX_SCORES
+
+
+def test_gqa_decode_entry_signature_matches_the_source():
+    """ctypes passes as many arguments as gqa_decode.cu's C entry takes,
+    each pointer as a pointer; the source's limits are the wrapper's."""
+    from repro_torch.kernels import gqa_decode as GD
+    src = (build.CSRC / "gqa_decode.cu").read_text()
+    params = re.search(r"\nint gqa_decode\(([^)]*)\)", src).group(1)
+    params = [" ".join(p.split()) for p in params.split(",")]
+    argtypes = GD._SIGNATURES["gqa_decode"]
+    assert len(params) == len(argtypes) == 17
+    for p, a in zip(params, argtypes):
+        assert ("*" in p) == (a is not ctypes.c_int), (p, a)
+    assert f"kMaxScores = {GD.MAX_SCORES};" in src
+    assert f"kThreads = {GD.THREADS};" in src
+    assert f"kMaxRows = {GD.MAX_ROWS};" in src
+    assert all(f"case {hd}:" in src for hd in GD.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("B,S,H,KV,HD,dtype", [
+    (2, 40, 4, 2, 16, torch.bfloat16), (64, 4096, 16, 8, 128, torch.bfloat16),
+    (3, 100, 12, 4, 64, torch.float32)])
+def test_gqa_decode_on_meta_and_counted_once(B, S, H, KV, HD, dtype):
+    """On meta the wrapper returns (B, H, HD) in q's dtype without a launch,
+    having allocated its f32 scratch; under a counter, on meta and on the
+    CPU alike, a call records its work once, K and V at S, and the plain
+    version's ops inside are not counted."""
+    from repro_torch.kernels import gqa_decode as GD
+    from repro_torch.launch.count import Counter
+    work = GD.gqa_decode_work(B, S, H, KV, HD, dtype, torch.bfloat16)
+    el = torch.finfo(dtype).bits // 8
+    assert work == (2 * B * H * HD * el + 2 * B * S * KV * HD * 2,
+                    4.0 * B * H * S * HD, torch.float32)
+    launches = GD.gqa_decode.launches
+    records = []
+    for device in ("meta", "cpu"):
+        q = torch.zeros(B, H, HD, dtype=dtype, device=device)
+        kv = torch.zeros(B, S, KV, HD, dtype=torch.bfloat16, device=device)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+        with Counter(device) as c:
+            o = GD.gqa_decode(q, kv, kv, lengths)
+        assert (o.shape, o.dtype, o.device.type) == ((B, H, HD), dtype,
+                                                     device)
+        assert c.flops_by_op == {} and c.bytes == work[0]
+        records.append(c.kernels)
+        if device == "meta":
+            chunk = GD.key_chunk(B, KV, H // KV, S, HD, 132)
+            assert c.peak == (B * H * HD * el + 4 * GD.scratch_floats(
+                B, S, H, HD, KV, -(-S // chunk)))
+    assert records[0] == records[1] == {"gqa_decode": {
+        "calls": 1, "flops": work[1], "bytes": work[0],
+        "dtype": "float32"}}
+    assert GD.gqa_decode.launches == launches
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that says it lies on the card: the wrapper takes its
+    kernel path, whose checks run before any CUDA call."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+@pytest.mark.parametrize("HD,G,cache,len_dtype,error,match", [
+    (96, 2, torch.bfloat16, torch.int32, ValueError, "head dim 96"),
+    (192, 1, torch.bfloat16, torch.int32, ValueError, "head dim 192"),
+    (32, 2, torch.bfloat16, torch.int32, ValueError, "head dim 32"),
+    (128, 17, torch.bfloat16, torch.int32, ValueError, "17 query heads"),
+    (64, 2, torch.float32, torch.int32, TypeError, "bfloat16 caches"),
+    (64, 2, torch.float16, torch.int32, TypeError, "bfloat16 caches"),
+    (64, 2, torch.bfloat16, torch.int16, ValueError, "int32 or int64")])
+def test_gqa_decode_kernel_path_refuses_what_it_has_no_kernel_for(
+        HD, G, cache, len_dtype, error, match):
+    """A CUDA-typed call at a head dim no kernel is built for, with more
+    query heads a KV head than a block takes, with caches other than bf16
+    or lengths other than int32 or int64, raises
+    naming it, before any launch; the plain version (CPU tensors) serves
+    every one."""
+    from repro_torch.kernels import gqa_decode as GD
+    q, k, v = (torch.from_numpy(a) for a in _gqa_inputs(1, 8, G, 1, HD, HD))
+    q, k, v = q.bfloat16(), k.to(cache), v.to(cache)
+    lengths = torch.tensor([5], dtype=len_dtype)
+    launches = GD.gqa_decode.launches
+    with pytest.raises(error, match=match):
+        GD.gqa_decode(*(t.as_subclass(_OnCuda) for t in (q, k, v, lengths)))
+    assert GD.gqa_decode.launches == launches
+    assert GD.gqa_decode(q, k, v, lengths).shape == (1, G, HD)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_117gqa_decode_scoresILi128E13__nv_bfloat16EEvNS_4ArgsE",
+     "gqa_decode_scores<128, bf16>"),
+    ("_ZN12_GLOBAL__N_117gqa_decode_scoresILi64EfEEvNS_4ArgsE",
+     "gqa_decode_scores<64, float>"),
+    ("_ZN12_GLOBAL__N_117gqa_decode_scoresILi16E13__nv_bfloat16EEvNS_4ArgsE",
+     "gqa_decode_scores<16, bf16>"),
+    ("_ZN12_GLOBAL__N_113gqa_decode_pvILi128E13__nv_bfloat16EEvNS_4ArgsE",
+     "gqa_decode_pv<128, bf16>"),
+    ("_ZN12_GLOBAL__N_113gqa_decode_pvILi64EfEEvNS_4ArgsE",
+     "gqa_decode_pv<64, float>"),
+    ("_ZN12_GLOBAL__N_113gqa_decode_pvILi16EfEEvNS_4ArgsE",
+     "gqa_decode_pv<16, float>")])
+def test_chip_smoke_names_every_gqa_decode_kernel(mangled, name):
+    """chip_smoke.py reads ptxas's report by these names (head dim, q's
+    dtype; the caches are bf16); its spill check looks for the chat cell's
+    two kernels."""
+    assert _chip_smoke().kernel_name(mangled) == name
+
+
+def test_chip_smoke_counts_the_decode_kernel_against_the_dry_run():
+    """chip_smoke.py's phase 20 (a) holds each wrapper's launches to its
+    kernel's calls in the dry run, the GQA decode attention's among
+    them."""
+    cs = _chip_smoke()
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    assert gqa_decode in cs.DRY_WRAPPERS
+    assert set(cs.DRY_NAMES) == {fn.__name__ for fn in cs.DRY_WRAPPERS}
+    assert cs.DRY_NAMES["gqa_decode"] == "gqa_decode"
